@@ -1,0 +1,282 @@
+"""Structure-of-arrays world model: keyframes, map points, observations
+(port of ``bundle_adjustment_tpu.models.map_store`` with the numpy
+observation table only, like ``Map(use_native=False)``; the ctypes native
+mirror is not ported yet).
+
+The flat observation table — (kf_id, mp_id, kp_idx, u, v) rows — is at once
+the per-point and per-keyframe observation list and the BA sparsity
+pattern.  ``gather_window`` compacts a keyframe window into a padded
+BAProblem on the map's device; ``apply_ba_result`` writes optimized poses
+and points back.  Keyframe descriptor banks stay on the device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from bundle_adjustment_tpu_torch import device as device_mod
+from bundle_adjustment_tpu_torch.ops import ba
+from bundle_adjustment_tpu_torch.ops.lie import so3_exp_np, so3_log_np
+
+_GROW = 1.5
+
+
+def _bucket(n: int, buckets=(256, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536, 131072)) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    return int(2 ** np.ceil(np.log2(max(n, 1))))
+
+
+@dataclasses.dataclass
+class Keyframe:
+    """Host view of one keyframe (the reference's R, t convention)."""
+
+    kf_id: int
+    R: np.ndarray             # (3, 3)
+    t: np.ndarray             # (3,)
+    xy: np.ndarray            # (N, 2) keypoint pixels (fixed capacity, masked)
+    desc: torch.Tensor        # (N, 8) int32 descriptor words, on the device
+    kp_valid: np.ndarray      # (N,) bool
+    frame_idx: int = -1
+    kp_to_mp: np.ndarray = None   # kp_idx -> mp_id (-1 = none)
+
+    def __post_init__(self):
+        if self.kp_to_mp is None:
+            self.kp_to_mp = np.full(self.xy.shape[0], -1, np.int64)
+
+
+class Map:
+    """The world model: host numpy arrays, descriptor banks on ``device``."""
+
+    def __init__(self, device="cuda"):
+        self.device = device_mod.resolve(device)
+        self.keyframes: dict[int, Keyframe] = {}
+        self.next_keyframe_id = 0
+        self.next_map_point_id = 0
+        self.log = None   # optional EventLog for capacity_drop events
+
+        cap = 1024
+        self._pts = np.zeros((cap, 3), np.float64)
+        self._colors = np.zeros((cap, 3), np.float64)
+        self._pt_alive = np.zeros(cap, bool)
+        self._n_pts = 0
+
+        ocap = 4096
+        self._obs_kf = np.zeros(ocap, np.int64)
+        self._obs_mp = np.zeros(ocap, np.int64)
+        self._obs_kp = np.zeros(ocap, np.int64)
+        self._obs_uv = np.zeros((ocap, 2), np.float64)
+        self._obs_alive = np.zeros(ocap, bool)
+        self._n_obs = 0
+
+    # -- keyframes ---------------------------------------------------------
+
+    def add_keyframe(self, kf: Keyframe) -> int:
+        if kf.kf_id in self.keyframes:
+            raise ValueError(f"keyframe id {kf.kf_id} already exists")
+        self.keyframes[kf.kf_id] = kf
+        self.next_keyframe_id = max(self.next_keyframe_id, kf.kf_id + 1)
+        return kf.kf_id
+
+    def new_keyframe_id(self) -> int:
+        return self.next_keyframe_id
+
+    @property
+    def num_keyframes(self) -> int:
+        return len(self.keyframes)
+
+    def sorted_kf_ids(self) -> list[int]:
+        return sorted(self.keyframes)
+
+    # -- map points --------------------------------------------------------
+
+    def _ensure_pts(self, extra: int):
+        need = self._n_pts + extra
+        if need > len(self._pts):
+            cap = max(int(len(self._pts) * _GROW), need)
+            for name in ("_pts", "_colors"):
+                a = getattr(self, name)
+                b = np.zeros((cap, a.shape[1]), a.dtype)
+                b[: self._n_pts] = a[: self._n_pts]
+                setattr(self, name, b)
+            alive = np.zeros(cap, bool)
+            alive[: self._n_pts] = self._pt_alive[: self._n_pts]
+            self._pt_alive = alive
+
+    def add_map_points(self, pts: np.ndarray, colors: Optional[np.ndarray] = None) -> np.ndarray:
+        """Append a batch of points; returns their dense new ids."""
+        n = len(pts)
+        self._ensure_pts(n)
+        ids = np.arange(self._n_pts, self._n_pts + n)
+        self._pts[ids] = pts
+        self._colors[ids] = colors if colors is not None else 0.5
+        self._pt_alive[ids] = True
+        self._n_pts += n
+        self.next_map_point_id = self._n_pts
+        return ids
+
+    @property
+    def num_points(self) -> int:
+        return int(self._pt_alive[: self._n_pts].sum())
+
+    def points(self) -> np.ndarray:
+        return self._pts[: self._n_pts]
+
+    # -- observations ------------------------------------------------------
+
+    def _ensure_obs(self, extra: int):
+        need = self._n_obs + extra
+        if need > len(self._obs_kf):
+            cap = max(int(len(self._obs_kf) * _GROW), need)
+            for name in ("_obs_kf", "_obs_mp", "_obs_kp"):
+                a = getattr(self, name)
+                b = np.zeros(cap, a.dtype)
+                b[: self._n_obs] = a[: self._n_obs]
+                setattr(self, name, b)
+            uv = np.zeros((cap, 2), np.float64)
+            uv[: self._n_obs] = self._obs_uv[: self._n_obs]
+            self._obs_uv = uv
+            alive = np.zeros(cap, bool)
+            alive[: self._n_obs] = self._obs_alive[: self._n_obs]
+            self._obs_alive = alive
+
+    def add_observations(self, kf_id: int, mp_ids: np.ndarray, kp_idxs: np.ndarray,
+                         uvs: np.ndarray):
+        """Register observations (one table serves both directions)."""
+        n = len(mp_ids)
+        if n == 0:
+            return
+        self._ensure_obs(n)
+        sl = slice(self._n_obs, self._n_obs + n)
+        self._obs_kf[sl] = kf_id
+        self._obs_mp[sl] = mp_ids
+        self._obs_kp[sl] = kp_idxs
+        self._obs_uv[sl] = uvs
+        self._obs_alive[sl] = True
+        self._n_obs += n
+        self.keyframes[kf_id].kp_to_mp[kp_idxs] = mp_ids
+
+    @property
+    def num_observations(self) -> int:
+        return int(self._obs_alive[: self._n_obs].sum())
+
+    # -- BA window extraction / writeback ---------------------------------
+
+    def gather_window(self, window_kf_ids: list[int], K: np.ndarray,
+                      max_points: int, max_obs: int, dtype=np.float32,
+                      pad_to_max: bool = False):
+        """Padded BAProblem for a keyframe window, on the map's device:
+        points observed by window keyframes and only the observations those
+        keyframes made.  Returns (problem, mp_ids, obs_rows) or None."""
+        window_kf_ids = list(window_kf_ids)
+        kf_pos: dict = {}
+        for i, k in enumerate(window_kf_ids):
+            kf_pos.setdefault(k, i)
+
+        alive = self._obs_alive[: self._n_obs]
+        in_win = np.isin(self._obs_kf[: self._n_obs], window_kf_ids) & alive
+        obs_rows = np.flatnonzero(in_win)
+        okf = self._obs_kf[obs_rows]
+        omp = self._obs_mp[obs_rows]
+        ouv = self._obs_uv[obs_rows]
+        if len(omp) == 0:
+            return None
+
+        mp_ids, pnt_idx = np.unique(omp, return_inverse=True)
+        if len(mp_ids) > max_points or len(omp) > max_obs:
+            n_pts_before, n_obs_before = len(mp_ids), len(omp)
+            counts = np.bincount(pnt_idx)
+            keep_p = np.argsort(-counts)[:max_points]
+            keep_mask = np.isin(pnt_idx, keep_p)
+            okf, omp, ouv = okf[keep_mask], omp[keep_mask], ouv[keep_mask]
+            obs_rows = obs_rows[keep_mask][:max_obs]
+            okf, omp, ouv = okf[:max_obs], omp[:max_obs], ouv[:max_obs]
+            mp_ids, pnt_idx = np.unique(omp, return_inverse=True)
+            if self.log is not None:
+                self.log.emit(
+                    "capacity_drop",
+                    f"    -> BA window over capacity: dropped "
+                    f"{n_pts_before - len(mp_ids)} points / "
+                    f"{n_obs_before - len(omp)} observations "
+                    f"(max_points={max_points}, max_obs={max_obs})",
+                    dropped_points=int(n_pts_before - len(mp_ids)),
+                    dropped_obs=int(n_obs_before - len(omp)),
+                    max_points=int(max_points), max_obs=int(max_obs),
+                )
+
+        cam_idx = np.array([kf_pos[k] for k in okf], np.int32)
+        if pad_to_max:
+            P, O = max_points, max_obs
+        else:
+            P = _bucket(len(mp_ids))
+            O = _bucket(len(omp))
+
+        rvecs = np.stack([so3_log_np(self.keyframes[k].R) for k in window_kf_ids]).astype(dtype)
+        tvecs = np.stack([self.keyframes[k].t for k in window_kf_ids]).astype(dtype)
+        pts = np.zeros((P, 3), dtype)
+        pts[: len(mp_ids)] = self._pts[mp_ids]
+        point_mask = np.zeros(P, bool)
+        point_mask[: len(mp_ids)] = True
+        ci = np.zeros(O, np.int32)
+        pi = np.zeros(O, np.int32)
+        uv = np.zeros((O, 2), dtype)
+        om = np.zeros(O, dtype)
+        ci[: len(omp)] = cam_idx
+        pi[: len(omp)] = pnt_idx
+        uv[: len(omp)] = ouv
+        om[: len(omp)] = 1.0
+
+        def dev(a):
+            return torch.as_tensor(a, device=self.device)
+
+        problem = ba.BAProblem(
+            rvecs=dev(rvecs), tvecs=dev(tvecs), points=dev(pts),
+            cam_idx=dev(ci), pnt_idx=dev(pi), uv=dev(uv), obs_mask=dev(om),
+            point_mask=dev(point_mask), K=dev(np.asarray(K, dtype)),
+        )
+        return problem, mp_ids, obs_rows
+
+    def kill_observations(self, obs_rows: np.ndarray):
+        """Remove observation-table rows (post-BA outlier pruning) and clear
+        the kp->mp back-pointers they set."""
+        self._obs_alive[obs_rows] = False
+        for r in obs_rows:
+            kf = self.keyframes[self._obs_kf[r]]
+            if kf.kp_to_mp[self._obs_kp[r]] == self._obs_mp[r]:
+                kf.kp_to_mp[self._obs_kp[r]] = -1
+
+    def apply_ba_result(self, window_kf_ids: list[int], mp_ids: np.ndarray,
+                        rvecs, tvecs, points, n_fixed: int = 1):
+        """Write optimized poses/points back; gauge-fixed poses untouched."""
+        rvecs = np.asarray(rvecs, np.float64)
+        tvecs = np.asarray(tvecs, np.float64)
+        points = np.asarray(points, np.float64)
+        for i, k in enumerate(window_kf_ids):
+            if i < n_fixed:
+                continue
+            kf = self.keyframes[k]
+            kf.R = so3_exp_np(rvecs[i])
+            kf.t = tvecs[i]
+        self._pts[mp_ids] = points[: len(mp_ids)]
+
+    # -- export ------------------------------------------------------------
+
+    def get_pcd(self):
+        """(points, colors) of alive map points."""
+        alive = self._pt_alive[: self._n_pts]
+        return self._pts[: self._n_pts][alive], self._colors[: self._n_pts][alive]
+
+    def trajectory(self, consistent: bool = False):
+        """(K, 3) camera positions in keyframe order: t (the reference's
+        convention) or, with ``consistent``, the optical centre -R^T t."""
+        ids = self.sorted_kf_ids()
+        if not ids:
+            return np.zeros((0, 3))
+        if consistent:
+            return np.stack([-self.keyframes[k].R.T @ self.keyframes[k].t for k in ids])
+        return np.stack([self.keyframes[k].t for k in ids])

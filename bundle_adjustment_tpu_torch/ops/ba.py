@@ -1,0 +1,299 @@
+"""Windowed bundle adjustment on the flat observation table: Schur-complement
+Levenberg-Marquardt (port of ``bundle_adjustment_tpu.ops.ba``).
+
+Same problem layout (BAProblem), Huber IRLS weights, Marquardt damping,
+closed-form 3x3 point elimination, dense reduced camera system, LM
+accept/reject with ftol/xtol.  ``segment_sum`` becomes ``index_add``.  The
+LM loop is a Python loop that reads its stop flag once per iteration.
+
+Not in this slice: the matrix-free PCG camera solve (``_pcg_blocked``,
+``cg_iters > 0``) and the ``axis_name`` hook of the sharded solver; both
+raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from bundle_adjustment_tpu_torch.ops.lie import so3_exp, so3_exp_and_jac
+
+
+class BAProblem(NamedTuple):
+    """Static-shape windowed BA problem: C cameras (first ``n_fixed``
+    gauge-fixed), P points, O observations, all padded."""
+
+    rvecs: torch.Tensor     # (C, 3)
+    tvecs: torch.Tensor     # (C, 3)
+    points: torch.Tensor    # (P, 3)
+    cam_idx: torch.Tensor   # (O,) int in [0, C)
+    pnt_idx: torch.Tensor   # (O,) int in [0, P)
+    uv: torch.Tensor        # (O, 2)
+    obs_mask: torch.Tensor  # (O,) f32 or bool
+    point_mask: torch.Tensor  # (P,) bool
+    K: torch.Tensor         # (3, 3)
+
+
+class BAStats(NamedTuple):
+    initial_cost: torch.Tensor   # robust (Huber) cost, 0.5*sum(rho)
+    final_cost: torch.Tensor
+    initial_sq: torch.Tensor     # raw sum of squared residuals
+    final_sq: torch.Tensor
+    iterations: torch.Tensor
+    accepted: torch.Tensor
+
+
+def _segment_sum(x, idx, n):
+    out = torch.zeros((n,) + x.shape[1:], dtype=x.dtype, device=x.device)
+    return out.index_add_(0, idx.long(), x)
+
+
+def _residuals(rvecs, tvecs, points, p: BAProblem):
+    """(O, 2) reprojection residuals, masked."""
+    Rs = so3_exp(rvecs)
+    ci = p.cam_idx.long()
+    X = points[p.pnt_idx.long()]
+    Xc = torch.einsum("oij,oj->oi", Rs[ci], X) + tvecs[ci]
+    z = Xc[:, 2]
+    z_safe = torch.where(torch.abs(z) < 1e-9, torch.full_like(z, 1e-9), z)
+    u = p.K[0, 0] * Xc[:, 0] / z_safe + p.K[0, 2]
+    v = p.K[1, 1] * Xc[:, 1] / z_safe + p.K[1, 2]
+    r = torch.stack([u, v], dim=1) - p.uv
+    return r * p.obs_mask[:, None]
+
+
+def _huber_weights(r, delta):
+    """Per-component IRLS weights for scipy's loss='huber'."""
+    a = torch.abs(r)
+    return torch.where(a <= delta, torch.ones_like(a), delta / torch.clamp(a, min=1e-12))
+
+
+def robust_cost(r, delta):
+    """0.5 * sum(rho(r)) with Huber rho."""
+    a = torch.abs(r)
+    quad = r * r
+    lin = 2.0 * delta * a - delta * delta
+    return 0.5 * torch.sum(torch.where(a <= delta, quad, lin))
+
+
+def _duv_dxc(Xc, K):
+    """(.., 2, 3) pinhole projection Jacobian and the safe 1/z."""
+    z = Xc[..., 2]
+    z_safe = torch.where(torch.abs(z) < 1e-9, torch.full_like(z, 1e-9), z)
+    inv_z = 1.0 / z_safe
+    fx, fy = K[0, 0], K[1, 1]
+    zeros = torch.zeros_like(inv_z)
+    return torch.stack(
+        [
+            torch.stack([fx * inv_z, zeros, -fx * Xc[..., 0] * inv_z * inv_z], dim=-1),
+            torch.stack([zeros, fy * inv_z, -fy * Xc[..., 1] * inv_z * inv_z], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def _obs_jacobians(rvecs, tvecs, points, p: BAProblem):
+    """Jc (O, 2, 6) wrt (rvec, tvec) and Jp (O, 2, 3) wrt the point; the
+    rotation derivative is computed once per camera (analytic, equal to
+    jacfwd(so3_exp) to float tolerance)."""
+    Rs, dRdr = so3_exp_and_jac(rvecs)
+    ci = p.cam_idx.long()
+    X = points[p.pnt_idx.long()]
+    Rg = Rs[ci]
+    Xc = torch.einsum("oij,oj->oi", Rg, X) + tvecs[ci]
+    duv_dXc = _duv_dxc(Xc, p.K)
+    J_X = torch.einsum("oki,oij->okj", duv_dXc, Rg)
+    dXc_dr = torch.einsum("oijr,oj->oir", dRdr[ci], X)
+    J_r = torch.einsum("oki,oir->okr", duv_dXc, dXc_dr)
+    return torch.cat([J_r, duv_dXc], dim=2), J_X
+
+
+def _inv3(M):
+    """Batched closed-form 3x3 inverse (adjugate / det)."""
+    a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
+    d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
+    g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
+    A = e * i - f * h
+    B = c * h - b * i
+    Cc = b * f - c * e
+    D = f * g - d * i
+    E = a * i - c * g
+    F = c * d - a * f
+    G = d * h - e * g
+    H = b * g - a * h
+    I = a * e - b * d
+    det = a * A + b * D + c * G
+    det = torch.where(torch.abs(det) < 1e-12, torch.full_like(det, 1e-12), det)
+    adj = torch.stack(
+        [torch.stack([A, B, Cc], dim=-1), torch.stack([D, E, F], dim=-1),
+         torch.stack([G, H, I], dim=-1)], dim=-2)
+    inv = adj / det[..., None, None]
+    # A point within a hair of a camera centre has a V block near 1e13 whose
+    # determinant overflows float32.  Evaluated op by op, as here, det is
+    # then inf - inf = NaN and one NaN poisons the whole camera solve; the
+    # JAX package's jitted solve contracts the sum into FMAs, gets det = inf
+    # and an inverse of 0, which freezes that point for the step.  Do the
+    # same explicitly.
+    ok = torch.isfinite(inv).all(dim=-1).all(dim=-1)
+    return torch.where(ok[..., None, None], inv, torch.zeros_like(inv))
+
+
+def _damp(M, lam):
+    """M + lam * (|diag(M)| + 1e-6 I), batched over leading dims."""
+    n = M.shape[-1]
+    eye = torch.eye(n, dtype=M.dtype, device=M.device)
+    diag = torch.abs(torch.diagonal(M, dim1=-2, dim2=-1))
+    return M + lam * (torch.diag_embed(diag) + 1e-6 * eye)
+
+
+def _solve_normal_equations(rvecs, tvecs, points, p: BAProblem, lam, delta, n_fixed):
+    """One damped Schur step with a dense reduced camera system: returns
+    (d_rvecs, d_tvecs, d_points)."""
+    C = rvecs.shape[0]
+    P = points.shape[0]
+    C_adj = C - n_fixed
+    nC = max(C_adj, 1)
+    n = nC * 6
+
+    r = _residuals(rvecs, tvecs, points, p)
+    w = _huber_weights(r, delta) * p.obs_mask[:, None]
+    Jc, Jp = _obs_jacobians(rvecs, tvecs, points, p)
+
+    cam_adj = p.cam_idx.long() - n_fixed
+    cam_ok = (cam_adj >= 0)[:, None, None]
+    cam_adj_c = torch.clamp(cam_adj, 0, max(C_adj - 1, 0))
+    pi = p.pnt_idx.long()
+    Jc = torch.where(cam_ok, Jc, torch.zeros_like(Jc))
+
+    Jc_w = Jc * w[:, :, None]
+    Jp_w = Jp * w[:, :, None]
+
+    U_o = torch.einsum("oki,okj->oij", Jc_w, Jc)
+    V_o = torch.einsum("oki,okj->oij", Jp_w, Jp)
+    Y_o = torch.einsum("oki,okj->oij", Jc_w, Jp)
+    gc_o = torch.einsum("oki,ok->oi", Jc_w, r)
+    gp_o = torch.einsum("oki,ok->oi", Jp_w, r)
+
+    U = _damp(_segment_sum(U_o, cam_adj_c, nC), lam)
+    V = _damp(_segment_sum(V_o, pi, P), lam)
+    g_c = _segment_sum(gc_o, cam_adj_c, nC)
+    g_p = _segment_sum(gp_o, pi, P)
+    Vinv = _inv3(V)
+    Vinv = torch.where(p.point_mask[:, None, None], Vinv, torch.zeros_like(Vinv))
+
+    z_p = torch.einsum("pij,pj->pi", Vinv, g_p)
+    Wz_o = torch.einsum("oij,oj->oi", Y_o, z_p[pi])
+    b_blocks = -g_c + _segment_sum(Wz_o, cam_adj_c, nC)
+
+    # dense Schur complement S = blockdiag(U) - W V^-1 W^T
+    B = torch.zeros((P, nC, 6, 3), dtype=U.dtype, device=U.device)
+    B.index_put_((pi, cam_adj_c), Y_o * cam_ok.to(U.dtype), accumulate=True)
+    BV = torch.einsum("pcik,pkl->pcil", B, Vinv)
+    S = -torch.einsum("pcil,pdjl->cidj", BV, B).reshape(n, n)
+    idx = torch.arange(nC, device=U.device)
+    Ublock = torch.zeros((nC, 6, nC, 6), dtype=U.dtype, device=U.device)
+    Ublock[idx, :, idx, :] = U
+    S = S + Ublock.reshape(n, n)
+    eye = torch.eye(n, dtype=S.dtype, device=S.device)
+    dc = torch.linalg.solve_ex(S + 1e-8 * eye, b_blocks.reshape(n))[0]
+    dc_blocks = dc.reshape(nC, 6)
+
+    Wt_dc_o = torch.einsum("oij,oi->oj", Y_o, dc_blocks[cam_adj_c])
+    Wt_dc = _segment_sum(Wt_dc_o, pi, P)
+    dp = torch.einsum("pij,pj->pi", Vinv, -g_p - Wt_dc)
+
+    d_r = torch.zeros_like(rvecs)
+    d_t = torch.zeros_like(tvecs)
+    d_r[n_fixed:] = dc_blocks[:C_adj, :3]
+    d_t[n_fixed:] = dc_blocks[:C_adj, 3:]
+    return d_r, d_t, dp
+
+
+def lm_loop(step, cost_at, sq_at, rv, tv, pt, *, max_iterations, lambda_init,
+            lambda_up, lambda_down, lambda_min, lambda_max, ftol, xtol):
+    """The LM accept/reject loop shared by the flat and grid solvers.
+    ``step(rv, tv, pt, lam) -> (d_r, d_t, d_p)``.  Returns
+    (rv, tv, pt, BAStats)."""
+    init_cost = cost_at(rv, tv, pt)
+    init_sq = sq_at(rv, tv, pt)
+    lam = torch.tensor(lambda_init, dtype=rv.dtype, device=rv.device)
+    cost = init_cost
+    it = 0
+    while it < max_iterations:
+        d_r, d_t, d_p = step(rv, tv, pt, lam)
+        rv2, tv2, pt2 = rv + d_r, tv + d_t, pt + d_p
+        new_cost = cost_at(rv2, tv2, pt2)
+        accept = new_cost < cost
+        step_norm = torch.sqrt(torch.sum(d_r * d_r) + torch.sum(d_t * d_t)
+                               + torch.sum(d_p * d_p))
+        param_norm = torch.sqrt(torch.sum(rv * rv) + torch.sum(tv * tv)
+                                + torch.sum(pt * pt))
+        converged = accept & (
+            ((cost - new_cost) <= ftol * torch.clamp(cost, min=1e-12))
+            | (step_norm <= xtol * (param_norm + xtol)))
+        rv = torch.where(accept, rv2, rv)
+        tv = torch.where(accept, tv2, tv)
+        pt = torch.where(accept, pt2, pt)
+        cost = torch.where(accept, new_cost, cost)
+        lam = torch.where(accept, torch.clamp(lam * lambda_down, min=lambda_min),
+                          torch.clamp(lam * lambda_up, max=lambda_max))
+        stuck = (~accept) & (lam >= lambda_max)
+        it += 1
+        if bool(converged | stuck):
+            break
+    stats = BAStats(
+        initial_cost=init_cost, final_cost=cost, initial_sq=init_sq,
+        final_sq=sq_at(rv, tv, pt),
+        iterations=torch.tensor(it, dtype=torch.int32),
+        accepted=cost < init_cost,
+    )
+    return rv, tv, pt, stats
+
+
+def ba_solve_impl(
+    problem: BAProblem,
+    n_fixed: int = 1,
+    max_iterations: int = 50,
+    huber_delta: float = 1.0,
+    lambda_init: float = 1e-3,
+    lambda_up: float = 4.0,
+    lambda_down: float = 0.5,
+    lambda_min: float = 1e-10,
+    lambda_max: float = 1e8,
+    ftol: float = 1e-5,
+    xtol: float = 1e-5,
+    axis_name: str | None = None,
+    cg_iters: int = 0,
+    cg_tol: float = 1e-6,
+):
+    """Levenberg-Marquardt with Schur elimination on the flat table.
+    Returns (rvecs, tvecs, points, BAStats); the caller applies the
+    divergence-discard rule."""
+    if axis_name is not None:
+        raise NotImplementedError(
+            "sharded BA (axis_name) needs parallel/dist_ba, not ported yet")
+    if cg_iters > 0:
+        raise NotImplementedError(
+            "the PCG camera solve (_pcg_blocked) comes with the global-BA "
+            "kernels (K4), not ported yet")
+    p = problem._replace(obs_mask=problem.obs_mask.to(problem.uv.dtype))
+
+    def cost_at(rv, tv, pt):
+        return robust_cost(_residuals(rv, tv, pt, p), huber_delta)
+
+    def sq_at(rv, tv, pt):
+        r = _residuals(rv, tv, pt, p)
+        return torch.sum(r * r)
+
+    def step(rv, tv, pt, lam):
+        return _solve_normal_equations(rv, tv, pt, p, lam, huber_delta, n_fixed)
+
+    return lm_loop(step, cost_at, sq_at, p.rvecs, p.tvecs, p.points,
+                   max_iterations=max_iterations, lambda_init=lambda_init,
+                   lambda_up=lambda_up, lambda_down=lambda_down,
+                   lambda_min=lambda_min, lambda_max=lambda_max, ftol=ftol,
+                   xtol=xtol)
+
+
+ba_solve = ba_solve_impl

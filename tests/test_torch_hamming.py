@@ -1,0 +1,121 @@
+"""Parity of the port's Hamming matching (``bundle_adjustment_tpu_torch.ops.
+hamming`` and the K1 wrapper ``ops.hamming_kernel``) with the JAX package.
+
+Inputs are made with numpy and handed to both sides.  Every comparison is
+exact: distances are integers <= 256 (or the INVALID_DIST sentinel) in both
+implementations, and both take the first index on ties.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bundle_adjustment_tpu.ops import hamming as jham
+from bundle_adjustment_tpu.ops.hamming_pallas import knn2_pallas
+from bundle_adjustment_tpu_torch import convert
+from bundle_adjustment_tpu_torch.ops import hamming as tham
+from bundle_adjustment_tpu_torch.ops import hamming_kernel
+
+# Several pytest workers share the cores: more torch threads per worker
+# only contend with each other (three times slower in all).
+torch.set_num_threads(1)
+
+
+def _words(rng, n):
+    return rng.integers(0, 2 ** 32, size=(n, 8), dtype=np.uint64).astype(np.uint32)
+
+
+def _case(seed, n1, n2, invalid_frac=0.1):
+    """Random words with planted ties (duplicate train rows, queries equal
+    to a train row or one bit away from it) and invalid train slots."""
+    rng = np.random.default_rng(seed)
+    d1, d2 = _words(rng, n1), _words(rng, n2)
+    if n2 > 1:
+        d2[1::3] = d2[0::3][: len(d2[1::3])]
+    d1[::4] = d2[np.arange(0, n1, 4) % n2]
+    d1[1::5] = d2[np.arange(1, n1, 5) % n2] ^ np.uint32(1 << 7)
+    valid2 = rng.random(n2) > invalid_frac
+    return d1, d2, valid2
+
+
+def _port(a):
+    return convert.descriptors(a, device="cpu")
+
+
+@pytest.mark.parametrize("n1,n2", [(130, 200), (257, 383), (64, 1), (5, 2)])
+def test_knn2_plain_matches_xla_oracle(n1, n2):
+    """best, idx and second agree exactly with hamming.knn2, ties and
+    invalid train slots included, at sizes that are not multiples of 128."""
+    d1, d2, valid2 = _case(n1 + n2, n1, n2)
+    jb, ji, js = jham.knn2(jnp.asarray(d1), jnp.asarray(d2), None, jnp.asarray(valid2))
+    tb, ti, ts = hamming_kernel.knn2_fused(_port(d1), _port(d2), torch.as_tensor(valid2))
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    if n2 > 1:
+        assert (tb.numpy() == ts.numpy()).any(), "the case plants no ties"
+
+
+@pytest.mark.parametrize("n1,n2", [(130, 200), (300, 129)])
+def test_knn2_plain_matches_pallas_interpret(n1, n2):
+    """Against knn2_pallas(interpret=True): exact on every row whose best
+    and second come from valid train slots.  The Pallas kernel adds
+    INVALID_DIST to an invalid slot's count (so 1e9 + d, rounded in f32)
+    where the port scores exactly INVALID_DIST, as the XLA oracle does; on
+    the other rows only the ratio test's verdict is compared, and it agrees
+    because both values fail the best < INVALID_DIST gate."""
+    d1, d2, valid2 = _case(7 * n1 + n2, n1, n2, invalid_frac=0.3)
+    jb, ji, js = (np.asarray(x) for x in knn2_pallas(
+        jnp.asarray(d1), jnp.asarray(d2), jnp.asarray(valid2), interpret=True))
+    tb, ti, ts = (x.numpy() for x in hamming_kernel.knn2_fused(
+        _port(d1), _port(d2), torch.as_tensor(valid2)))
+    real = ts < tham.INVALID_DIST
+    assert real.mean() > 0.9
+    np.testing.assert_array_equal(tb[real], jb[real])
+    np.testing.assert_array_equal(ti[real], ji[real])
+    np.testing.assert_array_equal(ts[real], js[real])
+    np.testing.assert_array_equal(
+        np.asarray(jham.ratio_test_mask(jnp.asarray(jb), jnp.asarray(js), 0.75)),
+        tham.ratio_test_mask(torch.as_tensor(tb), torch.as_tensor(ts), 0.75).numpy())
+
+
+@pytest.mark.parametrize("cross_check", [False, True])
+def test_match_matches_jax(cross_check):
+    d1, d2, valid2 = _case(11, 190, 170)
+    valid1 = np.random.default_rng(12).random(190) > 0.05
+    ji, jm, jb = (np.asarray(x) for x in jham.match(
+        jnp.asarray(d1), jnp.asarray(d2), jnp.asarray(valid1), jnp.asarray(valid2),
+        ratio=0.8, cross_check=cross_check))
+    ti, tm, tb = (x.numpy() for x in tham.match(
+        _port(d1), _port(d2), torch.as_tensor(valid1), torch.as_tensor(valid2),
+        ratio=0.8, cross_check=cross_check))
+    np.testing.assert_array_equal(tm, jm)
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_array_equal(tb, jb)
+    assert tm.sum() > 20
+
+
+def test_pack_and_unpack_bits_match_jax():
+    rng = np.random.default_rng(5)
+    u8 = rng.integers(0, 256, size=(37, 32), dtype=np.uint8)
+    jw = np.asarray(jham.pack_u8_to_u32(jnp.asarray(u8)))
+    tw = tham.pack_u8_to_u32(torch.as_tensor(u8))
+    assert tw.dtype == torch.int32
+    np.testing.assert_array_equal(convert.descriptors_to_u32(tw), jw)
+    np.testing.assert_array_equal(tham.unpack_bits(tw).numpy(),
+                                  np.asarray(jham.unpack_bits(jnp.asarray(jw))))
+    np.testing.assert_array_equal(
+        tham.hamming_matrix(tw[:20], tw[17:]).numpy(),
+        np.asarray(jham.hamming_matrix(jnp.asarray(jw[:20]), jnp.asarray(jw[17:]))))
+
+
+def test_wrapper_checks_its_inputs():
+    d = torch.zeros((4, 8), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        hamming_kernel.knn2_fused(d.to(torch.int64), d)
+    with pytest.raises(ValueError):
+        hamming_kernel.knn2_fused(d[:, :7], d)
+    with pytest.raises(ValueError):
+        hamming_kernel.knn2_fused(d, d, torch.ones(3, dtype=torch.bool))
+
