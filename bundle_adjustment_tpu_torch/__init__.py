@@ -6,10 +6,11 @@ counterpart that a reader can find:
 
 - ``ops``     — Lie algebra, projection, triangulation, Hamming matching,
                 ORB extraction, RANSAC pose, bundle-adjustment solvers.
-                The two hand-written Hopper kernels of this slice live beside
-                their callers: ``ops/hamming_kernel.py`` (Hamming 2-NN) and
-                ``ops/orb_kernel.py`` (ORB patch gather), sources in
-                ``csrc/``, built at first use by ``kernels.py``.
+                The hand-written Hopper kernels live beside their callers:
+                ``ops/hamming_kernel.py`` (Hamming 2-NN),
+                ``ops/orb_kernel.py`` (ORB patch gather) and
+                ``ops/ba_kernel.py`` (the one-launch window LM solve),
+                sources in ``csrc/``, built at first use by ``kernels.py``.
 - ``models``  — the map store, keyframe policy, fused tracked-frame step and
                 the frame-pipeline orchestrator.
 - ``utils``   — event log, PCD writer, trajectory metrics, a numpy-only

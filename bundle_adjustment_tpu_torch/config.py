@@ -105,10 +105,11 @@ class BAConfig:
     # round to ~3 decimal digits — direction noise the block-Jacobi
     # preconditioner and LM accept/reject absorb).
     cg_bf16_min_cameras: int = 512
-    # Window-scale solver: the fused Pallas LM kernel (ops/ba_pallas.py) runs
-    # the whole solve in one TPU kernel dispatch (~8 us/LM iteration on v5e,
-    # ~190x the XLA grid solver).  Auto-falls-back to the XLA grid solver
-    # off-TPU or when the window exceeds the kernel's static bounds.
+    # Window-scale solver: the window LM kernel (ops/ba_kernel.py, the
+    # counterpart of the JAX package's ops/ba_pallas.py; the field keeps its
+    # name) runs the whole solve in one kernel launch.  Windows outside the
+    # kernel's shape gate go to the grid solver, as does every window when
+    # this is False.
     use_pallas_ba: bool = True
 
 

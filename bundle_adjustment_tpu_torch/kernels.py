@@ -4,9 +4,10 @@ Each source in ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface (no PyTorch headers, so a build takes
 seconds) under ``build/kernels/`` at the root of the checkout, the first time
 a wrapper needs it.  ``build_all`` starts one ``nvcc`` per source at once.
-Libraries are loaded with ctypes; the wrappers in ``ops/hamming_kernel.py``
-and ``ops/orb_kernel.py`` pass ``data_ptr()`` pointers and PyTorch's current
-stream, and raise when a C entry point returns a CUDA error.
+Libraries are loaded with ctypes; the wrappers in ``ops/hamming_kernel.py``,
+``ops/orb_kernel.py`` and ``ops/ba_kernel.py`` pass ``data_ptr()`` pointers
+and PyTorch's current stream, and raise when a C entry point returns a CUDA
+error.
 
 ``LAUNCHES`` counts launches per kernel: a wrapper adds one where it
 launches, and nowhere else, so a run can show that it went through the
@@ -28,12 +29,15 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 #: kernel name -> (source file, C entry point, argtypes)
 KERNELS = {
     "hamming_knn2": ("hamming_knn2.cu", "hamming_knn2",
                      [_P, _I, _P, _I, _P, _P, _P, _P, _P]),
     "orb_gather40": ("orb_gather.cu", "orb_gather40",
                      [_P, _I, _I, _P, _P, _I, _P, _P]),
+    "ba_window_lm": ("ba_window_lm.cu", "ba_window_lm",
+                     [_P] * 8 + [_I] * 5 + [_F] * 8 + [_P] * 6),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}

@@ -8,11 +8,15 @@ insertion with covisibility re-observation -> windowed local BA with the
 newest keyframe's motion-only refine.  ``finalize`` runs the global and full
 BA and writes the outputs.
 
-This slice ports the branches the default configuration reaches with
-``BAConfig(use_pallas_ba=False)`` and at most ``pcg_min_cameras`` keyframes
-per solve, plus the staged (unfused) path.  Configurations that need a
-kernel or module not ported yet raise ``NotImplementedError`` naming it;
-none of them quietly takes another path.
+The port runs the branches the default configuration reaches with at most
+``pcg_min_cameras`` keyframes per solve, plus the staged (unfused) path.
+With ``BAConfig.use_pallas_ba`` (the default) a window whose shape the
+window LM kernel admits (``ops/ba_kernel.kernel_eligible``) is solved in one
+kernel launch; any other window, and every window with the switch off, goes
+to the grid solver.  The shape is the only gate: a kernel that fails to
+build or launch raises.  Configurations that need a kernel or module not
+ported yet raise ``NotImplementedError`` naming it; none of them quietly
+takes another path.
 
 Random draws: the JAX pipeline draws RANSAC sample uniforms from
 ``PRNGKey(0)`` (split once per essential or PnP RANSAC call) and from
@@ -37,7 +41,8 @@ from bundle_adjustment_tpu_torch.config import PipelineConfig
 from bundle_adjustment_tpu_torch.models import frontend
 from bundle_adjustment_tpu_torch.models.keyframe import decide_from_metrics, decide_keyframe
 from bundle_adjustment_tpu_torch.models.map_store import Keyframe, Map
-from bundle_adjustment_tpu_torch.ops import ba, ba_grid, hamming, orb, ransac, triangulation
+from bundle_adjustment_tpu_torch.ops import (ba, ba_grid, ba_kernel, hamming, orb, ransac,
+                                             triangulation)
 from bundle_adjustment_tpu_torch.ops.lie import rotation_angle, so3_exp_np, so3_hat, so3_log_np
 from bundle_adjustment_tpu_torch.ops.projection import epipolar_errors_px
 from bundle_adjustment_tpu_torch.utils.event_log import EventLog
@@ -74,11 +79,8 @@ class Draws:
 
 
 def _unported(cfg: PipelineConfig, dev: torch.device) -> Optional[str]:
-    """The first configuration switch this slice cannot run, with what it
-    needs, or None."""
-    if cfg.ba.use_pallas_ba and dev.type == "cuda":
-        return ("BAConfig.use_pallas_ba=True needs the window LM kernel (K3, "
-                "ops/ba_pallas.py), not ported yet; use BAConfig(use_pallas_ba=False)")
+    """The first configuration switch the port cannot run yet, with what
+    it needs, or None."""
     if cfg.reloc_enabled:
         return "reloc_enabled needs models/relocalize and ops/ann, not ported yet"
     if cfg.cull_enabled:
@@ -96,17 +98,21 @@ def _unported(cfg: PipelineConfig, dev: torch.device) -> Optional[str]:
     return None
 
 
-def _build_lba_refine_fn(n_fixed: int, opts: tuple, has_refine: bool,
-                         refine_iters: int, refine_huber: float, prune_thr: float):
-    """Window LBA (the grid solver; the window LM kernel K3 is not ported
-    yet) + optional motion-only refine of the newest keyframe + post-BA
+def _build_lba_refine_fn(use_kernel: bool, n_fixed: int, opts: tuple,
+                         has_refine: bool, refine_iters: int, refine_huber: float,
+                         prune_thr: float):
+    """Window LBA (the window LM kernel with ``use_kernel``, else the grid
+    solver) + optional motion-only refine of the newest keyframe + post-BA
     outlier classification, returning one flat f32 vector (one device pull):
       [rv (C*3) | tv (C*3) | window stats (6) | refine rvec+tvec+stats (12) |
        bad-observation mask (O) | points (P*3)]"""
     optd = dict(opts)
 
     def impl(grid, problem, *maybe_refine):
-        rv, tv, pts, stats = ba_grid.ba_solve_grid_impl(grid, n_fixed=n_fixed, **optd)
+        if use_kernel:
+            rv, tv, pts, stats = ba_kernel.lm_solve(grid, n_fixed=n_fixed, **optd)
+        else:
+            rv, tv, pts, stats = ba_grid.ba_solve_grid_impl(grid, n_fixed=n_fixed, **optd)
         f32 = torch.float32
         dev = rv.device
 
@@ -734,7 +740,9 @@ class VisualOdometryPipeline:
         opts = tuple(sorted(
             (k, int(v) if k == "max_iterations" else float(v))
             for k, v in solver_kwargs.items()))
-        fn = _build_lba_refine_fn(n_fixed, opts, refine_problem is not None,
+        use_kernel = (self.cfg.ba.use_pallas_ba
+                      and ba_kernel.kernel_eligible(grid, n_fixed))
+        fn = _build_lba_refine_fn(use_kernel, n_fixed, opts, refine_problem is not None,
                                   10, float(self.cfg.ba.huber_delta),
                                   float(self.cfg.prune_obs_reproj_px))
         call_args = (grid, problem) + ((refine_problem,) if refine_problem is not None else ())

@@ -3,7 +3,8 @@ Levenberg-Marquardt (port of ``bundle_adjustment_tpu.ops.ba``).
 
 Same problem layout (BAProblem), Huber IRLS weights, Marquardt damping,
 closed-form 3x3 point elimination, dense reduced camera system, LM
-accept/reject with ftol/xtol.  ``segment_sum`` becomes ``index_add``.  The
+accept/reject with ftol/xtol.  ``segment_sum`` becomes an accumulating
+``index_put_`` (a fixed order of summation on the card).  The
 LM loop is a Python loop that reads its stop flag once per iteration.
 
 Not in this slice: the matrix-free PCG camera solve (``_pcg_blocked``,
@@ -45,8 +46,12 @@ class BAStats(NamedTuple):
 
 
 def _segment_sum(x, idx, n):
+    """Sum the rows of x by segment id.  ``index_put_`` with ``accumulate``
+    adds the rows of one segment in table order on the card (it sorts by
+    index, stably); ``index_add_`` there uses float atomics, whose order, and
+    so the sum's last bits, changes from run to run."""
     out = torch.zeros((n,) + x.shape[1:], dtype=x.dtype, device=x.device)
-    return out.index_add_(0, idx.long(), x)
+    return out.index_put_((idx.long(),), x, accumulate=True)
 
 
 def _residuals(rvecs, tvecs, points, p: BAProblem):

@@ -3,8 +3,10 @@
 slots, so every reduction is a masked einsum over the (P, D) grid.  Same LM
 semantics as ``ops/ba.py`` (the shared ``lm_loop``).
 
-This slice ports the dense camera-system step (``_solve_step``), which every
-window solve of at most ``pcg_min_cameras`` cameras runs.  The matrix-free
+Ported: the dense camera-system step (``_solve_step``), which every window
+solve of at most ``pcg_min_cameras`` cameras runs when the window LM kernel
+(``ops/ba_kernel.py``) is switched off or does not admit its shape.  The
+matrix-free
 PCG step (``_solve_step_pcg``, ``_group_precond_rows``) comes with the
 global-BA kernels (K4); ``cg_iters > 0`` raises ``NotImplementedError``.
 """

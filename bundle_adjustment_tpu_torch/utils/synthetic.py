@@ -146,3 +146,55 @@ def synthetic_sequence(
         centers.append(C)
         rotations.append(R)
     return frames, K, np.stack(centers), np.stack(rotations)
+
+
+def synthetic_window(seed: int, C: int = 5, n_pts: int = 96, P: int = 128,
+                     D: int | None = None, see: float = 0.8, noise: float = 0.5,
+                     fx: float = 300.0, width: int = 320, height: int = 240) -> dict:
+    """One BA window in the observation-grid layout (``ops/ba_grid``), as a
+    dict of numpy arrays keyed like ``BAProblemGrid``: ``C`` cameras on an
+    arc in front of a point cloud, ``n_pts`` live points padded to ``P``
+    (padding points are zero and masked out), ``D`` slots per point (default
+    C).  Each point is seen by each camera with probability ``see`` and by at
+    least two; its observations fill its first slots in camera order, the
+    other slots are dead (mask 0).  Pixels carry ``noise`` px of Gaussian
+    noise; cameras and points start perturbed from the truth."""
+    rng = np.random.default_rng(seed)
+    D = D or C
+    pts = np.c_[rng.uniform(-2, 2, (n_pts, 2)), rng.uniform(4, 8, n_pts)]
+    rv = np.c_[np.zeros(C), np.linspace(0, -0.1, C), np.zeros(C)]
+    Rs = np.stack([so3_exp_np(r) for r in rv])
+    tv = np.stack([-Rs[i] @ np.array([0.3 * i, 0.05 * i, 0.1 * i]) for i in range(C)])
+    K = np.array([[fx, 0, width / 2], [0, fx, height / 2], [0, 0, 1.0]], np.float32)
+
+    seen = rng.random((n_pts, C)) < see
+    few = np.flatnonzero(seen.sum(1) < 2)
+    seen[few] = False
+    first = rng.integers(0, C, len(few))
+    seen[few, first] = True
+    seen[few, (first + 1 + rng.integers(0, C - 1, len(few))) % C] = True
+    # a point's seen cameras, in camera order, fill its first slots
+    order = np.argsort(~seen, axis=1, kind="stable")
+    live = np.take_along_axis(seen, order, axis=1)
+    if D > C:
+        order = np.pad(order, ((0, 0), (0, D - C)))
+        live = np.pad(live, ((0, 0), (0, D - C)))
+    order, live = order[:, :D], live[:, :D]
+    Xc = np.einsum("cij,pj->pci", Rs, pts) + tv[None]
+    proj = Xc[..., :2] / Xc[..., 2:] * fx + K[:2, 2]
+    proj = proj + rng.normal(0, noise, proj.shape)
+
+    cam_slot = np.zeros((P, D), np.int32)
+    uv = np.zeros((P, D, 2), np.float32)
+    mask = np.zeros((P, D), np.float32)
+    cam_slot[:n_pts] = np.where(live, order, 0)
+    uv[:n_pts] = np.where(live[..., None],
+                          np.take_along_axis(proj, order[..., None], axis=1), 0.0)
+    mask[:n_pts] = live
+    points = np.zeros((P, 3), np.float32)
+    points[:n_pts] = pts + rng.normal(0, 0.05, (n_pts, 3))
+    return dict(
+        rvecs=(rv + rng.normal(0, 0.01, rv.shape)).astype(np.float32),
+        tvecs=(tv + rng.normal(0, 0.02, tv.shape)).astype(np.float32),
+        points=points, cam_slot=cam_slot, uv=uv, mask=mask,
+        point_mask=np.arange(P) < n_pts, K=K)

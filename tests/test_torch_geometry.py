@@ -244,3 +244,89 @@ def test_pnp_ransac_same_draws():
     assert int(b.num_inliers) == int(a.num_inliers) > 80
     _close(b.R, a.R, rtol=0, atol=1e-4)
     _close(b.t, a.t, rtol=0, atol=1e-4)
+
+
+def _pnp_case(seed, off, n_valid=40, cap=64, f=400.0, noise=0.7):
+    """A synthetic map and one frame of it: ``cap`` slots, ``n_valid`` of
+    them matched, the first 30 % of those with a wrong pixel, ``off`` added
+    to every world coordinate (a map that has moved away from the origin)."""
+    rng = np.random.default_rng(seed)
+    Kc = np.array([[f, 0, 160], [0, f, 120], [0, 0, 1.0]], np.float32)
+    X = rng.uniform([-3, -2, 4], [3, 2, 12], size=(cap, 3)).astype(np.float32) + np.float32(off)
+    R = np.asarray(jlie.so3_exp(jnp.asarray(rng.normal(size=3) * 0.05, jnp.float32)))
+    t = (rng.normal(size=3) * 0.3).astype(np.float32) - R @ np.full(3, off, np.float32)
+    Xc = X @ R.T + t
+    uv = Xc[:, :2] / Xc[:, 2:] * f + [160, 120]
+    uv = (uv + rng.normal(size=uv.shape) * noise).astype(np.float32)
+    n_out = int(0.3 * n_valid)
+    uv[:n_out] = rng.uniform([0, 0], [320, 240], size=(n_out, 2))
+    return Kc, X, uv, np.arange(cap) < n_valid, n_valid - n_out
+
+
+def _dlt_rows(X, x):
+    Xh = np.c_[X, np.ones(len(X))].astype(np.float64)
+    z = np.zeros_like(Xh)
+    return np.r_[np.c_[Xh, z, -x[:, 0:1] * Xh], np.c_[z, Xh, -x[:, 1:2] * Xh]]
+
+
+@pytest.mark.parametrize("off", [0.0, 20.0])
+def test_pnp_dlt_null_vector_and_inlier_count_hold_to_jax(off):
+    """Both packages take the DLT's null vector from a float32 eigh of the
+    unnormalised A^T A.  One frame was recorded with 30 PnP inliers in the
+    JAX pipeline and 0 in the port on the same map, frame and draws; this
+    test holds what was found when looking for the cause, on six seeds with
+    the JAX draws replayed, for a map at the origin and one 20 units off it.
+
+    Per hypothesis the port's vector is not the worse one.  At the origin
+    both reach the float64 SVD's smallest singular value (their algebraic
+    residuals |A p| / |p| agree in the median within 5 %).  Off the origin
+    both miss it alike, by 5 to 10 times in the median (2e-3 against 3e-4):
+    each LAPACK build lands elsewhere in the cluster of small eigenvalues of
+    the squared-condition A^T A, the port's vector is the larger one in
+    about half of the hypotheses, and more than 10 times larger about as
+    often as the JAX one's.  Which package's RANSAC then finds the pose is
+    chance: here both find at most 1 of 28 true inliers.  So the inlier
+    count is held to 90 % of the JAX one's, and at the origin both find all
+    true inliers."""
+    worse = worse10 = jworse10 = 0
+    for seed in range(6):
+        Kc, X, uv, valid, n_true = _pnp_case(seed, off)
+        key = jax.random.PRNGKey(seed)
+        u = np.asarray(jax.random.uniform(key, tr.pnp_draw_shape(128)))
+        idx = np.asarray(jr._sample_indices(key, jnp.asarray(valid), 128, 6))
+        np.testing.assert_array_equal(
+            tr._sample_indices(_T(u), torch.as_tensor(valid), 128, 6).numpy(), idx)
+        x = np.asarray(jproj.pixel_to_normalized(jnp.asarray(Kc), jnp.asarray(uv)))
+        Pj = np.asarray(jax.vmap(lambda i: jr._dlt_projection(jnp.asarray(X)[i], jnp.asarray(x)[i]))(
+            jnp.asarray(idx))).reshape(128, 12).astype(np.float64)
+        Pt = tr._dlt_projection(_T(X)[torch.as_tensor(idx)], _T(x)[torch.as_tensor(idx)])
+        assert Pt.dtype == torch.float32 and Pt.shape == (128, 3, 4)
+        Pt = Pt.numpy().reshape(128, 12).astype(np.float64)
+        A = np.stack([_dlt_rows(X[i], x[i]) for i in idx])
+        best = np.linalg.svd(A, compute_uv=False)[:, -1]
+        res_t = np.linalg.norm(np.einsum("hij,hj->hi", A, Pt), axis=1) / np.linalg.norm(Pt, axis=1)
+        res_j = np.linalg.norm(np.einsum("hij,hj->hi", A, Pj), axis=1) / np.linalg.norm(Pj, axis=1)
+        assert 0.5 <= np.median(res_t) / np.median(res_j) <= 2.0, (seed, np.median(res_t),
+                                                                  np.median(res_j))
+        if off == 0.0:
+            assert np.median(res_t) <= 1.05 * np.median(best)
+        else:
+            assert np.median(res_t) >= 2.0 * np.median(best) <= np.median(res_j)
+        worse += int((res_t > res_j).sum())
+        worse10 += int((res_t > 10 * res_j).sum())
+        jworse10 += int((res_j > 10 * res_t).sum())
+        a = jr.estimate_pnp_pose(key, jnp.asarray(X), jnp.asarray(uv), jnp.asarray(valid),
+                                 jnp.asarray(Kc), num_hyp=128)
+        b = tr.estimate_pnp_pose(_T(u), _T(X), _T(uv), torch.as_tensor(valid), _T(Kc),
+                                 num_hyp=128)
+        assert int(b.num_inliers) >= 0.9 * int(a.num_inliers), (seed, int(a.num_inliers),
+                                                               int(b.num_inliers))
+        if off == 0.0:
+            assert int(b.num_inliers) == int(a.num_inliers) == n_true
+        else:
+            assert max(int(a.num_inliers), int(b.num_inliers)) <= 1
+    # of 6 x 128 hypotheses: the port's residual is the larger one in about
+    # half (measured 417 at the origin and 397 off it), and a tenth of the other's about as often
+    # as the reverse (34 against 26, 60 against 47)
+    assert 0.4 * 768 <= worse <= 0.6 * 768, worse
+    assert worse10 <= 2 * jworse10 + 10 and jworse10 <= 2 * worse10 + 10, (worse10, jworse10)

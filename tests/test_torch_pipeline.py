@@ -3,7 +3,10 @@ package's on the same synthetic frames, with the JAX RANSAC draws replayed.
 
 Both run ``preset``-style defaults at a small size (10 frames at 320x240,
 300 features, 3 levels, ``BAConfig(use_pallas_ba=False)``, window 4) on
-the CPU.  The two packages agree bit for bit only up to the first place
+the CPU.  One more port run keeps ``use_pallas_ba=True``, the default: on the
+CPU its windows go through the plain version of the window LM kernel
+(``ops.ba_kernel.lm_solve``) inside ``_solve_window``; it is held to the same
+JAX run by the first statuses and the same ATE bounds.  The two packages agree bit for bit only up to the first place
 where float32 evaluation order decides a discrete choice (a descriptor bit
 near zero, a RANSAC argmax between near-equal hypotheses, an LM
 accept/reject), so the free-running comparison is held at what a user sees
@@ -65,12 +68,12 @@ class JaxDraws:
         return torch.as_tensor(np.array(jax.random.uniform(k, shape)))
 
 
-def _config(mod, K):
+def _config(mod, K, use_pallas_ba=False):
     return mod.PipelineConfig(
         camera=mod.CameraModel(fx=K[0, 0], fy=K[1, 1], cx=K[0, 2], cy=K[1, 2],
                                width=W, height=H),
         num_features=300, pyramid_levels=3,
-        ba=mod.BAConfig(use_pallas_ba=False, window_size=4))
+        ba=mod.BAConfig(use_pallas_ba=use_pallas_ba, window_size=4))
 
 
 def _keyframe_ate(pipe, gt_centres):
@@ -108,6 +111,29 @@ def test_trajectory_accuracy_matches_jax(runs):
     assert runs["tp"].map.num_keyframes >= 4
     assert ate_j <= 0.25 * extent and ate_t <= 0.25 * extent, (ate_j, ate_t, extent)
     assert ate_t <= ate_j + 0.1 * extent, (ate_j, ate_t, extent)
+
+
+def test_window_kernel_path_matches_jax(runs, monkeypatch):
+    """The port with the default ``use_pallas_ba=True`` on the CPU: every
+    window BA goes through ``ba_kernel.lm_solve`` (its plain version here)."""
+    from bundle_adjustment_tpu_torch.ops import ba_kernel
+
+    calls = []
+    solve = ba_kernel.lm_solve
+    monkeypatch.setattr(ba_kernel, "lm_solve",
+                        lambda grid, **kw: calls.append(kw["n_fixed"]) or solve(grid, **kw))
+    frames, K, _, _ = synthetic_sequence(n_frames=20, width=W, height=H, seed=0)
+    log = EventLog(echo=False)
+    tp = VisualOdometryPipeline(_config(tcfg, K, use_pallas_ba=True), log=log,
+                                device="cpu", draws=JaxDraws())
+    ts = [tp.process_frame(f)["status"] for f in frames[:10]]
+    assert ts[:4] == runs["js"][:4]
+    n_ba = sum(e["event"] in ("ba_complete", "ba_diverged") for e in log.events)
+    assert n_ba >= 1 and len(calls) == n_ba
+    ate_j, extent = _keyframe_ate(runs["jp"], runs["gt"])
+    ate_t, _ = _keyframe_ate(tp, runs["gt"])
+    assert tp.map.num_keyframes >= 4
+    assert ate_t <= 0.25 * extent and ate_t <= ate_j + 0.1 * extent, (ate_j, ate_t, extent)
 
 
 def test_global_ba_on_the_same_map(runs):

@@ -1,13 +1,14 @@
 """Rules the PyTorch port keeps:
 
-- no module of ``bundle_adjustment_tpu_torch``, and not ``chip_smoke.py``,
-  imports ``jax`` or anything of the JAX package (a source scan, and a fresh
-  interpreter that imports every module and finds no ``jax`` loaded);
+- no module of ``bundle_adjustment_tpu_torch``, and neither ``chip_smoke.py``
+  nor ``chip_determinism.py``, imports ``jax`` or anything of the JAX package
+  (a source scan, and a fresh interpreter that imports every module and
+  finds no ``jax`` loaded);
 - every entry point's default device is ``"cuda"``, and without a card it
   raises instead of running on the CPU;
 - a kernel wrapper takes its plain version only for a CPU tensor;
-- every configuration outside this slice raises ``NotImplementedError``
-  naming the missing kernel or module.
+- every configuration not ported yet raises ``NotImplementedError`` naming
+  the missing kernel or module; the default configuration is not one.
 """
 
 import ast
@@ -25,7 +26,9 @@ import bundle_adjustment_tpu_torch
 from bundle_adjustment_tpu_torch import convert
 from bundle_adjustment_tpu_torch.config import BAConfig, CameraModel, PipelineConfig
 from bundle_adjustment_tpu_torch.models import frontend, pipeline
-from bundle_adjustment_tpu_torch.ops import hamming_kernel, orb_kernel
+from bundle_adjustment_tpu_torch.ops import ba_kernel, hamming_kernel, orb_kernel
+from bundle_adjustment_tpu_torch.ops.ba_grid import BAProblemGrid
+from bundle_adjustment_tpu_torch.utils.synthetic import synthetic_window
 
 # Several pytest workers share the cores: more torch threads per worker
 # only contend with each other (three times slower in all).
@@ -43,7 +46,7 @@ def _forbidden(module: str) -> bool:
 
 
 def _sources():
-    return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "chip_determinism.py"]
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))
@@ -106,6 +109,10 @@ def test_wrappers_take_the_plain_path_only_for_cpu_tensors():
     s = torch.zeros(2, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="device"):
         orb_kernel.gather_patches40(img, s, s)
+    w = synthetic_window(0, C=3, n_pts=30, P=32)
+    g = BAProblemGrid(**{k: torch.as_tensor(v, device="meta") for k, v in w.items()})
+    with pytest.raises(ValueError, match="device"):
+        ba_kernel.lm_solve(g, n_fixed=1)
 
 
 @pytest.mark.parametrize("change,needs", [
@@ -124,16 +131,24 @@ def test_unported_configurations_raise(change, needs):
 
 
 def test_pallas_ba_and_big_windows_raise():
-    """use_pallas_ba=True on the card needs K3; a window wider than
-    pcg_min_cameras needs K4 and the PCG solve."""
-    cfg = PipelineConfig(camera=CAM, ba=BAConfig(use_pallas_ba=True))
-    assert "K3" in pipeline._unported(cfg, torch.device("cuda"))
+    """The default configuration (use_pallas_ba=True, the window LM kernel
+    K3) is ported: nothing refuses it on the card or on the CPU, and the
+    kernel's wrapper refuses a tensor that is on neither.  A window wider
+    than pcg_min_cameras still needs K4 and the PCG solve."""
+    cfg = PipelineConfig(camera=CAM)
+    assert cfg.ba.use_pallas_ba
+    assert pipeline._unported(cfg, torch.device("cuda")) is None
     assert pipeline._unported(cfg, torch.device("cpu")) is None
-    pipe = pipeline.VisualOdometryPipeline(
-        dataclasses.replace(cfg, ba=BAConfig(use_pallas_ba=False)), device="cpu")
-    n = pipe.cfg.ba.pcg_min_cameras + 1
-    with pytest.raises(NotImplementedError, match="K4"):
-        pipe._solve_window(list(range(n)), list(range(n)), global_ba=True)
+    w = synthetic_window(0, C=3, n_pts=30, P=32)
+    g = BAProblemGrid(**{k: torch.as_tensor(v, device="meta") for k, v in w.items()})
+    with pytest.raises(ValueError, match="device"):
+        ba_kernel.lm_solve(g, n_fixed=1)
+    for use in (True, False):
+        pipe = pipeline.VisualOdometryPipeline(
+            dataclasses.replace(cfg, ba=BAConfig(use_pallas_ba=use)), device="cpu")
+        n = pipe.cfg.ba.pcg_min_cameras + 1
+        with pytest.raises(NotImplementedError, match="K4"):
+            pipe._solve_window(list(range(n)), list(range(n)), global_ba=True)
 
 
 def test_package_version_and_entry_point():
