@@ -80,31 +80,20 @@ class BAConfig:
     # dense (6C')^2 solve — global BA over hundreds of keyframes stays
     # O(cg_iters * observations) in time and O(observations) in memory.
     pcg_min_cameras: int = 24
-    # PCG iteration cap (early exit on cg_tol).  Measured on TPU v5e at
-    # C=200/P=30k/O=120k (band visibility, ~6 px rms initial error): the
-    # final cost after 50 LM iterations is IDENTICAL to 4 decimal places for
-    # caps 4/8/32 (3.7224e4 vs 3.7222e4) while per-LM-iteration wall time is
-    # 14.5 / 16.7 / 29.8 ms — LM accept/reject absorbs inexact steps, and
-    # each LM iteration's fixed cost (terms+setup+trial cost, ~12.7 ms)
-    # dominates once the CG loop is short.  Cap 8 keeps headroom for
-    # worse-conditioned real maps; Eisenstat-Walker forcing exits earlier
-    # when the gradient is small either way.
+    # PCG iteration cap per LM iteration (early exit on the tolerance).  A
+    # short cap is enough: LM accept/reject absorbs inexact camera steps, and
+    # the Eisenstat-Walker forcing of the grid and global-kernel solvers
+    # loosens the tolerance while the gradient is large and tightens it as
+    # the gradient shrinks.  8 leaves headroom for badly conditioned maps.
     cg_iters: int = 8
     cg_tol: float = 1e-6          # relative-residual stop
     # Grouped block-Jacobi PCG preconditioner: exact (6g x 6g) group-diagonal
     # blocks of the Schur complement (g consecutive cameras per group),
-    # inverted batched once per LM iteration.  MEASURED NOT TO PAY at bench
-    # scales (C=200: g=16 costs +3 ms/LM-iter in setup and the saved CG
-    # iterations are worth less than that once the cap is 8) — kept
-    # config-gated (correctness-tested in tests/test_ba_pcg.py) for
-    # ill-conditioned maps where plain block-Jacobi stalls; 1 disables.
+    # inverted batched once per LM iteration.  It costs setup work per LM
+    # iteration and saves CG iterations; for ill-conditioned maps where plain
+    # block-Jacobi stalls.  Above 1 the grid PCG solver runs (the global-BA
+    # kernels hold the plain block-Jacobi preconditioner only); 1 disables.
     cg_precond_group: int = 1
-    # Above this many adjustable cameras, the PCG camera reductions run the
-    # MXU bf16 path (the f32 one-hot read is the dominant HBM traffic and
-    # scales O(C * observations); 0/1 is exact in bf16, reduction values
-    # round to ~3 decimal digits — direction noise the block-Jacobi
-    # preconditioner and LM accept/reject absorb).
-    cg_bf16_min_cameras: int = 512
     # Window-scale solver: the window LM kernel (ops/ba_kernel.py, the
     # counterpart of the JAX package's ops/ba_pallas.py; the field keeps its
     # name) runs the whole solve in one kernel launch.  Windows outside the

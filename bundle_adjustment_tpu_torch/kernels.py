@@ -3,11 +3,13 @@
 Each source in ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface (no PyTorch headers, so a build takes
 seconds) under ``build/kernels/`` at the root of the checkout, the first time
-a wrapper needs it.  ``build_all`` starts one ``nvcc`` per source at once.
-Libraries are loaded with ctypes; the wrappers in ``ops/hamming_kernel.py``,
-``ops/orb_kernel.py`` and ``ops/ba_kernel.py`` pass ``data_ptr()`` pointers
-and PyTorch's current stream, and raise when a C entry point returns a CUDA
-error.
+a wrapper needs it.  ``build_all`` starts one ``nvcc`` per source at once.  A
+source may hold several C entry points, each registered as a kernel of its
+own (the four roles of ``ba_global_pcg.cu``).  Libraries are loaded with
+ctypes; the wrappers in ``ops/hamming_kernel.py``, ``ops/orb_kernel.py``,
+``ops/ba_kernel.py`` and ``ops/ba_global_kernel.py`` pass ``data_ptr()``
+pointers and PyTorch's current stream, and raise when a C entry point
+returns a CUDA error.
 
 ``LAUNCHES`` counts launches per kernel: a wrapper adds one where it
 launches, and nowhere else, so a run can show that it went through the
@@ -38,6 +40,14 @@ KERNELS = {
                      [_P, _I, _I, _P, _P, _I, _P, _P]),
     "ba_window_lm": ("ba_window_lm.cu", "ba_window_lm",
                      [_P] * 8 + [_I] * 5 + [_F] * 8 + [_P] * 6),
+    "ba_global_setup": ("ba_global_pcg.cu", "ba_global_setup",
+                        [_P] * 9 + [_I] * 4 + [_P] * 6),
+    "ba_global_matvec": ("ba_global_pcg.cu", "ba_global_matvec",
+                         [_P] * 7 + [_I] * 4 + [_P] * 3),
+    "ba_global_backsub": ("ba_global_pcg.cu", "ba_global_backsub",
+                          [_P] * 6 + [_I] * 4 + [_P] * 2),
+    "ba_global_cost": ("ba_global_pcg.cu", "ba_global_cost",
+                       [_P] * 6 + [_I] * 3 + [_P] * 3),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -59,7 +69,8 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    return BUILD_DIR / f"lib{name}.so"
+    """The library of kernel ``name``: one per source file."""
+    return BUILD_DIR / f"lib{Path(KERNELS[name][0]).stem}.so"
 
 
 def _stale(name: str) -> bool:
@@ -77,9 +88,14 @@ def build_all(names=None, verbose: bool = False) -> dict:
     nvcc = _nvcc()
     procs = {}
     t0 = time.perf_counter()
+    # kernels that share a source share its library: build it once, under
+    # the first of their names
+    first_of = {}
     for name in names:
-        src = SOURCE_DIR / KERNELS[name][0]
-        tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
+        first_of.setdefault(KERNELS[name][0], name)
+    for source, name in first_of.items():
+        src = SOURCE_DIR / source
+        tmp = BUILD_DIR / f"{_lib_path(name).stem}.{os.getpid()}.tmp.so"
         cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(src)]
         if verbose:
@@ -99,7 +115,7 @@ def build_all(names=None, verbose: bool = False) -> dict:
         os.replace(tmp, _lib_path(name))
     if errors:
         raise RuntimeError("\n".join(errors))
-    return seconds
+    return {name: seconds[first_of[KERNELS[name][0]]] for name in names}
 
 
 def library_fn(name: str):

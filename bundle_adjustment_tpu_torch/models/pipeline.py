@@ -8,15 +8,17 @@ insertion with covisibility re-observation -> windowed local BA with the
 newest keyframe's motion-only refine.  ``finalize`` runs the global and full
 BA and writes the outputs.
 
-The port runs the branches the default configuration reaches with at most
-``pcg_min_cameras`` keyframes per solve, plus the staged (unfused) path.
-With ``BAConfig.use_pallas_ba`` (the default) a window whose shape the
-window LM kernel admits (``ops/ba_kernel.kernel_eligible``) is solved in one
-kernel launch; any other window, and every window with the switch off, goes
-to the grid solver.  The shape is the only gate: a kernel that fails to
-build or launch raises.  Configurations that need a kernel or module not
-ported yet raise ``NotImplementedError`` naming it; none of them quietly
-takes another path.
+The port runs the branches the default configuration reaches, plus the
+staged (unfused) path.  A window of at most ``pcg_min_cameras`` cameras: with
+``BAConfig.use_pallas_ba`` (the default) and a shape the window LM kernel
+admits (``ops/ba_kernel.kernel_eligible``) it is solved in one kernel launch;
+any other such window, and every one with the switch off, goes to the grid
+solver.  A window above ``pcg_min_cameras`` cameras (global and full BA over
+a long chain) takes the matrix-free PCG camera solve: on the card the
+global-BA kernels (``ops/ba_global_kernel``), elsewhere the grid PCG solver
+(``_solve_pcg``).  The shape is the only gate: a kernel that fails to build
+or launch raises.  Configurations that need a module not ported yet raise
+``NotImplementedError`` naming it; none of them quietly takes another path.
 
 Random draws: the JAX pipeline draws RANSAC sample uniforms from
 ``PRNGKey(0)`` (split once per essential or PnP RANSAC call) and from
@@ -41,7 +43,8 @@ from bundle_adjustment_tpu_torch.config import PipelineConfig
 from bundle_adjustment_tpu_torch.models import frontend
 from bundle_adjustment_tpu_torch.models.keyframe import decide_from_metrics, decide_keyframe
 from bundle_adjustment_tpu_torch.models.map_store import Keyframe, Map
-from bundle_adjustment_tpu_torch.ops import (ba, ba_grid, ba_kernel, hamming, orb, ransac,
+from bundle_adjustment_tpu_torch.ops import (ba, ba_global_kernel, ba_grid, ba_kernel, hamming, orb,
+                                             ransac,
                                              triangulation)
 from bundle_adjustment_tpu_torch.ops.lie import rotation_angle, so3_exp_np, so3_hat, so3_log_np
 from bundle_adjustment_tpu_torch.ops.projection import epipolar_errors_px
@@ -696,11 +699,6 @@ class VisualOdometryPipeline:
     def _solve_window(self, window, all_ids, global_ba: bool = False,
                       refine_kf_id: Optional[int] = None,
                       max_iterations: Optional[int] = None) -> Optional[dict]:
-        if len(window) > self.cfg.ba.pcg_min_cameras:
-            raise NotImplementedError(
-                f"a BA window of {len(window)} cameras (> pcg_min_cameras="
-                f"{self.cfg.ba.pcg_min_cameras}) needs the PCG camera solve and "
-                "the global-BA kernels (K4, ops/ba_global_pallas.py), not ported yet")
         n_fixed = max(1, min(self.cfg.ba.n_fixed, len(window) - 1))
         max_points, max_obs = self.cfg.ba.max_points, self.cfg.ba.max_obs
         if global_ba:
@@ -731,36 +729,43 @@ class VisualOdometryPipeline:
             "capacity_drop",
             f"    -> Grid layout dropped {n} observations (max_slots cap)",
             dropped_obs=int(n)))
-        refine_problem = None
-        if refine_kf_id is not None:
-            g2 = self.map.gather_window([refine_kf_id], self.K,
-                                        self.cfg.ba.max_points, self.cfg.ba.max_obs)
-            if g2 is not None and len(g2[2]) >= 10:
-                refine_problem = g2[0]
-        opts = tuple(sorted(
-            (k, int(v) if k == "max_iterations" else float(v))
-            for k, v in solver_kwargs.items()))
-        use_kernel = (self.cfg.ba.use_pallas_ba
-                      and ba_kernel.kernel_eligible(grid, n_fixed))
-        fn = _build_lba_refine_fn(use_kernel, n_fixed, opts, refine_problem is not None,
-                                  10, float(self.cfg.ba.huber_delta),
-                                  float(self.cfg.prune_obs_reproj_px))
-        call_args = (grid, problem) + ((refine_problem,) if refine_problem is not None else ())
-        flat = fn(*call_args).cpu().numpy().astype(np.float64)
-        C_w = len(window)
-        O_w = problem.uv.shape[0]
-        rv = flat[: 3 * C_w].reshape(C_w, 3)
-        tv = flat[3 * C_w: 6 * C_w].reshape(C_w, 3)
-        sv = flat[6 * C_w: 6 * C_w + 6]
-        refv = flat[6 * C_w + 6: 6 * C_w + 18]
-        bad_mask = flat[6 * C_w + 18: 6 * C_w + 18 + O_w] > 0.5
-        pts = flat[6 * C_w + 18 + O_w:].reshape(-1, 3)
-        stats = ba.BAStats(initial_cost=sv[0], final_cost=sv[1], initial_sq=sv[2],
-                           final_sq=sv[3], iterations=int(sv[4]), accepted=sv[5] > 0.5)
-        if refine_problem is not None and bool(refv[9] > 0.5) and refv[7] < refv[6]:
-            kf_r = self.map.keyframes[refine_kf_id]
-            kf_r.R = so3_exp_np(refv[0:3])
-            kf_r.t = refv[3:6].copy()
+        if len(window) > self.cfg.ba.pcg_min_cameras:
+            rv, tv, pts, stats, bad_mask = self._solve_pcg(
+                grid, problem, n_fixed, len(window), solver_kwargs)
+            if refine_kf_id is not None:
+                self._refine_pose_only(refine_kf_id)
+        else:
+            refine_problem = None
+            if refine_kf_id is not None:
+                g2 = self.map.gather_window([refine_kf_id], self.K,
+                                            self.cfg.ba.max_points, self.cfg.ba.max_obs)
+                if g2 is not None and len(g2[2]) >= 10:
+                    refine_problem = g2[0]
+            opts = tuple(sorted(
+                (k, int(v) if k == "max_iterations" else float(v))
+                for k, v in solver_kwargs.items()))
+            use_kernel = (self.cfg.ba.use_pallas_ba
+                          and ba_kernel.kernel_eligible(grid, n_fixed))
+            fn = _build_lba_refine_fn(use_kernel, n_fixed, opts, refine_problem is not None,
+                                      10, float(self.cfg.ba.huber_delta),
+                                      float(self.cfg.prune_obs_reproj_px))
+            call_args = (grid, problem) + (
+                (refine_problem,) if refine_problem is not None else ())
+            flat = fn(*call_args).cpu().numpy().astype(np.float64)
+            C_w = len(window)
+            O_w = problem.uv.shape[0]
+            rv = flat[: 3 * C_w].reshape(C_w, 3)
+            tv = flat[3 * C_w: 6 * C_w].reshape(C_w, 3)
+            sv = flat[6 * C_w: 6 * C_w + 6]
+            refv = flat[6 * C_w + 6: 6 * C_w + 18]
+            bad_mask = flat[6 * C_w + 18: 6 * C_w + 18 + O_w] > 0.5
+            pts = flat[6 * C_w + 18 + O_w:].reshape(-1, 3)
+            stats = ba.BAStats(initial_cost=sv[0], final_cost=sv[1], initial_sq=sv[2],
+                               final_sq=sv[3], iterations=int(sv[4]), accepted=sv[5] > 0.5)
+            if refine_problem is not None and bool(refv[9] > 0.5) and refv[7] < refv[6]:
+                kf_r = self.map.keyframes[refine_kf_id]
+                kf_r.R = so3_exp_np(refv[0:3])
+                kf_r.t = refv[3:6].copy()
         elapsed = time.perf_counter() - t0
 
         # divergence rejection on the raw squared cost
@@ -804,6 +809,59 @@ class VisualOdometryPipeline:
             "n_points": len(mp_ids),
             "n_obs": len(obs_rows),
         }
+
+    def _solve_pcg(self, grid, problem, n_fixed: int, n_cams: int, solver_kwargs: dict):
+        """A window above ``pcg_min_cameras`` cameras (global BA over a long
+        chain): the matrix-free PCG camera solve, with neither the
+        (P, C', 6, 3) coupling tensor nor the dense (6C')^2 system.  On the
+        card, with the plain block-Jacobi preconditioner and a shape inside
+        their gate, the global-BA kernels (``ops/ba_global_kernel``, float32
+        throughout); otherwise the grid PCG solver, whose memory cost is its
+        (C', P*D) float32 one-hot, and above 2 GiB of that the flat
+        segment-sum solver, all float32 (the JAX package's bfloat16
+        reduction saves TPU bandwidth and is not switched on here).  A window
+        that the kernels do not take on the card leaves a
+        ``pcg_plain_solver`` event saying why.  Returns (rvecs, tvecs,
+        points, stats and the post-BA outlier mask over the observations) on
+        the host."""
+        cfg = self.cfg.ba
+        kw = dict(solver_kwargs, n_fixed=n_fixed, cg_iters=cfg.cg_iters, cg_tol=cfg.cg_tol)
+        P_g, D_g = grid.cam_slot.shape
+        onehot_bytes = 4 * P_g * D_g * max(n_cams - n_fixed, 1)
+        skipped = None      # on the card: why the kernels do not take this window
+        if self.device.type == "cuda":
+            if cfg.cg_precond_group != 1:
+                skipped = f"cg_precond_group={cfg.cg_precond_group}"
+            elif not ba_global_kernel.kernel_eligible_global(grid, n_fixed):
+                skipped = f"shape C={n_cams} P={P_g} D={D_g} outside the kernels' gate"
+        if self.device.type == "cuda" and skipped is None:
+            rv, tv, pts, stats = ba_global_kernel.solve(grid, cg_forcing=True, **kw)
+        else:
+            flat = onehot_bytes > 2 << 30
+            if skipped is not None:
+                solver = "flat PCG solver" if flat else "grid PCG solver"
+                self.log.emit(
+                    "pcg_plain_solver",
+                    f"    -> Global-BA kernels not used ({skipped}): {solver} in plain PyTorch",
+                    why=skipped, solver=solver, n_cams=n_cams)
+            if flat:
+                rv, tv, pts, stats = ba.ba_solve_impl(problem, **kw)
+            else:
+                rv, tv, pts, stats = ba_grid.ba_solve_grid_impl(
+                    grid, cg_forcing=True, cg_precond_group=cfg.cg_precond_group, **kw)
+        if self.cfg.prune_obs_reproj_px > 0:
+            r = ba._residuals(rv, tv, pts, problem)
+            bad = (problem.obs_mask > 0) & (torch.linalg.norm(r, dim=1)
+                                            > self.cfg.prune_obs_reproj_px)
+        else:
+            bad = torch.zeros(problem.uv.shape[0], dtype=torch.bool, device=rv.device)
+        stats = ba.BAStats(*(float(x) for x in stats[:4]), int(stats.iterations),
+                           bool(stats.accepted))
+
+        def host(x):
+            return x.cpu().numpy().astype(np.float64)
+
+        return host(rv), host(tv), host(pts), stats, bad.cpu().numpy()
 
     def run_global_ba(self) -> Optional[dict]:
         """Final global BA: window = every keyframe but the newest."""

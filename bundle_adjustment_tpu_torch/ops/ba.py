@@ -5,11 +5,12 @@ Same problem layout (BAProblem), Huber IRLS weights, Marquardt damping,
 closed-form 3x3 point elimination, dense reduced camera system, LM
 accept/reject with ftol/xtol.  ``segment_sum`` becomes an accumulating
 ``index_put_`` (a fixed order of summation on the card).  The
-LM loop is a Python loop that reads its stop flag once per iteration.
+LM loop is a Python loop that reads its stop flag once per iteration; the
+matrix-free PCG camera solve (``_pcg_blocked``, ``cg_iters > 0``) is a Python
+loop that reads its stop flag once per CG iteration.
 
-Not in this slice: the matrix-free PCG camera solve (``_pcg_blocked``,
-``cg_iters > 0``) and the ``axis_name`` hook of the sharded solver; both
-raise ``NotImplementedError``.
+Not ported: the ``axis_name`` hook of the sharded solver, which raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -152,9 +153,53 @@ def _damp(M, lam):
     return M + lam * (torch.diag_embed(diag) + 1e-6 * eye)
 
 
-def _solve_normal_equations(rvecs, tvecs, points, p: BAProblem, lam, delta, n_fixed):
-    """One damped Schur step with a dense reduced camera system: returns
-    (d_rvecs, d_tvecs, d_points)."""
+def _pcg_blocked(matvec, b, Minv, iters, tol):
+    """Preconditioned conjugate gradient on the reduced camera system,
+    matrix-free.  ``b`` and the state are (C_adj, 6) block vectors; ``Minv``
+    is the (C_adj, 6, 6) block-Jacobi preconditioner or a callable
+    r -> M^-1 r (grouped preconditioners, ``ops/ba_grid``).  Runs to
+    ``iters`` or a relative residual ``tol`` (a float or a 0-d tensor),
+    whichever comes first.  The stop flag is read on the host once per CG
+    iteration."""
+    if callable(Minv):
+        apply_precond = Minv
+    else:
+        def apply_precond(r):
+            return torch.sum(Minv * r[:, None, :], dim=-1)
+    bnorm = torch.sqrt(torch.sum(b * b))
+    x = torch.zeros_like(b)
+    r = b
+    p = apply_precond(r)
+    rz = torch.sum(r * p)
+    # b = 0 needs no branch: the first iteration then leaves x at 0 and stops
+    floor = torch.full_like(rz, 1e-30)
+    stop = tol * torch.clamp(bnorm, min=1e-30)
+    for it in range(iters):
+        Ap = matvec(p)
+        pAp = torch.sum(p * Ap)
+        alpha = rz / torch.where(torch.abs(pAp) < 1e-30, floor, pAp)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = apply_precond(r)
+        rz_new = torch.sum(r * z)
+        beta = rz_new / torch.where(torch.abs(rz) < 1e-30, floor, rz)
+        p = z + beta * p
+        rz = rz_new
+        if it + 1 < iters and bool(torch.sqrt(torch.sum(r * r)) <= stop):
+            break
+    return x
+
+
+def _solve_normal_equations(rvecs, tvecs, points, p: BAProblem, lam, delta, n_fixed,
+                            cg_iters: int = 0, cg_tol: float = 1e-6):
+    """One damped Schur step: returns (d_rvecs, d_tvecs, d_points).
+
+    ``cg_iters`` = 0 solves the reduced camera system densely (the
+    (P, C_adj, 6, 3) coupling tensor and a (6C')^2 matrix: right for
+    windows).  ``cg_iters`` > 0 solves it by matrix-free block-Jacobi PCG:
+    S x = U x - W V^-1 W^T x through two gathers and two segment sums per
+    iteration, so neither S nor the coupling tensor exists and memory stays
+    O(observations) whatever the camera count."""
     C = rvecs.shape[0]
     P = points.shape[0]
     C_adj = C - n_fixed
@@ -191,18 +236,34 @@ def _solve_normal_equations(rvecs, tvecs, points, p: BAProblem, lam, delta, n_fi
     Wz_o = torch.einsum("oij,oj->oi", Y_o, z_p[pi])
     b_blocks = -g_c + _segment_sum(Wz_o, cam_adj_c, nC)
 
-    # dense Schur complement S = blockdiag(U) - W V^-1 W^T
-    B = torch.zeros((P, nC, 6, 3), dtype=U.dtype, device=U.device)
-    B.index_put_((pi, cam_adj_c), Y_o * cam_ok.to(U.dtype), accumulate=True)
-    BV = torch.einsum("pcik,pkl->pcil", B, Vinv)
-    S = -torch.einsum("pcil,pdjl->cidj", BV, B).reshape(n, n)
-    idx = torch.arange(nC, device=U.device)
-    Ublock = torch.zeros((nC, 6, nC, 6), dtype=U.dtype, device=U.device)
-    Ublock[idx, :, idx, :] = U
-    S = S + Ublock.reshape(n, n)
-    eye = torch.eye(n, dtype=S.dtype, device=S.device)
-    dc = torch.linalg.solve_ex(S + 1e-8 * eye, b_blocks.reshape(n))[0]
-    dc_blocks = dc.reshape(nC, 6)
+    if cg_iters > 0:
+        # Y_o rows of gauge-fixed cameras are zero (Jc was masked), so the
+        # clamped index adds nothing for them
+        def matvec(x):
+            y_o = torch.einsum("oij,oi->oj", Y_o, x[cam_adj_c])
+            z = torch.einsum("pij,pj->pi", Vinv, _segment_sum(y_o, pi, P))
+            w_o = torch.einsum("oij,oj->oi", Y_o, z[pi])
+            return torch.einsum("cij,cj->ci", U, x) - _segment_sum(w_o, cam_adj_c, nC)
+
+        # block-Jacobi preconditioner: the exact 6x6 diagonal blocks of S (a
+        # camera sees a point through at most one observation)
+        D_o = torch.einsum("oij,ojk,olk->oil", Y_o, Vinv[pi], Y_o)
+        eye6 = torch.eye(6, dtype=U.dtype, device=U.device)
+        Minv = torch.linalg.inv_ex(U - _segment_sum(D_o, cam_adj_c, nC) + 1e-8 * eye6)[0]
+        dc_blocks = _pcg_blocked(matvec, b_blocks, Minv, cg_iters, cg_tol)
+    else:
+        # dense Schur complement S = blockdiag(U) - W V^-1 W^T
+        B = torch.zeros((P, nC, 6, 3), dtype=U.dtype, device=U.device)
+        B.index_put_((pi, cam_adj_c), Y_o * cam_ok.to(U.dtype), accumulate=True)
+        BV = torch.einsum("pcik,pkl->pcil", B, Vinv)
+        S = -torch.einsum("pcil,pdjl->cidj", BV, B).reshape(n, n)
+        idx = torch.arange(nC, device=U.device)
+        Ublock = torch.zeros((nC, 6, nC, 6), dtype=U.dtype, device=U.device)
+        Ublock[idx, :, idx, :] = U
+        S = S + Ublock.reshape(n, n)
+        eye = torch.eye(n, dtype=S.dtype, device=S.device)
+        dc = torch.linalg.solve_ex(S + 1e-8 * eye, b_blocks.reshape(n))[0]
+        dc_blocks = dc.reshape(nC, 6)
 
     Wt_dc_o = torch.einsum("oij,oi->oj", Y_o, dc_blocks[cam_adj_c])
     Wt_dc = _segment_sum(Wt_dc_o, pi, P)
@@ -216,17 +277,42 @@ def _solve_normal_equations(rvecs, tvecs, points, p: BAProblem, lam, delta, n_fi
 
 
 def lm_loop(step, cost_at, sq_at, rv, tv, pt, *, max_iterations, lambda_init,
-            lambda_up, lambda_down, lambda_min, lambda_max, ftol, xtol):
-    """The LM accept/reject loop shared by the flat and grid solvers.
-    ``step(rv, tv, pt, lam) -> (d_r, d_t, d_p)``.  Returns
-    (rv, tv, pt, BAStats)."""
+            lambda_up, lambda_down, lambda_min, lambda_max, ftol, xtol,
+            cg_tol=None, cg_forcing: bool = False):
+    """The LM accept/reject loop shared by the flat, grid and global-kernel
+    solvers.  ``step(rv, tv, pt, lam) -> (d_r, d_t, d_p)``.  Returns
+    (rv, tv, pt, BAStats).
+
+    With ``cg_tol`` set the step solves its camera system by PCG and the loop
+    hands it the tolerance: ``step(rv, tv, pt, lam, tol) -> (d_r, d_t, d_p,
+    bnorm)`` with ``bnorm`` the norm of the step's right-hand side.  With
+    ``cg_forcing`` the tolerance follows an Eisenstat-Walker sequence,
+    tol_k = clip(sqrt(|b_k-1| / |b_0|), cg_tol, 0.1), and 0.1 in the first
+    iteration: early LM iterations solve loosely, later ones tighter, and
+    accept/reject guards the inexact steps.  Without it every step gets
+    ``cg_tol``."""
     init_cost = cost_at(rv, tv, pt)
     init_sq = sq_at(rv, tv, pt)
     lam = torch.tensor(lambda_init, dtype=rv.dtype, device=rv.device)
     cost = init_cost
+    b0 = blast = torch.tensor(-1.0, dtype=rv.dtype, device=rv.device)
     it = 0
     while it < max_iterations:
-        d_r, d_t, d_p = step(rv, tv, pt, lam)
+        if cg_tol is None:
+            d_r, d_t, d_p = step(rv, tv, pt, lam)
+        else:
+            if cg_forcing:
+                loose = torch.full_like(b0, 0.1)
+                tol = torch.where(
+                    b0 > 0.0,
+                    torch.clamp(torch.sqrt(blast / torch.clamp(b0, min=1e-30)),
+                                min=cg_tol, max=0.1),
+                    loose)
+            else:
+                tol = torch.full_like(b0, cg_tol)
+            d_r, d_t, d_p, bnorm = step(rv, tv, pt, lam, tol)
+            b0 = torch.where(b0 > 0.0, b0, bnorm)
+            blast = bnorm
         rv2, tv2, pt2 = rv + d_r, tv + d_t, pt + d_p
         new_cost = cost_at(rv2, tv2, pt2)
         accept = new_cost < cost
@@ -274,14 +360,12 @@ def ba_solve_impl(
 ):
     """Levenberg-Marquardt with Schur elimination on the flat table.
     Returns (rvecs, tvecs, points, BAStats); the caller applies the
-    divergence-discard rule."""
+    divergence-discard rule.  ``cg_iters`` > 0 solves the reduced camera
+    system by matrix-free block-Jacobi PCG to the fixed tolerance ``cg_tol``
+    (global BA over long keyframe chains)."""
     if axis_name is not None:
         raise NotImplementedError(
             "sharded BA (axis_name) needs parallel/dist_ba, not ported yet")
-    if cg_iters > 0:
-        raise NotImplementedError(
-            "the PCG camera solve (_pcg_blocked) comes with the global-BA "
-            "kernels (K4), not ported yet")
     p = problem._replace(obs_mask=problem.obs_mask.to(problem.uv.dtype))
 
     def cost_at(rv, tv, pt):
@@ -292,7 +376,8 @@ def ba_solve_impl(
         return torch.sum(r * r)
 
     def step(rv, tv, pt, lam):
-        return _solve_normal_equations(rv, tv, pt, p, lam, huber_delta, n_fixed)
+        return _solve_normal_equations(rv, tv, pt, p, lam, huber_delta, n_fixed,
+                                       cg_iters=cg_iters, cg_tol=cg_tol)
 
     return lm_loop(step, cost_at, sq_at, p.rvecs, p.tvecs, p.points,
                    max_iterations=max_iterations, lambda_init=lambda_init,

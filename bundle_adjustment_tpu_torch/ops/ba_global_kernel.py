@@ -1,0 +1,535 @@
+"""Global-scale bundle adjustment by matrix-free PCG: the CUDA kernels'
+wrappers, their plain versions and the LM solve around them.
+
+Counterpart of ``bundle_adjustment_tpu.ops.ba_global_pallas`` (K4).  One LM
+iteration is four per-observation passes, each a hand-written CUDA entry
+point of ``csrc/ba_global_pcg.cu``:
+
+``setup``    residuals, analytic Jacobians, Huber weights, the damped V^-1
+             (6 packed values), the coupling blocks Y (D*18 rows), z_p, and
+             the per-camera (C', 54) reduction: U upper triangle (21), g_c
+             (6), W V^-1 g_p (6), the block-Jacobi W V^-1 W^T (21);
+``matvec``   per CG iteration, W V^-1 W^T x, reduced per camera to (C', 6);
+``backsub``  dp = -(z_p + V^-1 W^T x);
+``cost``     the Huber cost (times 0.5) and the raw squared cost of a trial
+             state.
+
+Around them, in plain PyTorch as in the JAX package: Rodrigues and its
+derivative per camera, the (C', 6)-sized camera algebra (damping, the 6x6
+block inverses, the CG recurrences of ``ba._pcg_blocked``), and the LM
+accept/reject loop with Eisenstat-Walker forcing (``ba.lm_loop``).  Same LM
+semantics as ``ba_grid.ba_solve_grid_impl`` with ``cg_iters > 0``.
+
+Every wrapper launches its kernel for CUDA tensors and runs its plain
+version (``setup_plain``, ``matvec_plain``, ``backsub_plain``,
+``cost_plain``: the kernel's arithmetic on tensors) for CPU tensors; nothing
+gives way from the card to a plain version.  ``solve`` drives the wrappers,
+``solve_plain`` the plain versions.
+
+Layouts are the kernels': the point index is the last, fastest axis (points
+(3, P), cam_slot (D, P), mask (D, P), uv (2D, P) with rows 2d, 2d+1), cameras
+are one row each (``camera_rows``).  A slot is dead when its mask is 0 or
+its camera index is outside [0, C): it adds exact zeros and its cam_slot is
+never used as an index.  Points keep their input order: the JAX package's
+sort of points by owning camera serves its chunk skipping and has no use
+here.
+
+Per-camera sums.  The TPU kernels scatter with one-hot matmuls into an
+output that the sequential grid accumulates.  Here ``camera_index`` builds,
+once per solve, the camera-major list of live (slot, point) pairs of
+adjustable cameras (a stable sort, so the order is fixed), and a segmented
+sum kernel adds each camera's rows in that order.  No float atomics: two
+solves of one problem give the same bits.
+
+The shape gate.  ``1 <= D <= 12`` is the range the slot loops are held to,
+as on the TPU; ``0 <= n_fixed < C``; and the scratch that lives between the
+passes of one LM iteration (per slot of a point: 18 floats of Y, 54 of
+reduction rows, 6 of the matvec's rows; per point 9 more) stays within
+``SCRATCH_LIMIT_BYTES`` = 4 GiB, which also keeps a pair index inside an
+int32.  The TPU gate's ``C <= 8192`` and its tile planner (``_plan``,
+``_vmem_bytes``, the live-chunk tables) answer VMEM limits and are not kept.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Optional
+
+import torch
+
+from bundle_adjustment_tpu_torch import kernels
+from bundle_adjustment_tpu_torch.ops import ba as ba_flat
+from bundle_adjustment_tpu_torch.ops.ba_grid import BAProblemGrid, _inv6, _jtj, _mm, _mv
+from bundle_adjustment_tpu_torch.ops.ba_kernel import _inv3_damped
+from bundle_adjustment_tpu_torch.ops.lie import so3_exp, so3_exp_and_jac
+
+SETUP = "ba_global_setup"
+MATVEC = "ba_global_matvec"
+BACKSUB = "ba_global_backsub"
+COST = "ba_global_cost"
+
+MAX_SLOTS = 12
+SCRATCH_LIMIT_BYTES = 4 << 30
+_F32, _I32 = torch.float32, torch.int32
+
+# lanes of the setup reduction, (C', 54): symmetric 6x6 blocks are packed as
+# the 21 entries of their upper triangle
+_TRI6 = [(i, j) for i in range(6) for j in range(i, 6)]
+_TRI6_IDX = {ij: k for k, ij in enumerate(_TRI6)}
+_RED_U = slice(0, 21)       # U upper triangle
+_RED_GC = slice(21, 27)     # camera gradient
+_RED_WZ = slice(27, 33)     # right-hand-side coupling W V^-1 g_p
+_RED_DO = slice(33, 54)     # block-Jacobi W V^-1 W^T upper triangle
+_RED_COLS = 54
+_CAM_ROWS = 39              # R 9, dR 27, t 3
+_CAMC_ROWS = 12             # R 9, t 3
+
+
+def red_lane_groups() -> dict:
+    """name -> lanes of the (C', 54) setup reduction that share one scale.  A
+    camera's rotation lanes are larger than its translation lanes by about
+    the scene's depth (its square in the rotation-rotation entries of a 6x6
+    block), so a comparison of the reduction with another takes each group
+    against its own largest value: ``U.rr``, ``U.rt``, ``U.tt`` (and the same
+    of ``DO``), ``gc.r``, ``gc.t``, ``Wz.r``, ``Wz.t``."""
+    groups = {}
+    for name, sl in (("U", _RED_U), ("DO", _RED_DO)):
+        for k, (i, j) in enumerate(_TRI6):
+            part = "rr" if j < 3 else "tt" if i >= 3 else "rt"
+            groups.setdefault(f"{name}.{part}", []).append(sl.start + k)
+    for name, sl in (("gc", _RED_GC), ("Wz", _RED_WZ)):
+        groups[f"{name}.r"] = list(range(sl.start, sl.start + 3))
+        groups[f"{name}.t"] = list(range(sl.start + 3, sl.stop))
+    return groups
+
+
+def _unpack_sym6(tri):
+    """(..., 21) packed upper triangle -> (..., 6, 6) symmetric blocks."""
+    idx = torch.tensor([[_TRI6_IDX[(min(i, j), max(i, j))] for j in range(6)]
+                        for i in range(6)], device=tri.device)
+    return tri[..., idx]
+
+
+def scratch_bytes(P: int, D: int) -> int:
+    """Bytes of Y, V^-1, z_p and the kernels' scratch rows for (P, D)."""
+    return 4 * P * (D * (18 + _RED_COLS + 6) + 9)
+
+
+def eligible_shape_global(C: int, P: int, D: int, n_fixed: int = 1) -> bool:
+    """Whether the kernels take a problem of this shape (module docstring)."""
+    if not (1 <= D <= MAX_SLOTS and 0 <= n_fixed < C and P >= 1):
+        return False
+    return scratch_bytes(P, D) <= SCRATCH_LIMIT_BYTES
+
+
+def kernel_eligible_global(grid: BAProblemGrid, n_fixed: int = 1) -> bool:
+    P, D = grid.cam_slot.shape
+    return eligible_shape_global(grid.rvecs.shape[0], P, D, n_fixed)
+
+
+class CameraIndex(NamedTuple):
+    """The live (slot, point) pairs of adjustable cameras, camera-major."""
+    pairs: torch.Tensor     # (D*P,) int32, entry d*P + p; the tail is unused
+    offsets: torch.Tensor   # (C' + 1,) int32, camera a owns pairs[off[a]:off[a+1]]
+
+
+def camera_index(slotT, maskT, C: int, n_fixed: int) -> CameraIndex:
+    """Built once per solve: cam_slot and mask do not change during one."""
+    c_adj = C - n_fixed
+    a = slotT.reshape(-1).long() - n_fixed
+    ok = (maskT.reshape(-1) != 0) & (a >= 0) & (a < c_adj)
+    key = torch.where(ok, a, torch.full_like(a, c_adj))
+    order = torch.sort(key, stable=True).indices
+    counts = torch.bincount(key, minlength=c_adj + 1)[:c_adj]
+    offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    return CameraIndex(order.to(torch.int32).contiguous(),
+                       offsets.to(torch.int32).contiguous())
+
+
+class Layout(NamedTuple):
+    """The parts of a problem that one solve does not change, in the kernels'
+    layouts, float32 and int32."""
+    slotT: torch.Tensor     # (D, P) int32
+    maskT: torch.Tensor     # (D, P)
+    uvT: torch.Tensor       # (2D, P), rows 2d and 2d+1 are slot d's u and v
+    pmask: torch.Tensor     # (P,) 1.0 for a point that may move
+    scal: torch.Tensor      # (8,) fx, fy, cx, cy, lambda (0 here), Huber delta, 0, 0
+
+
+def layout(grid: BAProblemGrid, huber_delta: float = 1.0) -> Layout:
+    P, D = grid.cam_slot.shape
+    K = grid.K.to(_F32)
+    zero = K.new_zeros(())
+    return Layout(
+        slotT=grid.cam_slot.to(_I32).T.contiguous(),
+        maskT=grid.mask.to(_F32).T.contiguous(),
+        uvT=grid.uv.to(_F32).permute(1, 2, 0).reshape(2 * D, P).contiguous(),
+        pmask=grid.point_mask.to(_F32).contiguous(),
+        scal=torch.stack([K[0, 0], K[1, 1], K[0, 2], K[1, 2], zero,
+                          K.new_tensor(float(huber_delta)), zero, zero]))
+
+
+def with_lambda(scal, lam):
+    """``scal`` with its lambda lane set from a float or a 0-d tensor."""
+    lam = torch.as_tensor(lam, dtype=scal.dtype, device=scal.device)
+    return torch.cat([scal[:4], lam.reshape(1), scal[5:]])
+
+
+def camera_rows(rv, tv, with_jac: bool):
+    """One row per camera: (C, 39) = R (9, row-major), dR (27, entry
+    k*9 + i*3 + j = dR_ij/dr_k), t (3) with ``with_jac``; else (C, 12) = R, t."""
+    C = rv.shape[0]
+    if not with_jac:
+        return torch.cat([so3_exp(rv).reshape(C, 9), tv], dim=1).contiguous()
+    R, dR = so3_exp_and_jac(rv)                       # dR[c, i, j, k]
+    return torch.cat([R.reshape(C, 9), dR.permute(0, 3, 1, 2).reshape(C, 27), tv],
+                     dim=1).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# the plain versions
+# ---------------------------------------------------------------------------
+
+
+def _gather(table, slotT, maskT):
+    """Per-slot camera rows (D, P, k), zeroed for dead slots, and the (D, P)
+    float mask of live slots."""
+    C = table.shape[0]
+    live = (maskT != 0) & (slotT >= 0) & (slotT < C)
+    cs = torch.where(live, slotT, torch.zeros_like(slotT)).long()
+    live = live.to(table.dtype)
+    return table[cs] * live[..., None], live
+
+
+def _frame(Rg, tg, ptT, maskT, live, uvT, scal):
+    """Camera-frame points (D, P, 3), the safe 1/z and masked residuals
+    (D, P, 2) of every slot."""
+    D, P = maskT.shape
+    Xc = torch.sum(Rg * ptT.T[None, :, None, :], dim=-1) + tg
+    z = Xc[..., 2]
+    z_safe = torch.where(torch.abs(z) < 1e-9, torch.full_like(z, 1e-9), z)
+    inv_z = 1.0 / z_safe
+    u = scal[0] * Xc[..., 0] * inv_z + scal[2]
+    v = scal[1] * Xc[..., 1] * inv_z + scal[3]
+    m = maskT * live
+    r = (torch.stack([u, v], dim=-1) - uvT.reshape(D, 2, P).permute(0, 2, 1)) * m[..., None]
+    return Xc, inv_z, m, r
+
+
+def _camera_sum(rows, slotT, live, n_fixed: int, c_adj: int):
+    """(D, P, k) rows -> (C', k): each live slot's row added to its camera,
+    slots of gauge-fixed cameras dropped, in a fixed order."""
+    a = slotT.long() - n_fixed
+    idx = torch.where((live > 0) & (a >= 0), a, torch.full_like(a, c_adj))
+    return ba_flat._segment_sum(rows.reshape(-1, rows.shape[-1]), idx.reshape(-1),
+                                c_adj + 1)[:c_adj]
+
+
+def _vinv_matrix(VinvT):
+    """(6, P) packed 00 01 02 11 12 22 -> (P, 3, 3)."""
+    v = VinvT
+    return torch.stack([v[0], v[1], v[2], v[1], v[3], v[4], v[2], v[4], v[5]],
+                       dim=-1).reshape(-1, 3, 3)
+
+
+def _y_blocks(YT, D: int):
+    """(D*18, P) rows d*18 + i*3 + l -> (D, P, 6, 3)."""
+    P = YT.shape[1]
+    return YT.reshape(D, 18, P).permute(0, 2, 1).reshape(D, P, 6, 3)
+
+
+def _x_slots(x, slotT, maskT, n_fixed: int):
+    """Each slot's camera vector (D, P, 6); zeros for gauge-fixed cameras and
+    dead slots."""
+    table = torch.cat([x.new_zeros((n_fixed, 6)), x], dim=0)
+    return _gather(table, slotT, maskT)
+
+
+def setup_plain(cam, ptT, slotT, maskT, uvT, pmask, scal, n_fixed: int, index=None):
+    """The setup pass on tensors (``index`` is the kernels' and is not
+    read).  Returns (Y (D*18, P), V^-1 (6, P), z_p (3, P), red (C', 54))."""
+    D, P = slotT.shape
+    c_adj = cam.shape[0] - n_fixed
+    g, live = _gather(cam, slotT, maskT)
+    Rg = g[..., :9].reshape(D, P, 3, 3)
+    dRg = g[..., 9:36].reshape(D, P, 3, 3, 3)                  # [k, i, j]
+    Xc, inv_z, m, r = _frame(Rg, g[..., 36:], ptT, maskT, live, uvT, scal)
+    lam, delta = scal[4], scal[5]
+    a = torch.abs(r)
+    w = torch.where(a <= delta, torch.ones_like(a), delta / torch.clamp(a, min=1e-12)) \
+        * m[..., None]
+
+    fx, fy = scal[0], scal[1]
+    zeros = torch.zeros_like(inv_z)
+    duv = torch.stack([
+        torch.stack([fx * inv_z, zeros, -fx * Xc[..., 0] * inv_z * inv_z], dim=-1),
+        torch.stack([zeros, fy * inv_z, -fy * Xc[..., 1] * inv_z * inv_z], dim=-1),
+    ], dim=-2)                                                  # (D, P, 2, 3)
+    Jp = torch.sum(duv[..., :, :, None] * Rg[..., None, :, :], dim=-2)
+    dXdr = torch.sum(dRg * ptT.T[None, :, None, None, :], dim=-1)   # (D, P, k, i)
+    Jr = torch.sum(duv[..., :, None, :] * dXdr[..., None, :, :], dim=-1)
+    # gauge-fixed cameras: zero camera Jacobians before Y and U
+    cam_ok = (slotT >= n_fixed).to(r.dtype)[..., None, None]
+    Jc = torch.cat([Jr, duv], dim=-1) * cam_ok                  # (D, P, 2, 6)
+
+    V = torch.sum(_jtj(Jp, Jp, w), dim=0)                       # (P, 3, 3)
+    wr = w * r
+    g_p = torch.sum(Jp * wr[..., None], dim=(0, 2))             # (P, 3)
+    Vinv = _inv3_damped(V, lam, pmask)
+    z_p = _mv(Vinv, g_p)
+    Y = _jtj(Jc, Jp, w)                                         # (D, P, 6, 3)
+    YV = _mm(Y, Vinv[None])
+    iu = torch.tensor([i for i, _ in _TRI6], device=Y.device)
+    ju = torch.tensor([j for _, j in _TRI6], device=Y.device)
+    rows = torch.cat([
+        _jtj(Jc, Jc, w)[..., iu, ju],
+        torch.sum(Jc * wr[..., None], dim=-2),
+        torch.sum(Y * z_p[None, :, None, :], dim=-1),
+        torch.sum(YV[..., :, None, :] * Y[..., None, :, :], dim=-1)[..., iu, ju],
+    ], dim=-1)                                                  # (D, P, 54)
+    red = _camera_sum(rows, slotT, live, n_fixed, c_adj)
+    YT = Y.reshape(D, P, 18).permute(0, 2, 1).reshape(D * 18, P)
+    VinvT = torch.stack([Vinv[:, 0, 0], Vinv[:, 0, 1], Vinv[:, 0, 2],
+                         Vinv[:, 1, 1], Vinv[:, 1, 2], Vinv[:, 2, 2]])
+    return YT.contiguous(), VinvT, z_p.T.contiguous(), red
+
+
+def _coupling_z(YT, VinvT, slotT, maskT, x, n_fixed: int):
+    """Y (D, P, 6, 3), the live mask and z = V^-1 sum_d Y_d^T x_cam(d), (P, 3)."""
+    Y = _y_blocks(YT, slotT.shape[0])
+    xs, live = _x_slots(x, slotT, maskT, n_fixed)
+    q = torch.sum(Y * xs[..., None], dim=(0, 2))
+    return Y, live, _mv(_vinv_matrix(VinvT), q)
+
+
+def matvec_plain(YT, VinvT, slotT, maskT, x, n_fixed: int, index=None):
+    """The coupling term W V^-1 W^T x of S x, (C', 6); ``index`` is not read."""
+    Y, live, z = _coupling_z(YT, VinvT, slotT, maskT, x, n_fixed)
+    w2 = torch.sum(Y * z[None, :, None, :], dim=-1)            # (D, P, 6)
+    return _camera_sum(w2, slotT, live, n_fixed, x.shape[0])
+
+
+def backsub_plain(YT, VinvT, zpT, slotT, maskT, x, n_fixed: int):
+    """dp (3, P) = -(z_p + V^-1 W^T x)."""
+    _, _, z = _coupling_z(YT, VinvT, slotT, maskT, x, n_fixed)
+    return -(zpT + z.T)
+
+
+def cost_plain(camc, ptT, slotT, maskT, uvT, scal):
+    """(2,): 0.5 * sum rho(r) with Huber rho, and sum r^2."""
+    D, P = slotT.shape
+    g, live = _gather(camc, slotT, maskT)
+    _, _, _, r = _frame(g[..., :9].reshape(D, P, 3, 3), g[..., 9:], ptT, maskT, live,
+                        uvT, scal)
+    return torch.stack([ba_flat.robust_cost(r, scal[5]), torch.sum(r * r)])
+
+
+# ---------------------------------------------------------------------------
+# the wrappers
+# ---------------------------------------------------------------------------
+
+
+def _kind(*tensors) -> str:
+    """"cpu" or "cuda": the one device type of all tensors, or ValueError."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"inputs on different devices: {devs}")
+    kind = tensors[0].device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {tensors[0].device}")
+    return kind
+
+
+def _check(**named):
+    """Each ``name=(tensor, shape, dtype)``: shape, dtype and contiguity."""
+    for name, (t, shape, dtype) in named.items():
+        if tuple(t.shape) != tuple(shape) or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous {tuple(shape)} {dtype}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+
+
+def _check_shape(C: int, P: int, D: int, n_fixed: int):
+    if not eligible_shape_global(C, P, D, n_fixed):
+        raise ValueError(f"problem of C={C}, P={P}, D={D}, n_fixed={n_fixed} is outside "
+                         "the kernels' gate (eligible_shape_global)")
+
+
+def _check_index(index: Optional[CameraIndex], D: int, P: int, c_adj: int):
+    if index is None:
+        raise ValueError("index: CUDA tensors need the camera_index of this problem")
+    _check(pairs=(index.pairs, (D * P,), torch.int32),
+           offsets=(index.offsets, (c_adj + 1,), torch.int32))
+
+
+def _launch(name: str, dev, *args):
+    fn = kernels.library_fn(name)
+    err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else int(a) for a in args),
+             torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check(name, err)
+    kernels.LAUNCHES[name] += 1
+
+
+def setup(cam, ptT, slotT, maskT, uvT, pmask, scal, n_fixed: int,
+          index: Optional[CameraIndex] = None):
+    """The setup pass of one LM iteration.  Returns (Y (D*18, P), V^-1 (6, P),
+    z_p (3, P), red (C', 54))."""
+    if _kind(cam, ptT, slotT, maskT, uvT, pmask, scal) == "cpu":
+        return setup_plain(cam, ptT, slotT, maskT, uvT, pmask, scal, n_fixed)
+    C = cam.shape[0]
+    D, P = slotT.shape
+    _check_shape(C, P, D, n_fixed)
+    _check(cam=(cam, (C, _CAM_ROWS), _F32), ptT=(ptT, (3, P), _F32),
+           slotT=(slotT, (D, P), _I32), maskT=(maskT, (D, P), _F32),
+           uvT=(uvT, (2 * D, P), _F32), pmask=(pmask, (P,), _F32), scal=(scal, (8,), _F32))
+    _check_index(index, D, P, C - n_fixed)
+    dev = cam.device
+    Y = torch.empty((D * 18, P), dtype=_F32, device=dev)
+    Vinv = torch.empty((6, P), dtype=_F32, device=dev)
+    zp = torch.empty((3, P), dtype=_F32, device=dev)
+    rows = torch.empty((D * _RED_COLS, P), dtype=_F32, device=dev)
+    red = torch.empty((C - n_fixed, _RED_COLS), dtype=_F32, device=dev)
+    _launch(SETUP, dev, cam, ptT, slotT, maskT, uvT, pmask, scal, index.pairs,
+            index.offsets, C, P, D, n_fixed, Y, Vinv, zp, rows, red)
+    return Y, Vinv, zp, red
+
+
+def matvec(YT, VinvT, slotT, maskT, x, n_fixed: int, index: Optional[CameraIndex] = None):
+    """The coupling term W V^-1 W^T x of one CG iteration, (C', 6)."""
+    if _kind(YT, VinvT, slotT, maskT, x) == "cpu":
+        return matvec_plain(YT, VinvT, slotT, maskT, x, n_fixed)
+    c_adj = x.shape[0]
+    D, P = slotT.shape
+    _check_shape(c_adj + n_fixed, P, D, n_fixed)
+    _check(YT=(YT, (D * 18, P), _F32), VinvT=(VinvT, (6, P), _F32),
+           slotT=(slotT, (D, P), _I32), maskT=(maskT, (D, P), _F32), x=(x, (c_adj, 6), _F32))
+    _check_index(index, D, P, c_adj)
+    dev = x.device
+    w2 = torch.empty((D * 6, P), dtype=_F32, device=dev)
+    out = torch.empty((c_adj, 6), dtype=_F32, device=dev)
+    _launch(MATVEC, dev, YT, VinvT, slotT, maskT, x, index.pairs, index.offsets,
+            c_adj + n_fixed, P, D, n_fixed, w2, out)
+    return out
+
+
+def backsub(YT, VinvT, zpT, slotT, maskT, x, n_fixed: int):
+    """Point back-substitution dp (3, P) = -(z_p + V^-1 W^T x)."""
+    if _kind(YT, VinvT, zpT, slotT, maskT, x) == "cpu":
+        return backsub_plain(YT, VinvT, zpT, slotT, maskT, x, n_fixed)
+    c_adj = x.shape[0]
+    D, P = slotT.shape
+    _check_shape(c_adj + n_fixed, P, D, n_fixed)
+    _check(YT=(YT, (D * 18, P), _F32), VinvT=(VinvT, (6, P), _F32), zpT=(zpT, (3, P), _F32),
+           slotT=(slotT, (D, P), _I32), maskT=(maskT, (D, P), _F32), x=(x, (c_adj, 6), _F32))
+    dev = x.device
+    dp = torch.empty((3, P), dtype=_F32, device=dev)
+    _launch(BACKSUB, dev, YT, VinvT, zpT, slotT, maskT, x, c_adj + n_fixed, P, D, n_fixed, dp)
+    return dp
+
+
+def cost(camc, ptT, slotT, maskT, uvT, scal):
+    """(2,): the Huber cost (times 0.5) and the raw squared cost."""
+    if _kind(camc, ptT, slotT, maskT, uvT, scal) == "cpu":
+        return cost_plain(camc, ptT, slotT, maskT, uvT, scal)
+    C = camc.shape[0]
+    D, P = slotT.shape
+    _check_shape(C, P, D, 0)
+    _check(camc=(camc, (C, _CAMC_ROWS), _F32), ptT=(ptT, (3, P), _F32),
+           slotT=(slotT, (D, P), _I32), maskT=(maskT, (D, P), _F32),
+           uvT=(uvT, (2 * D, P), _F32), scal=(scal, (8,), _F32))
+    dev = camc.device
+    partial = torch.empty((-(-P // 256), 2), dtype=_F32, device=dev)
+    out = torch.empty(2, dtype=_F32, device=dev)
+    _launch(COST, dev, camc, ptT, slotT, maskT, uvT, scal, C, P, D, partial, out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the LM solve
+# ---------------------------------------------------------------------------
+
+
+class _Roles(NamedTuple):
+    setup: object
+    matvec: object
+    backsub: object
+    cost: object
+
+
+_KERNELS = _Roles(setup, matvec, backsub, cost)
+_PLAIN = _Roles(setup_plain, matvec_plain, backsub_plain, cost_plain)
+
+
+def solve(
+    grid: BAProblemGrid,
+    n_fixed: int = 1,
+    max_iterations: int = 50,
+    huber_delta: float = 1.0,
+    lambda_init: float = 1e-3,
+    lambda_up: float = 4.0,
+    lambda_down: float = 0.5,
+    lambda_min: float = 1e-10,
+    lambda_max: float = 1e8,
+    ftol: float = 1e-5,
+    xtol: float = 1e-5,
+    cg_iters: int = 8,
+    cg_tol: float = 1e-6,
+    cg_forcing: bool = True,
+    roles: _Roles = _KERNELS,
+):
+    """Global BA of ``grid`` through the four kernels: CUDA tensors launch
+    them, CPU tensors take their plain versions, any other device raises.
+    Returns (rvecs, tvecs, points, BAStats), as
+    ``ba_grid.ba_solve_grid_impl`` with ``cg_iters > 0``."""
+    _kind(*grid)
+    C = grid.rvecs.shape[0]
+    P, D = grid.cam_slot.shape
+    if not eligible_shape_global(C, P, D, n_fixed) or cg_iters < 1:
+        raise ValueError(f"problem of C={C}, P={P}, D={D}, n_fixed={n_fixed}, "
+                         f"cg_iters={cg_iters} is outside the kernels' gate "
+                         "(eligible_shape_global)")
+    dev = grid.rvecs.device
+    rv0, tv0 = grid.rvecs.to(_F32), grid.tvecs.to(_F32)
+    ptT0 = grid.points.to(_F32).T.contiguous()
+    slotT, maskT, uvT, pmask, scal0 = layout(grid, huber_delta)
+    index = camera_index(slotT, maskT, C, n_fixed) if dev.type == "cuda" else None
+    eye6 = torch.eye(6, dtype=_F32, device=dev)
+
+    def solve_step(rv, tv, ptT, lam, tol):
+        YT, VinvT, zpT, red = roles.setup(camera_rows(rv, tv, True), ptT, slotT, maskT, uvT,
+                                          pmask, with_lambda(scal0, lam), n_fixed, index)
+        U = ba_flat._damp(_unpack_sym6(red[:, _RED_U]), lam)
+        b = -red[:, _RED_GC] + red[:, _RED_WZ]
+        Minv = _inv6(U - _unpack_sym6(red[:, _RED_DO]) + 1e-8 * eye6)
+
+        def camera_matvec(x):
+            return _mv(U, x) - roles.matvec(YT, VinvT, slotT, maskT, x.contiguous(),
+                                            n_fixed, index)
+
+        dc = ba_flat._pcg_blocked(camera_matvec, b, Minv, cg_iters, tol)
+        dpT = roles.backsub(YT, VinvT, zpT, slotT, maskT, dc.contiguous(), n_fixed)
+        d_r = torch.zeros_like(rv)
+        d_t = torch.zeros_like(tv)
+        d_r[n_fixed:] = dc[:, :3]
+        d_t[n_fixed:] = dc[:, 3:]
+        return d_r, d_t, dpT, torch.sqrt(torch.sum(b * b))
+
+    last = []       # the last state costed and its two costs: the loop asks
+                    # for the Huber and the squared cost of one state in turn
+
+    def costs(rv, tv, ptT):
+        if not (last and last[0] is rv and last[1] is tv and last[2] is ptT):
+            last[:] = [rv, tv, ptT, roles.cost(camera_rows(rv, tv, False), ptT.contiguous(),
+                                               slotT, maskT, uvT, scal0)]
+        return last[3]
+
+    rv, tv, ptT, stats = ba_flat.lm_loop(
+        solve_step, lambda *s: costs(*s)[0], lambda *s: costs(*s)[1], rv0, tv0, ptT0,
+        max_iterations=max_iterations, lambda_init=lambda_init, lambda_up=lambda_up,
+        lambda_down=lambda_down, lambda_min=lambda_min, lambda_max=lambda_max,
+        ftol=ftol, xtol=xtol, cg_tol=cg_tol, cg_forcing=cg_forcing)
+    return rv, tv, ptT.T.contiguous(), stats
+
+
+#: ``solve`` with every role's plain version, on whatever device the tensors
+#: lie: what the kernels are held against.
+solve_plain = functools.partial(solve, roles=_PLAIN)

@@ -198,3 +198,90 @@ def synthetic_window(seed: int, C: int = 5, n_pts: int = 96, P: int = 128,
         tvecs=(tv + rng.normal(0, 0.02, tv.shape)).astype(np.float32),
         points=points, cam_slot=cam_slot, uv=uv, mask=mask,
         point_mask=np.arange(P) < n_pts, K=K)
+
+
+#: the intrinsics of the global-scale scenes (a 1280 x 720 video camera)
+GLOBAL_K = np.array([[912.78, 0, 650.29], [0, 913.03, 362.72], [0, 0, 1.0]])
+
+
+def synthetic_global_problem(seed: int, C: int = 200, P: int = 30000,
+                             obs_per_pt: int = 4, K=GLOBAL_K, noise: float = 0.5,
+                             rot_sigma: float = 0.005, centre_sigma: float = 0.02,
+                             point_sigma: float = 0.02, drop: float = 0.0,
+                             pad_to: int | None = None) -> dict:
+    """A global-BA problem in the flat layout (``ops/ba.BAProblem``), as a
+    dict of numpy arrays keyed like it: a long chain of ``C`` cameras on a
+    smooth forward path with band-diagonal visibility (each of the ``P``
+    points is seen by ``obs_per_pt`` consecutive cameras), the structure the
+    matrix-free PCG camera solve exists for.  Every point sits in front of
+    its first camera at depth 4 to 16; pixels carry ``noise`` px of Gaussian
+    noise; an observation behind its camera (z <= 0.5) is masked out, and so
+    is a random share ``drop`` of all, which leaves points with fewer
+    observations than slots.  All cameras but the first start perturbed
+    (rotation and centre, the extrinsic translation rebuilt as t = -R c), and
+    all points.  With ``pad_to`` the points are padded to that count with
+    zeros that ``point_mask`` leaves out."""
+    rng = np.random.default_rng(seed)
+    K = np.asarray(K, np.float64)
+    c_ids = np.arange(C)
+    rvecs = np.stack([0.10 * np.sin(c_ids / 10), 0.10 * np.cos(c_ids / 13),
+                      0.05 * np.sin(c_ids / 7)], axis=1)
+    Rs = np.stack([so3_exp_np(r) for r in rvecs])
+    centers = np.stack([0.3 * c_ids, 0.05 * np.sin(c_ids / 5), 0.02 * c_ids], axis=1)
+    tvecs = -np.einsum("cij,cj->ci", Rs, centers)
+
+    base = (np.arange(P) * max(C - obs_per_pt, 1) // P).astype(np.int32)
+    offs = rng.uniform([-4, -4, 4], [4, 4, 16], size=(P, 3))
+    X = centers[base] + np.einsum("pji,pj->pi", Rs[base], offs)
+
+    cam_idx = (base[:, None] + np.arange(obs_per_pt)[None, :]).reshape(-1)
+    cam_idx = np.minimum(cam_idx, C - 1).astype(np.int32)
+    pnt_idx = np.repeat(np.arange(P, dtype=np.int32), obs_per_pt)
+    Xc = np.einsum("oij,oj->oi", Rs[cam_idx], X[pnt_idx]) + tvecs[cam_idx]
+    uv = (Xc[:, :2] / Xc[:, 2:]) * [K[0, 0], K[1, 1]] + [K[0, 2], K[1, 2]]
+    uv = uv + rng.normal(size=uv.shape) * noise
+    valid = Xc[:, 2] > 0.5
+
+    free = np.arange(C)[:, None] > 0
+    rv_p = rvecs + rng.normal(size=rvecs.shape) * rot_sigma * free
+    c_p = centers + rng.normal(size=centers.shape) * centre_sigma * free
+    R_p = np.stack([so3_exp_np(r) for r in rv_p])
+    tv_p = -np.einsum("cij,cj->ci", R_p, c_p)
+    points = (X + rng.normal(size=X.shape) * point_sigma).astype(np.float32)
+    if drop:
+        valid = valid & (rng.random(len(valid)) >= drop)
+    n_pad = max((pad_to or P) - P, 0)
+    return dict(
+        rvecs=rv_p.astype(np.float32), tvecs=tv_p.astype(np.float32),
+        points=np.concatenate([points, np.zeros((n_pad, 3), np.float32)]),
+        cam_idx=cam_idx, pnt_idx=pnt_idx, uv=uv.astype(np.float32),
+        obs_mask=valid.astype(np.float32), point_mask=np.arange(P + n_pad) < P,
+        K=K.astype(np.float32))
+
+
+def synthetic_global_map(seed: int, C: int = 200, P: int = 30000, obs_per_pt: int = 4,
+                         device="cuda", **scene):
+    """The scene of ``synthetic_global_problem`` as a ``Map``: ``C`` keyframes
+    (ids and frame indices 0..C-1, perturbed poses), ``P`` map points, the
+    live observations; each keyframe's keypoints are its observations, with
+    empty descriptors.  Returns (map, K): what ``VisualOdometryPipeline``'s
+    ``run_local_ba``, ``run_global_ba``, ``run_full_ba`` and ``finalize`` need
+    to be driven at a real size without rendering C frames."""
+    import torch
+
+    from bundle_adjustment_tpu_torch.models.map_store import Keyframe, Map
+
+    pr = synthetic_global_problem(seed, C, P, obs_per_pt, **scene)
+    m = Map(device=device)
+    mp_ids = m.add_map_points(pr["points"].astype(np.float64))
+    live = pr["obs_mask"] > 0
+    for c in range(C):
+        rows = np.flatnonzero(live & (pr["cam_idx"] == c))
+        xy = pr["uv"][rows].astype(np.float64)
+        m.add_keyframe(Keyframe(
+            kf_id=c, R=so3_exp_np(pr["rvecs"][c].astype(np.float64)),
+            t=pr["tvecs"][c].astype(np.float64), xy=xy,
+            desc=torch.zeros((len(rows), 8), dtype=torch.int32, device=m.device),
+            kp_valid=np.ones(len(rows), bool), frame_idx=c))
+        m.add_observations(c, mp_ids[pr["pnt_idx"][rows]], np.arange(len(rows)), xy)
+    return m, pr["K"].astype(np.float64)

@@ -8,7 +8,8 @@ Phases, each of which exits non-zero when it fails:
 
 1. the card's name and power limit, torch and CUDA versions, TF32 flags;
 2. build every CUDA kernel of the port from ``bundle_adjustment_tpu_torch/csrc``
-   with nvcc for sm_90a (one nvcc per source, all at once);
+   with nvcc for sm_90a (one nvcc per source, all at once; the four roles of
+   K4 share one source);
 3. K1, the Hamming 2-NN kernel, against its plain PyTorch version on the
    card at 4000 x 4000 (invalid train slots, planted ties) and at a ragged
    size: exact equality; kernel and plain times from CUDA events;
@@ -20,6 +21,12 @@ Phases, each of which exits non-zero when it fails:
    ragged P and at D = 12, all with padding points and dead slots; one point
    on a camera centre; two launches bit-equal; times per solve and per LM
    iteration from CUDA events;
+5b. K4, the four global-BA PCG roles (setup, matvec, backsub, cost), each
+   against its plain version at the global path's shape (200 cameras, 30,000
+   points bucketed to P = 32,768, D = 4, n_fixed = 2) and at a ragged one
+   (37 cameras, P = 1777, dead slots, n_fixed = 1), norm-wise; the whole
+   solve against ``solve_plain``; two launches and two solves bit-equal;
+   times per launch from CUDA events;
 6. the main path: the port's numpy-rendered strafe sequence at 1280 x 720,
    ``preset_video`` (4000 features, 8 levels) with the camera fitted to the
    render and the default ``BAConfig``, through
@@ -30,7 +37,16 @@ Phases, each of which exits non-zero when it fails:
 7. the earlier path, ``BAConfig(use_pallas_ba=False)`` (the grid solver), on
    the same frames until its first windowed BA completes;
 8. determinism: the first 12 frames through two fresh pipelines give equal
-   statuses, keyframe ids and keyframe poses, bit for bit.
+   statuses, keyframe ids and keyframe poses, bit for bit;
+9. the global path at full width: a map of 200 keyframes, 30,000 points and
+   120,000 observations (``synthetic_global_map``) in a
+   ``VisualOdometryPipeline(preset_video(cam))``, then ``finalize``: global BA
+   over 199 cameras and full BA over 200 through the K4 kernels, with the
+   launch counters set to 0 just before and read just after; a second fresh
+   run must give bit-equal poses;
+10. the same path through a real VO run: the rendered frames with
+   ``BAConfig(pcg_min_cameras=3)`` until a windowed BA completes, so that
+   every windowed BA takes the PCG branch and K4, then ``finalize``.
 
 The line before the last is the kernels' JSON record, the line before that
 the card's name and power limit; the last line is the ``{"ok": true, ...}``
@@ -48,6 +64,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 #: peak rates of one H100 SXM (NVIDIA data sheet, dense): device-memory
 #: bytes/s and float32 operations/s on the CUDA cores (no tensor cores)
@@ -313,36 +330,267 @@ def check_window_lm(torch, np, ba_kernel, grid_cls, synthetic_window, so3_exp_np
                 bound_by="bytes" if t_bytes > t_ops else "operations")
 
 
-def profile_frames(torch, frames, cfg, pipeline_cls, log_cls) -> None:
-    """A fresh pipeline over ``frames`` under torch.profiler: the device's
-    busy share of the wall time and the kernels by device time, printed.
-    Runs after the main path, so it adds nothing to the main path's launch
-    counts."""
+def global_grid(torch, mods, seed: int, C: int, n_pts: int, P: int, drop: float, dev):
+    """A band-visibility chain of ``C`` cameras and ``n_pts`` points padded to
+    ``P`` points, a share ``drop`` of its observations left out (dead slots),
+    in the grid layout on ``dev``."""
+    pr = mods.synthetic_global_problem(seed, C=C, P=n_pts, drop=drop, pad_to=P)
+    return mods.from_flat(mods.BAProblem(**{k: torch.as_tensor(v, device=dev)
+                                            for k, v in pr.items()}))
+
+
+def global_work(g, n_fixed: int) -> dict:
+    """role -> (bytes, operations) of one launch on the grid ``g``, counted
+    from its shapes and masks.  Bytes: every input read once, every output
+    written once (scratch rows are neither).  Operations (a multiply and an
+    add count one each):
+
+    * setup, per live slot: residual 29, Huber weights 6, projection Jacobian
+      8, point Jacobian 30, dXc/dr 45, camera Jacobian 30, V 36, g_p 18
+      (202); per live slot of an adjustable camera: Y 108, U's upper triangle
+      126, g_c 36, Y z_p 30, Y V^-1 90, the preconditioner's upper triangle
+      105, the 54 adds of the camera sum; per point: damping and the 3x3
+      inverse 50, z_p 15;
+    * matvec, per live slot of an adjustable camera: Y^T x 36, Y z 30, the 6
+      adds of the camera sum; per point V^-1 q 15;
+    * backsub, per live slot of an adjustable camera 36; per point 21;
+    * cost, per live slot: residual and rho 35."""
+    C = g.rvecs.shape[0]
+    P, D = g.cam_slot.shape
+    c_adj = C - n_fixed
+    live = (g.mask > 0) & (g.cam_slot >= 0) & (g.cam_slot < C)
+    L = float(live.sum())
+    La = float((live & (g.cam_slot >= n_fixed)).sum())
+    grid_b = P * D * (4 + 4)                  # cam_slot, mask
+    index_b = P * D * 4 + (c_adj + 1) * 4     # pairs, offsets
+    y_b = 18 * D * P * 4
+    return {
+        "ba_global_setup": (
+            C * 39 * 4 + P * 12 + grid_b + P * D * 8 + P * 4 + 32 + index_b
+            + y_b + 9 * P * 4 + c_adj * 54 * 4,
+            L * 202 + La * (108 + 126 + 36 + 30 + 90 + 105 + 54) + P * 65),
+        "ba_global_matvec": (
+            y_b + 6 * P * 4 + grid_b + index_b + 2 * c_adj * 24,
+            La * (36 + 30 + 6) + P * 15),
+        "ba_global_backsub": (
+            y_b + 9 * P * 4 + grid_b + c_adj * 24 + 3 * P * 4,
+            La * 36 + P * 21),
+        "ba_global_cost": (
+            C * 12 * 4 + P * 12 + grid_b + P * D * 8 + 32 + 8,
+            L * 35),
+    }
+
+
+# K4: the bound on each output's gap to its plain version, norm-wise within
+# one scale group (see check_global), and beside it the widest gap measured
+# on one H100 over the two shapes and all the groups it covers.  The widest
+# is Y's: a pixel residual is the difference of two numbers near 600, and the
+# Huber weight 1/|r| of a residual of a pixel or two carries that rounding
+# relatively.
+K4_BOUNDS = {"Y": 2e-3,         # 6.0e-4 (translation rows; rotation rows 3.5e-4)
+             "Vinv": 1e-3,      # 1.4e-4
+             "zp": 1e-3,        # 5.4e-5
+             "red": 1e-4,       # 2.1e-5 (DO.tt; the other nine groups 3.9e-6 to 1.6e-5)
+             "matvec": 2e-5,    # 9.4e-7
+             "backsub": 2e-4,   # 8.5e-6
+             "cost": 1e-5}      # 1.1e-7
+
+
+def check_global(torch, np, mods, seed: int, dev) -> dict:
+    """K4: each role against its plain version on the card.  Every output is
+    compared in groups of one scale, each by its largest absolute difference
+    over the group's largest absolute value: a camera's rotation lanes are
+    larger than its translation lanes by the scene's depth, and the 54 lanes
+    of the setup reduction span five orders of magnitude, so one norm over a
+    whole output would hide an error as large as its small lanes.  The groups
+    are Y's rotation and translation rows, V^-1, z_p, the ten groups of
+    ``ba_global_kernel.red_lane_groups``, the matvec's rotation and
+    translation lanes, dp, and each of the two costs.  The gaps are printed
+    and held to ``K4_BOUNDS``.
+    Returns role -> the kernels line's numbers at the full-width shape."""
+    gk = mods.gk
+    shapes = [   # name, C, n_pts, P, drop, n_fixed
+        ("C=200 n_fixed=2 P=32768 D=4", 200, 30000, 32768, 0.0, 2),
+        ("C=37 n_fixed=1 P=1777 D=4, 15 % dead slots", 37, 1531, 1777, 0.15, 1),
+    ]
+    records = None
+    for name, C, n_pts, P, drop, n_fixed in shapes:
+        g = global_grid(torch, mods, seed + 3, C, n_pts, P, drop, dev)
+        lay = gk.layout(g)
+        index = gk.camera_index(lay.slotT, lay.maskT, C, n_fixed)
+        ptT = g.points.T.contiguous()
+        scal = gk.with_lambda(lay.scal, 1e-3)
+        cam = gk.camera_rows(g.rvecs, g.tvecs, True)
+        camc = gk.camera_rows(g.rvecs, g.tvecs, False)
+        x = torch.as_tensor(np.random.default_rng(seed).normal(0, 1e-2, (C - n_fixed, 6))
+                            .astype(np.float32), device=dev)
+
+        def rel(a, b):
+            return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+        def run_setup(fn, *extra):
+            return fn(cam, ptT, lay.slotT, lay.maskT, lay.uvT, lay.pmask, scal, n_fixed, *extra)
+
+        ks = run_setup(gk.setup, index)
+        ps = run_setup(gk.setup_plain)
+        YT, VinvT, zpT, _ = ps
+        outs = {
+            "ba_global_setup": (ks, ps),
+            "ba_global_matvec": (
+                (gk.matvec(YT, VinvT, lay.slotT, lay.maskT, x, n_fixed, index),),
+                (gk.matvec_plain(YT, VinvT, lay.slotT, lay.maskT, x, n_fixed),)),
+            "ba_global_backsub": (
+                (gk.backsub(YT, VinvT, zpT, lay.slotT, lay.maskT, x, n_fixed),),
+                (gk.backsub_plain(YT, VinvT, zpT, lay.slotT, lay.maskT, x, n_fixed),)),
+            "ba_global_cost": (
+                (gk.cost(camc, ptT, lay.slotT, lay.maskT, lay.uvT, lay.scal),),
+                (gk.cost_plain(camc, ptT, lay.slotT, lay.maskT, lay.uvT, lay.scal),)),
+        }
+        torch.cuda.synchronize()
+
+        def y_part(Y, rows):      # rows of the 6x3 blocks: 0-2 rotation, 3-5 translation
+            return Y.reshape(D, 6, 3, -1)[:, rows]
+
+        def parts(role, o):
+            """label -> (the part of this role's outputs that has one scale, bound)"""
+            if role == "ba_global_setup":
+                out = {"Y.r": (y_part(o[0], slice(0, 3)), K4_BOUNDS["Y"]),
+                       "Y.t": (y_part(o[0], slice(3, 6)), K4_BOUNDS["Y"]),
+                       "Vinv": (o[1], K4_BOUNDS["Vinv"]), "zp": (o[2], K4_BOUNDS["zp"])}
+                out.update({k: (o[3][:, lanes], K4_BOUNDS["red"])
+                            for k, lanes in gk.red_lane_groups().items()})
+                return out
+            if role == "ba_global_matvec":
+                return {"r": (o[0][:, :3], K4_BOUNDS["matvec"]),
+                        "t": (o[0][:, 3:], K4_BOUNDS["matvec"])}
+            if role == "ba_global_backsub":
+                return {"dp": (o[0], K4_BOUNDS["backsub"])}
+            return {"huber": (o[0][:1], K4_BOUNDS["cost"]), "sq": (o[0][1:], K4_BOUNDS["cost"])}
+
+        D = lay.slotT.shape[0]
+        errs = {}
+        for role, (outs_k, outs_p) in outs.items():
+            errs[role] = max(float((a - b).abs().max()) for a, b in zip(outs_k, outs_p))
+            if not all(bool(torch.isfinite(a).all()) for a in outs_k):
+                fail(f"K4 {role} {name}: non-finite output")
+            pk, pp = parts(role, outs_k), parts(role, outs_p)
+            gaps = {k: rel(pk[k][0], pp[k][0]) for k in pk}
+            print(f"K4 {role} {name}: relative err " + " ".join(
+                f"{k} {v:.2e}" for k, v in gaps.items()) + f", max abs err {errs[role]:.3e}")
+            over = {k: (v, pk[k][1]) for k, v in gaps.items() if not v <= pk[k][1]}
+            if over:
+                fail(f"K4 {role} {name}: differs from the plain version: (relative gap, "
+                     f"bound) {over}")
+        if ks[1][:, n_pts:].any() or ks[2][:, n_pts:].any():
+            fail(f"K4 setup {name}: a padding point has a non-zero V^-1 or z_p")
+
+        # two launches on the same input: equal bits
+        again = run_setup(gk.setup, index) + (
+            gk.matvec(YT, VinvT, lay.slotT, lay.maskT, x, n_fixed, index),
+            gk.backsub(YT, VinvT, zpT, lay.slotT, lay.maskT, x, n_fixed),
+            gk.cost(camc, ptT, lay.slotT, lay.maskT, lay.uvT, lay.scal))
+        first = ks + outs["ba_global_matvec"][0] + outs["ba_global_backsub"][0] \
+            + outs["ba_global_cost"][0]
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            fail(f"K4 {name}: two launches on the same input differ")
+
+        # the whole solve: kernels against plain versions, and twice
+        a = gk.solve(g, n_fixed=n_fixed, max_iterations=12)
+        a2 = gk.solve(g, n_fixed=n_fixed, max_iterations=12)
+        b = gk.solve_plain(g, n_fixed=n_fixed, max_iterations=12)
+        torch.cuda.synchronize()
+        ca, cb = float(a[3].final_cost), float(b[3].final_cost)
+        ia, ib = int(a[3].iterations), int(b[3].iterations)
+        print(f"K4 {name}: solve: cost {float(a[3].initial_cost):.2f} -> kernels {ca:.4f} in "
+              f"{ia} iterations, plain {cb:.4f} in {ib}; launches equal bits")
+        if not (abs(float(a[3].initial_cost) - float(b[3].initial_cost))
+                <= 1e-5 * float(b[3].initial_cost) and abs(ca - cb) <= 1e-2 * cb
+                and abs(ia - ib) <= 2 and bool(a[3].accepted) and ca < float(a[3].initial_cost)
+                and all(bool(torch.isfinite(t).all()) for t in a[:3])):
+            fail(f"K4 {name}: the solve differs from solve_plain")
+        if not all(torch.equal(t1, t2)
+                   for t1, t2 in zip(a[:3] + tuple(a[3]), a2[:3] + tuple(a2[3]))):
+            fail(f"K4 {name}: two solves of one problem differ")
+
+        if records is not None:
+            continue
+        # times at the full-width shape
+        calls = {
+            "ba_global_setup": (lambda: run_setup(gk.setup, index),
+                                lambda: run_setup(gk.setup_plain)),
+            "ba_global_matvec": (
+                lambda: gk.matvec(YT, VinvT, lay.slotT, lay.maskT, x, n_fixed, index),
+                lambda: gk.matvec_plain(YT, VinvT, lay.slotT, lay.maskT, x, n_fixed)),
+            "ba_global_backsub": (
+                lambda: gk.backsub(YT, VinvT, zpT, lay.slotT, lay.maskT, x, n_fixed),
+                lambda: gk.backsub_plain(YT, VinvT, zpT, lay.slotT, lay.maskT, x, n_fixed)),
+            "ba_global_cost": (
+                lambda: gk.cost(camc, ptT, lay.slotT, lay.maskT, lay.uvT, lay.scal),
+                lambda: gk.cost_plain(camc, ptT, lay.slotT, lay.maskT, lay.uvT, lay.scal)),
+        }
+        work = global_work(g, n_fixed)
+        records = {}
+        for role, (kernel_fn, plain_fn) in calls.items():
+            ms = cuda_ms(kernel_fn)
+            plain_ms = cuda_ms(plain_fn, warmup=1, reps=3, trials=3)
+            nbytes, ops = work[role]
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
+            print(f"K4 {role} {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms; "
+                  f"{ops / 1e6:.1f} Mop, {nbytes / 1e6:.2f} MB, bound "
+                  f"{max(t_bytes, t_ops):.5f} ms")
+            records[role] = dict(max_abs_err=errs[role], ms=ms, plain_ms=plain_ms,
+                                 bound_ms=max(t_bytes, t_ops),
+                                 bound_by="bytes" if t_bytes > t_ops else "operations")
+        t_solve = cuda_ms(lambda: gk.solve(g, n_fixed=n_fixed, max_iterations=12),
+                          warmup=1, reps=2, trials=3)
+        print(f"K4 {name}: solve of {ia} LM iterations {t_solve:.2f} ms "
+              f"({t_solve / ia:.3f} ms per LM iteration, host control included)")
+    return records
+
+
+K_NAMES = ("knn2_kernel", "gather40_kernel", "ba_window_lm_kernel", "setup_points_kernel",
+           "camera_sum_kernel", "matvec_points_kernel", "backsub_points_kernel",
+           "cost_points_kernel", "cost_final_kernel")
+
+
+def profile_call(torch, label: str, fn) -> None:
+    """``fn()`` under torch.profiler: the device's busy share of the wall
+    time, the kernels by device time and the port's own kernels, printed.
+    Runs after the paths whose launches are counted, so it adds nothing to
+    their counts."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    pipe = pipeline_cls(cfg, log=log_cls(echo=False), device="cuda")
-    pipe.process_frame(frames[0])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for f in frames[1:]:
-            pipe.process_frame(f)
+        fn()
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.key_averages()
     dev_us = sum(e.self_device_time_total for e in events
                  if e.device_type == DeviceType.CUDA)
-    table = events.table(sort_by="self_device_time_total", row_limit=25)
-    summary = (f"profile over {len(frames) - 1} frames: wall {wall_us / 1e3:.1f} ms, "
-               f"device busy {dev_us / 1e3:.1f} ms ({100 * dev_us / wall_us:.1f} %)")
-    print(summary)
-    print(table)
+    print(f"profile over {label}: wall {wall_us / 1e3:.1f} ms, device busy "
+          f"{dev_us / 1e3:.1f} ms ({100 * dev_us / wall_us:.1f} %)")
+    print(events.table(sort_by="self_device_time_total", row_limit=25))
     for e in events:
-        if e.device_type == DeviceType.CUDA and any(
-                k in e.key for k in ("knn2_kernel", "gather40_kernel", "ba_window_lm_kernel")):
+        if e.device_type == DeviceType.CUDA and any(k in e.key for k in K_NAMES):
             print(f"{e.key[:60]}: {e.count} launches, device time "
                   f"{e.self_device_time_total / max(e.count, 1) / 1e3:.4f} ms each")
+
+
+def profile_frames(torch, frames, cfg, pipeline_cls, log_cls) -> None:
+    """A fresh pipeline over ``frames[1:]`` under the profiler."""
+    pipe = pipeline_cls(cfg, log=log_cls(echo=False), device="cuda")
+    pipe.process_frame(frames[0])
+
+    def rest():
+        for f in frames[1:]:
+            pipe.process_frame(f)
+
+    profile_call(torch, f"{len(frames) - 1} frames", rest)
 
 
 def drive(torch, pipe, frames, until_first_ba: bool = False) -> dict:
@@ -377,7 +625,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", type=int, default=0, metavar="N",
                     help="after the checks, profile a fresh pipeline over the "
-                         "first N frames (default 0: no profile)")
+                         "first N frames and one finalize of the global path's "
+                         "map (default 0: no profile)")
     args = ap.parse_args()
 
     import numpy as np
@@ -390,12 +639,20 @@ def main() -> int:
     from bundle_adjustment_tpu_torch import kernels
     from bundle_adjustment_tpu_torch.config import CAMERA_LEHMAN, CameraModel, preset_video
     from bundle_adjustment_tpu_torch.models.pipeline import VisualOdometryPipeline
-    from bundle_adjustment_tpu_torch.ops import ba_kernel, hamming_kernel, orb, orb_kernel
-    from bundle_adjustment_tpu_torch.ops.ba_grid import BAProblemGrid
+    from bundle_adjustment_tpu_torch.ops import ba_global_kernel, ba_kernel, hamming_kernel, orb, \
+        orb_kernel
+    from bundle_adjustment_tpu_torch.ops.ba import BAProblem
+    from bundle_adjustment_tpu_torch.ops.ba_grid import BAProblemGrid, from_flat
     from bundle_adjustment_tpu_torch.ops.lie import so3_exp_np
     from bundle_adjustment_tpu_torch.utils.event_log import EventLog, read_events
     from bundle_adjustment_tpu_torch.utils.metrics import ate_rmse
-    from bundle_adjustment_tpu_torch.utils.synthetic import synthetic_sequence, synthetic_window
+    from bundle_adjustment_tpu_torch.utils.synthetic import (
+        synthetic_global_map, synthetic_global_problem, synthetic_sequence, synthetic_window)
+
+    K4_ROLES = (ba_global_kernel.SETUP, ba_global_kernel.MATVEC, ba_global_kernel.BACKSUB,
+                ba_global_kernel.COST)
+    mods = types.SimpleNamespace(gk=ba_global_kernel, BAProblem=BAProblem, from_flat=from_flat,
+                                 synthetic_global_problem=synthetic_global_problem)
 
     if "jax" in sys.modules:
         fail("the port imported jax")
@@ -425,6 +682,7 @@ def main() -> int:
     k2 = check_gather(torch, orb_kernel, gen, 720, 1280, budgets[0], dev)
     k3 = check_window_lm(torch, np, ba_kernel, BAProblemGrid, synthetic_window,
                          so3_exp_np, args.seed, dev)
+    k4 = check_global(torch, np, mods, args.seed, dev)
 
     # -- 6. the main path ----------------------------------------------------
     W, H = 1280, 720
@@ -484,8 +742,8 @@ def main() -> int:
     print(f"launches on the main path: {launches}; peak device memory "
           f"{peak_mem / 2 ** 20:.1f} MiB")
 
-    if not 3 <= n_kf <= 24:
-        fail(f"{n_kf} keyframes, expected 3..24")
+    if n_kf < 3:
+        fail(f"{n_kf} keyframes, expected at least 3")
     if n_pts <= 100:
         fail(f"{n_pts} map points, expected > 100")
     if n_ba <= 0:
@@ -501,7 +759,7 @@ def main() -> int:
         rows = [ln for ln in fh if not ln.startswith("#")]
     if len(rows) != n_kf:
         fail(f"trajectory.txt has {len(rows)} rows for {n_kf} keyframes")
-    for name in kernels.KERNELS:
+    for name in ("hamming_knn2", "orb_gather40", "ba_window_lm"):
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the main path")
     n_windowed = sum(1 for e in ba_events if not e.get("global_ba"))
@@ -549,8 +807,113 @@ def main() -> int:
     print(f"determinism: two fresh pipelines over 12 frames: statuses "
           f"{''.join(s[0] for s in st_a)}, {len(ids_a)} keyframes, ids and poses bit-equal")
 
+    # -- 9. the global path at full width -------------------------------------
+    N_KF, N_PT, N_OBS = 200, 30000, 120000
+
+    def global_pipe():
+        gmap, gK = synthetic_global_map(args.seed, C=N_KF, P=N_PT, obs_per_pt=4, device="cuda")
+        gcam = CameraModel(fx=float(gK[0, 0]), fy=float(gK[1, 1]), cx=float(gK[0, 2]),
+                           cy=float(gK[1, 2]), width=W, height=H)
+        gpipe = VisualOdometryPipeline(preset_video(gcam), log=EventLog(echo=False),
+                                       device="cuda")
+        gmap.log = gpipe.log
+        gpipe.map = gmap
+        return gpipe
+
+    def global_run():
+        gpipe = global_pipe()
+        glog = gpipe.log
+        gout = tempfile.mkdtemp(prefix="chip_smoke_global_")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        gsummary = gpipe.finalize(gout)
+        torch.cuda.synchronize()
+        return dict(pipe=gpipe, seconds=time.perf_counter() - t0, out=gout, summary=gsummary,
+                    launches=dict(kernels.LAUNCHES), peak=torch.cuda.max_memory_allocated(),
+                    events=[e for e in glog.events
+                            if e["event"] in ("ba_complete", "ba_diverged")])
+
+    t0 = time.perf_counter()
+    g1 = global_run()
+    g_launches = g1["launches"]
+    if (g1["pipe"].map.num_keyframes, g1["pipe"].map.num_points) != (N_KF, N_PT) \
+            or g1["summary"]["num_observations"] > N_OBS:
+        fail(f"the global map is not {N_KF} keyframes, {N_PT} points: {g1['summary']}")
+    if len(g1["events"]) != 2 or any(e["event"] != "ba_complete" for e in g1["events"]):
+        fail(f"global path: expected two completed BA solves, got {g1['events']}")
+    for e, what in zip(g1["events"], ("global BA, 199 cameras", "full BA, 200 cameras")):
+        if not (math.isfinite(e["final_cost"]) and e["final_cost"] < e["initial_cost"]):
+            fail(f"global path, {what}: cost not finite and reduced: {e}")
+        print(f"global path, {what}: squared cost {e['initial_cost']:.1f} -> "
+              f"{e['final_cost']:.1f} in {e['iterations']} LM iterations, {e['elapsed_s']:.3f} s")
+    for name in K4_ROLES:
+        if g_launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the global path")
+    if any(e["event"] == "pcg_plain_solver" for e in g1["pipe"].log.events):
+        fail("the global path took a plain PCG solver on the card")
+    if g_launches["ba_window_lm"] != 0:
+        fail("the global path launched the window LM kernel")
+    lm_its = sum(e["iterations"] for e in g1["events"])
+    if g_launches[K4_ROLES[0]] != lm_its or g_launches[K4_ROLES[2]] != lm_its:
+        fail(f"{lm_its} LM iterations on the global path but launches {g_launches}")
+    with open(f"{g1['out']}/trajectory.txt") as fh:
+        g_rows = [ln for ln in fh if not ln.startswith("#")]
+    g_traj = g1["pipe"].map.trajectory(True)
+    if len(g_rows) != N_KF or not np.isfinite(g_traj).all():
+        fail(f"global path: trajectory.txt has {len(g_rows)} rows or is not finite")
+    g2 = global_run()
+    ids1, poses1 = keyframe_state(np, g1["pipe"])
+    ids2, poses2 = keyframe_state(np, g2["pipe"])
+    if ids1 != ids2 or not np.array_equal(poses1, poses2) \
+            or not np.array_equal(g1["pipe"].map.points(), g2["pipe"].map.points()) \
+            or g1["launches"] != g2["launches"]:
+        fail("global path: a second fresh run gives other poses, points or launch counts")
+    print(f"global path: {N_KF} keyframes, {N_PT} points, "
+          f"{g1['summary']['num_observations']} observations; finalize {g1['seconds']:.2f} s and "
+          f"{g2['seconds']:.2f} s; {lm_its} LM iterations, {g_launches[K4_ROLES[1]]} CG "
+          f"iterations; launches {({k: g_launches[k] for k in K4_ROLES})}; peak device memory "
+          f"{g1['peak'] / 2 ** 20:.1f} MiB; a second fresh run: poses and points bit-equal "
+          f"(phase {time.perf_counter() - t0:.1f} s)")
+
+    # -- 10. the PCG branch through a real VO run -----------------------------
+    cfg_pcg = dataclasses.replace(cfg, ba=dataclasses.replace(cfg.ba, pcg_min_cameras=3))
+    log_pcg = EventLog(echo=False)
+    pipe_pcg = VisualOdometryPipeline(cfg_pcg, log=log_pcg, device="cuda")
+    kernels.reset_launches()
+    st_pcg = []
+    for f in frames:
+        st_pcg.append(pipe_pcg.process_frame(f)["status"])
+        if any(e["event"] == "ba_complete" for e in log_pcg.events):
+            break
+    torch.cuda.synchronize()
+    windowed = [e for e in log_pcg.events if e["event"] == "ba_complete"]
+    pcg_launches = dict(kernels.LAUNCHES)
+    if not windowed:
+        fail(f"pcg_min_cameras=3: no windowed BA completed in {len(frames)} frames")
+    if pcg_launches["ba_window_lm"] != 0 or any(pcg_launches[k] <= 0 for k in K4_ROLES) \
+            or any(e["event"] == "pcg_plain_solver" for e in log_pcg.events):
+        fail(f"pcg_min_cameras=3: the windowed BA did not go through K4: {pcg_launches}")
+    pipe_pcg.finalize(tempfile.mkdtemp(prefix="chip_smoke_pcg_"))
+    torch.cuda.synchronize()
+    traj_pcg = pipe_pcg.map.trajectory(cfg.consistent_convention)
+    if not np.isfinite(traj_pcg).all() or kernels.LAUNCHES["ba_window_lm"] != 0:
+        fail("pcg_min_cameras=3: trajectory not finite, or K3 launched in finalize")
+    print(f"PCG branch in a VO run (pcg_min_cameras=3): {len(st_pcg)} frames, statuses "
+          f"{''.join(s[0] for s in st_pcg)}, first windowed BA through K4: squared cost "
+          f"{windowed[0]['initial_cost']:.1f} -> {windowed[0]['final_cost']:.1f} in "
+          f"{windowed[0]['iterations']} LM iterations, {windowed[0]['elapsed_s'] * 1e3:.0f} ms; "
+          f"{pipe_pcg.map.num_keyframes} keyframes, trajectory finite; launches "
+          f"{({k: kernels.LAUNCHES[k] for k in K4_ROLES})}")
+    if "jax" in sys.modules:
+        fail("the port imported jax")
+
     if args.profile:
         profile_frames(torch, frames[: args.profile], cfg, VisualOdometryPipeline, EventLog)
+        gpipe = global_pipe()
+        profile_call(torch, f"finalize of the {N_KF}-keyframe map",
+                     lambda: gpipe.finalize(tempfile.mkdtemp(prefix="chip_smoke_prof_")))
 
     record = {"kernels": [
         dict(name="hamming_knn2", route="cuda",
@@ -565,6 +928,12 @@ def main() -> int:
              source="bundle_adjustment_tpu_torch/csrc/ba_window_lm.cu",
              replaces="bundle_adjustment_tpu/ops/ba_pallas.py:521",
              launches=launches["ba_window_lm"], library_ms=None, **k3),
+    ] + [
+        dict(name=role, route="cuda",
+             source="bundle_adjustment_tpu_torch/csrc/ba_global_pcg.cu",
+             replaces=f"bundle_adjustment_tpu/ops/ba_global_pallas.py:{line}",
+             launches=g_launches[role], library_ms=None, **k4[role])
+        for role, line in zip(K4_ROLES, (339, 522, 583, 621))
     ]}
     print(smi)
     print(json.dumps(record))

@@ -13,6 +13,28 @@ iteration rvecs and tvecs agree within 1e-5 and points within 1e-4 absolute,
 the costs within 1e-5 relative; after a full solve the final cost within
 1 %, the iteration count within 2, ``accepted`` equal.  Two launches on the
 same input give equal bits.
+
+K4, the four global-BA PCG roles (setup, matvec, backsub, cost), are held to
+their plain versions norm-wise: the largest absolute difference over the
+largest absolute value, because single entries of U or V^-1 cancel.  Outputs
+whose lanes differ in scale are compared in groups of one scale as well (Y's
+rotation and translation rows, the ten groups of
+``ba_global_kernel.red_lane_groups``, the matvec's rotation and translation
+lanes): a camera's rotation lanes are larger than its translation lanes by the
+scene's depth, and one norm over all 54 lanes of the reduction would hide an
+error as large as the small lanes.  The kernels contract to FMA and add each
+camera's rows in list order where the plain versions add by ``index_put_``.
+The widest gap is Y's: a pixel residual is the difference of two numbers near
+600, so it carries about 1e-3 px of rounding, and the Huber weight 1/|r| of a
+residual of a pixel or two carries that relatively.  Measured on one H100 at
+the two shapes: Y 6.0e-4 (translation rows; rotation rows 3.5e-4), V^-1
+1.4e-4, z_p 5.4e-5, the reduction's groups 3.9e-6 to 2.1e-5, matvec 9.4e-7,
+backsub 8.5e-6, the costs 1.1e-7.  Bounds: Y 2e-3, V^-1 and z_p 1e-3, each
+group of the reduction 1e-4, matvec 2e-5, backsub 2e-4, the two costs 1e-5
+relative.  A whole solve: initial cost 1e-5, final cost 1 %, iterations within
+2.  Repeat launches and repeat solves give equal bits, and junk in dead slots
+changes no bit.  The plain grid PCG solver (the card's solver when
+``cg_precond_group`` is above 1) gives equal bits on repeat as well.
 """
 
 import re
@@ -22,10 +44,17 @@ import pytest
 import torch
 
 from bundle_adjustment_tpu_torch import kernels
+from bundle_adjustment_tpu_torch.config import BAConfig, CameraModel, PipelineConfig
+from bundle_adjustment_tpu_torch.models.pipeline import VisualOdometryPipeline
+from bundle_adjustment_tpu_torch.ops import ba_global_kernel as gk
 from bundle_adjustment_tpu_torch.ops import ba_kernel, hamming_kernel, orb, orb_kernel
-from bundle_adjustment_tpu_torch.ops.ba_grid import BAProblemGrid
+from bundle_adjustment_tpu_torch.ops.ba import BAProblem
+from bundle_adjustment_tpu_torch.ops.ba_grid import BAProblemGrid, ba_solve_grid_impl, from_flat
 from bundle_adjustment_tpu_torch.ops.lie import so3_exp_np
-from bundle_adjustment_tpu_torch.utils.synthetic import synthetic_window
+from bundle_adjustment_tpu_torch.utils.event_log import EventLog
+from bundle_adjustment_tpu_torch.utils.synthetic import (synthetic_global_map,
+                                                         synthetic_global_problem,
+                                                         synthetic_window)
 
 # Several pytest workers share the cores: more torch threads per worker
 # only contend with each other (three times slower in all).
@@ -73,6 +102,19 @@ def _window(device, seed, **kw):
     return BAProblemGrid(**{k: torch.as_tensor(v, device=device) for k, v in w.items()})
 
 
+def _global_grid(device, seed, C, n_pts, P, drop=0.0):
+    """A band-visibility chain of C cameras and n_pts points padded to P, a
+    share ``drop`` of its observations left out, in the grid layout."""
+    pr = synthetic_global_problem(seed, C=C, P=n_pts, drop=drop, pad_to=P)
+    return from_flat(BAProblem(**{k: torch.as_tensor(v, device=device)
+                                  for k, v in pr.items()}))
+
+
+def _rel(a, b):
+    """The largest absolute difference over the largest absolute value."""
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
 def _costs(stats):
     return [float(stats.initial_cost), float(stats.final_cost),
             float(stats.initial_sq), float(stats.final_sq)]
@@ -99,6 +141,10 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     g = _window("cpu", 0, C=3, n_pts=30, P=32)
     for a, b in zip(ba_kernel.lm_solve(g, n_fixed=1, max_iterations=2)[:3],
                     ba_kernel.lm_solve_plain(g, n_fixed=1, max_iterations=2)[:3]):
+        assert torch.equal(a, b)
+    gg = _global_grid("cpu", 0, C=6, n_pts=60, P=64)
+    for a, b in zip(gk.solve(gg, n_fixed=1, max_iterations=2)[:3],
+                    gk.solve_plain(gg, n_fixed=1, max_iterations=2)[:3]):
         assert torch.equal(a, b)
     assert all(n == 0 for n in kernels.LAUNCHES.values())
 
@@ -240,3 +286,205 @@ def test_window_kernel_ignores_junk_in_dead_slots_and_padding(card):
     np.testing.assert_allclose(_costs(a[3]), _costs(b[3]), rtol=1e-4)
     assert float((a[0] - b[0]).abs().max()) <= 1e-4
     assert torch.equal(b[2][300:], torch.zeros_like(b[2][300:]))
+
+
+# K4: C, n_pts, P, n_fixed.  The first is the size the global path runs at
+# (200 keyframes, 30,000 points, bucketed to 32,768); the second is ragged.
+K4_SHAPES = [(200, 30000, 32768, 2), (37, 1531, 1777, 1)]
+RED_GROUP_TOL = 1e-4      # each scale group of the setup reduction (module docstring)
+_K4_IDS = [f"C{c}P{p}" for c, _, p, _ in K4_SHAPES]
+
+
+def _k4_inputs(card, shape, seed=21):
+    C, n_pts, P, n_fixed = shape
+    g = _global_grid(card, seed, C, n_pts, P, drop=0.15 if P % 128 else 0.0)
+    lay = gk.layout(g)
+    index = gk.camera_index(lay.slotT, lay.maskT, C, n_fixed)
+    ptT = g.points.T.contiguous()
+    x = torch.as_tensor(np.random.default_rng(seed).normal(0, 1e-2, (C - n_fixed, 6))
+                        .astype(np.float32), device=card)
+    return g, lay, index, ptT, x, n_fixed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", K4_SHAPES, ids=_K4_IDS)
+def test_global_roles_match_plain_on_the_card(card, shape):
+    g, lay, index, ptT, x, n_fixed = _k4_inputs(card, shape)
+    scal = gk.with_lambda(lay.scal, 1e-3)
+    cam = gk.camera_rows(g.rvecs, g.tvecs, True)
+    before = dict(kernels.LAUNCHES)
+    k = gk.setup(cam, ptT, lay.slotT, lay.maskT, lay.uvT, lay.pmask, scal, n_fixed, index)
+    p = gk.setup_plain(cam, ptT, lay.slotT, lay.maskT, lay.uvT, lay.pmask, scal, n_fixed)
+    torch.cuda.synchronize()
+    for name, a, b, tol in zip(("Y", "Vinv", "zp", "red"), k, p, (2e-3, 1e-3, 1e-3, 1e-4)):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), name
+        assert _rel(a, b) <= tol, (name, _rel(a, b))
+    # Y's rotation and translation rows, and the ten groups of the reduction
+    # (blocks split into rotation and translation lanes), each on its own scale
+    D = lay.slotT.shape[0]
+    for rows in (slice(0, 3), slice(3, 6)):
+        assert _rel(k[0].reshape(D, 6, 3, -1)[:, rows],
+                    p[0].reshape(D, 6, 3, -1)[:, rows]) <= 2e-3, rows
+    for name, lanes in gk.red_lane_groups().items():
+        assert _rel(k[3][:, lanes], p[3][:, lanes]) <= RED_GROUP_TOL, \
+            (name, _rel(k[3][:, lanes], p[3][:, lanes]))
+    YT, VinvT, zpT, _ = p
+    a = gk.matvec(YT, VinvT, lay.slotT, lay.maskT, x, n_fixed, index)
+    b = gk.matvec_plain(YT, VinvT, lay.slotT, lay.maskT, x, n_fixed)
+    assert _rel(a[:, :3], b[:, :3]) <= 2e-5 and _rel(a[:, 3:], b[:, 3:]) <= 2e-5
+    a = gk.backsub(YT, VinvT, zpT, lay.slotT, lay.maskT, x, n_fixed)
+    assert _rel(a, gk.backsub_plain(YT, VinvT, zpT, lay.slotT, lay.maskT, x, n_fixed)) <= 2e-4
+    camc = gk.camera_rows(g.rvecs, g.tvecs, False)
+    a = gk.cost(camc, ptT, lay.slotT, lay.maskT, lay.uvT, lay.scal)
+    b = gk.cost_plain(camc, ptT, lay.slotT, lay.maskT, lay.uvT, lay.scal)
+    np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=1e-5)
+    for name in (gk.SETUP, gk.MATVEC, gk.BACKSUB, gk.COST):
+        assert kernels.LAUNCHES[name] == before[name] + 1, name
+    # padding points: V^-1 and z_p are zero, so they cannot move
+    n_pts = shape[1]
+    assert not k[1][:, n_pts:].any() and not k[2][:, n_pts:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", K4_SHAPES, ids=_K4_IDS)
+def test_global_solve_matches_plain_on_the_card(card, shape):
+    C, n_pts, P, n_fixed = shape
+    g = _global_grid(card, 22, C, n_pts, P, drop=0.15 if P % 128 else 0.0)
+    before = dict(kernels.LAUNCHES)
+    a = gk.solve(g, n_fixed=n_fixed, max_iterations=12)
+    b = gk.solve_plain(g, n_fixed=n_fixed, max_iterations=12)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(float(a[3].initial_cost), float(b[3].initial_cost), rtol=1e-5)
+    np.testing.assert_allclose(float(a[3].final_cost), float(b[3].final_cost), rtol=1e-2)
+    np.testing.assert_allclose(float(a[3].final_sq), float(b[3].final_sq), rtol=1e-2)
+    assert abs(int(a[3].iterations) - int(b[3].iterations)) <= 2
+    assert bool(a[3].accepted) and float(a[3].final_cost) < 0.5 * float(a[3].initial_cost)
+    assert all(bool(torch.isfinite(x).all()) for x in a[:3])
+    assert torch.equal(a[0][:n_fixed], g.rvecs[:n_fixed])
+    assert torch.equal(a[2][n_pts:], g.points[n_pts:])
+    its = int(a[3].iterations)
+    assert kernels.LAUNCHES[gk.SETUP] == before[gk.SETUP] + its
+    assert kernels.LAUNCHES[gk.BACKSUB] == before[gk.BACKSUB] + its
+    assert kernels.LAUNCHES[gk.COST] == before[gk.COST] + its + 2
+    assert its <= kernels.LAUNCHES[gk.MATVEC] - before[gk.MATVEC] <= 8 * its
+    assert kernels.LAUNCHES[ba_kernel.NAME] == before[ba_kernel.NAME]
+
+
+@pytest.mark.cuda
+def test_global_kernels_are_deterministic(card):
+    g, lay, index, ptT, x, n_fixed = _k4_inputs(card, K4_SHAPES[0])
+    scal = gk.with_lambda(lay.scal, 1e-3)
+    cam = gk.camera_rows(g.rvecs, g.tvecs, True)
+    runs = []
+    for _ in range(2):
+        s = gk.setup(cam, ptT, lay.slotT, lay.maskT, lay.uvT, lay.pmask, scal, n_fixed, index)
+        runs.append(s + (
+            gk.matvec(s[0], s[1], lay.slotT, lay.maskT, x, n_fixed, index),
+            gk.backsub(s[0], s[1], s[2], lay.slotT, lay.maskT, x, n_fixed),
+            gk.cost(gk.camera_rows(g.rvecs, g.tvecs, False), ptT, lay.slotT, lay.maskT,
+                    lay.uvT, lay.scal)))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    a = gk.solve(g, n_fixed=n_fixed, max_iterations=6)
+    b = gk.solve(g, n_fixed=n_fixed, max_iterations=6)
+    for x1, x2 in zip(a[:3] + tuple(a[3]), b[:3] + tuple(b[3])):
+        assert torch.equal(x1, x2)
+
+
+@pytest.mark.cuda
+def test_grid_pcg_solver_is_deterministic_on_the_card(card):
+    """The plain grid PCG solver, which the pipeline takes on the card when
+    ``cg_precond_group`` is above 1: its camera sums are float32 one-hot
+    products, so two solves give equal bits, and it agrees with its own run
+    on the CPU (initial cost 1e-5, final cost 1 %, iterations within 2: the
+    tolerances of the kernels' whole solve).  It launches no kernel."""
+    g = _global_grid(card, 25, 37, 1531, 1777, drop=0.15)
+    before = dict(kernels.LAUNCHES)
+    opts = dict(n_fixed=2, max_iterations=12, cg_iters=8, cg_forcing=True, cg_precond_group=4)
+    a = ba_solve_grid_impl(g, **opts)
+    b = ba_solve_grid_impl(g, **opts)
+    c = ba_solve_grid_impl(BAProblemGrid(*(t.cpu() for t in g)), **opts)
+    torch.cuda.synchronize()
+    for x1, x2 in zip(a[:3] + tuple(a[3]), b[:3] + tuple(b[3])):
+        assert torch.equal(x1, x2)
+    assert all(bool(torch.isfinite(x).all()) for x in a[:3])
+    assert bool(a[3].accepted) and float(a[3].final_cost) < 0.5 * float(a[3].initial_cost)
+    np.testing.assert_allclose(float(a[3].initial_cost), float(c[3].initial_cost), rtol=1e-5)
+    np.testing.assert_allclose(float(a[3].final_cost), float(c[3].final_cost), rtol=1e-2)
+    assert abs(int(a[3].iterations) - int(c[3].iterations)) <= 2
+    assert kernels.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 4])
+def test_pipeline_says_when_a_card_window_skips_the_global_kernels(card, group):
+    """A window above ``pcg_min_cameras`` on the card goes through the four
+    kernels and leaves no ``pcg_plain_solver`` event; with the grouped
+    preconditioner it takes the plain grid PCG solver, says so in one event
+    per solve, and launches none of them."""
+    gmap, K = synthetic_global_map(0, C=31, P=800, device="cuda")
+    cam = CameraModel(fx=float(K[0, 0]), fy=float(K[1, 1]), cx=float(K[0, 2]),
+                      cy=float(K[1, 2]), width=1280, height=720)
+    cfg = PipelineConfig(camera=cam, ba=BAConfig(cg_precond_group=group, max_iterations=6))
+    pipe = VisualOdometryPipeline(cfg, log=EventLog(echo=False), device="cuda")
+    gmap.log = pipe.log
+    pipe.map = gmap
+    before = dict(kernels.LAUNCHES)
+    out = pipe.run_global_ba()
+    assert out["n_cams"] == 30 and not out["diverged"]
+    assert np.isfinite(out["final"]) and out["final"] < 0.5 * out["initial"]
+    said = [e for e in pipe.log.events if e["event"] == "pcg_plain_solver"]
+    if group == 1:
+        assert not said and kernels.LAUNCHES[gk.SETUP] == before[gk.SETUP] + out["iterations"]
+    else:
+        assert len(said) == 1 and said[0]["why"] == "cg_precond_group=4"
+        assert said[0]["solver"] == "grid PCG solver" and kernels.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_global_kernels_ignore_junk_in_dead_slots(card):
+    """Observations behind their camera are dead slots; junk in their camera
+    index and pixels changes no bit, and no index is read out of range."""
+    g = _global_grid(card, 23, 37, 1531, 1777, drop=0.15)
+    dead = g.mask == 0
+    assert int(dead[:1531].sum()) > 100
+    junk = g._replace(cam_slot=torch.where(dead, torch.full_like(g.cam_slot, 10 ** 6), g.cam_slot),
+                      uv=torch.where(dead[..., None], torch.full_like(g.uv, 1e4), g.uv))
+    junk.cam_slot[1700:] = -7
+    a = gk.solve(g, n_fixed=2, max_iterations=5)
+    b = gk.solve(junk, n_fixed=2, max_iterations=5)
+    for x1, x2 in zip(a[:3] + tuple(a[3]), b[:3] + tuple(b[3])):
+        assert torch.equal(x1, x2)
+
+
+@pytest.mark.cuda
+def test_global_kernels_freeze_a_point_on_a_camera_centre(card):
+    pr = synthetic_global_problem(24, C=12, P=600)
+    centre = -so3_exp_np(pr["rvecs"][5].astype(np.float64)).T @ pr["tvecs"][5]
+    first = int(np.flatnonzero(pr["cam_idx"] == 5)[0])
+    pid = int(pr["pnt_idx"][first])
+    pr["points"][pid] = (centre + [1e-7, -1e-7, 2e-7]).astype(np.float32)
+    pr["obs_mask"][:] = 1.0
+    g = from_flat(BAProblem(**{k: torch.as_tensor(v, device=card) for k, v in pr.items()}))
+    for iters in (1, 30):
+        a = gk.solve(g, n_fixed=1, max_iterations=iters)
+        assert all(bool(torch.isfinite(x).all()) for x in a[:3])
+        assert np.isfinite(_costs(a[3])).all()
+
+
+@pytest.mark.cuda
+def test_global_wrappers_check_what_the_kernels_do_not_take(card):
+    g, lay, index, ptT, _, n_fixed = _k4_inputs(card, K4_SHAPES[1])
+    cam = gk.camera_rows(g.rvecs, g.tvecs, True)
+    args = (cam, ptT, lay.slotT, lay.maskT, lay.uvT, lay.pmask, lay.scal, n_fixed)
+    with pytest.raises(ValueError, match="index"):
+        gk.setup(*args)
+    with pytest.raises(ValueError, match="slotT"):
+        gk.setup(cam, ptT, lay.slotT.long(), *args[3:], index)
+    with pytest.raises(ValueError, match="ptT"):
+        gk.setup(cam, g.points, *args[2:], index)
+    with pytest.raises(ValueError, match="devices"):
+        gk.setup(cam.cpu(), *args[1:], index)
+    with pytest.raises(ValueError, match="gate"):
+        gk.setup(*args[:7], 37, index)

@@ -22,9 +22,18 @@ truth), and the global BA is held to 1 % on one shared map:
   gives the same global-BA problem (cameras, points, observations exactly,
   initial cost within 1e-5) and a final cost within 1 %;
 * ``finalize`` writes the trajectory, the PCD, ``summary.json`` and an
-  ``events.jsonl`` that the port's event log reads back.
+  ``events.jsonl`` that the port's event log reads back;
+* with ``BAConfig(pcg_min_cameras=3)`` every BA over more than 3 cameras
+  takes the matrix-free PCG branch of ``_solve_window`` (on the CPU the grid
+  PCG solver; on the card the global-BA kernels): a free run ends in a
+  finite full BA that did not diverge, and on a copy of the JAX pipeline's
+  map taken before any final BA the port's ``run_full_ba`` agrees with the
+  JAX pipeline's (same problem, initial cost within 1e-5, final cost within
+  1 %).
 """
 
+import copy
+import dataclasses
 import json
 import os
 
@@ -34,6 +43,7 @@ import pytest
 import torch
 
 import bundle_adjustment_tpu.config as jcfg
+from bundle_adjustment_tpu.models.map_store import Map as JaxMap
 from bundle_adjustment_tpu.models.pipeline import VisualOdometryPipeline as JaxPipeline
 from bundle_adjustment_tpu.utils.event_log import EventLog as JaxEventLog
 from bundle_adjustment_tpu.utils.synthetic import synthetic_sequence
@@ -83,6 +93,22 @@ def _keyframe_ate(pipe, gt_centres):
     return ate_rmse(traj, gt, with_scale=True), float(np.linalg.norm(gt.max(0) - gt.min(0)))
 
 
+def _copy_jax_map(jmap):
+    """A JAX-package ``Map`` with copies of ``jmap``'s host arrays and
+    keyframes and the numpy observation table only (the native mirror owns
+    memory that must not be copied by reference)."""
+    m = JaxMap(use_native=False)
+    for k, kf in jmap.keyframes.items():
+        kf2 = copy.copy(kf)
+        kf2.R, kf2.t, kf2.kp_to_mp = np.array(kf.R), np.array(kf.t), np.array(kf.kp_to_mp)
+        m.keyframes[k] = kf2
+    for name in convert._MAP_ARRAYS:
+        setattr(m, name, np.array(getattr(jmap, name)))
+    m._n_pts, m._n_obs = jmap._n_pts, jmap._n_obs
+    m.next_keyframe_id, m.next_map_point_id = jmap.next_keyframe_id, jmap.next_map_point_id
+    return m
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     frames, K, gt_centres, _ = synthetic_sequence(n_frames=20, width=W, height=H, seed=0)
@@ -93,9 +119,13 @@ def runs(tmp_path_factory):
     js = [jp.process_frame(f)["status"] for f in frames]
     ts = [tp.process_frame(f)["status"] for f in frames]
     shared = convert.map_store(jp.map, device="cpu")
+    # a second pair of copies for the PCG branch, taken before any final BA
+    jax_map = _copy_jax_map(jp.map)
+    shared_pcg = convert.map_store(jp.map, device="cpu")
     out = tmp_path_factory.mktemp("port_out")
     summary = tp.finalize(str(out))
     return dict(K=K, gt=gt_centres, jp=jp, tp=tp, js=js, ts=ts, shared=shared,
+                jax_map=jax_map, shared_pcg=shared_pcg, frames=frames,
                 out=str(out), summary=summary, n_frames=len(frames))
 
 
@@ -168,3 +198,57 @@ def test_finalize_writes_outputs(runs):
     assert summary["num_keyframes"] == tp.map.num_keyframes
     assert summary["frames"] == runs["n_frames"] and summary["device"] == "cpu"
     assert summary == json.loads(json.dumps(runs["summary"]))
+
+
+def _pcg_config(mod, K):
+    cfg = _config(mod, K)
+    return dataclasses.replace(cfg, ba=dataclasses.replace(cfg.ba, pcg_min_cameras=3))
+
+
+def test_pcg_branch_end_to_end(runs, monkeypatch):
+    """A free run whose BAs over more than 3 cameras go through the PCG
+    branch: each such solve is seen entering the grid PCG solver with the
+    pipeline's ``cg_iters`` and forcing, and the full BA ends finite."""
+    from bundle_adjustment_tpu_torch.ops import ba_grid
+
+    calls = []
+    solve = ba_grid.ba_solve_grid_impl
+
+    def spy(grid, **kw):
+        calls.append((grid.rvecs.shape[0], kw.get("cg_iters", 0), kw.get("cg_forcing")))
+        return solve(grid, **kw)
+
+    monkeypatch.setattr(ba_grid, "ba_solve_grid_impl", spy)
+    log = EventLog(echo=False)
+    tp = VisualOdometryPipeline(_pcg_config(tcfg, runs["K"]), log=log, device="cpu",
+                                draws=JaxDraws())
+    ts = [tp.process_frame(f)["status"] for f in runs["frames"]]
+    assert ts[:4] == runs["js"][:4] and tp.map.num_keyframes >= 4
+    before = len(calls)
+    full = tp.run_full_ba()
+    assert len(calls) == before + 1 and calls[-1] == (tp.map.num_keyframes, 8, True)
+    assert all(it == (8 if cams > 3 else 0) for cams, it, _ in calls)
+    assert full is not None and not full["diverged"]
+    assert np.isfinite(full["final"]) and full["final"] <= full["initial"]
+    assert np.isfinite(tp.map.trajectory(True)).all()
+    ate_t, extent = _keyframe_ate(tp, runs["gt"])
+    assert ate_t <= 0.25 * extent, (ate_t, extent)
+
+
+def test_pcg_full_ba_on_the_same_map(runs):
+    jp = JaxPipeline(_pcg_config(jcfg, runs["K"]), log=JaxEventLog(echo=False),
+                     use_pallas_matcher=False)
+    jp.map = runs["jax_map"]
+    port = VisualOdometryPipeline(_pcg_config(tcfg, runs["K"]), log=EventLog(echo=False),
+                                  device="cpu", draws=JaxDraws())
+    port.map = runs["shared_pcg"]
+    assert port.map.num_keyframes > 3
+    a = jp.run_full_ba()
+    b = port.run_full_ba()
+    assert a is not None and b is not None
+    assert not a["diverged"] and not b["diverged"]
+    for key in ("n_cams", "n_points", "n_obs"):
+        assert a[key] == b[key], key
+    np.testing.assert_allclose(b["initial"], a["initial"], rtol=1e-5)
+    np.testing.assert_allclose(b["final"], a["final"], rtol=1e-2)
+    assert b["final"] < b["initial"]

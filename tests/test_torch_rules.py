@@ -8,7 +8,8 @@
   raises instead of running on the CPU;
 - a kernel wrapper takes its plain version only for a CPU tensor;
 - every configuration not ported yet raises ``NotImplementedError`` naming
-  the missing kernel or module; the default configuration is not one.
+  the missing module; the default configuration is not one, and neither is
+  a BA window above ``pcg_min_cameras`` cameras.
 """
 
 import ast
@@ -26,9 +27,10 @@ import bundle_adjustment_tpu_torch
 from bundle_adjustment_tpu_torch import convert
 from bundle_adjustment_tpu_torch.config import BAConfig, CameraModel, PipelineConfig
 from bundle_adjustment_tpu_torch.models import frontend, pipeline
-from bundle_adjustment_tpu_torch.ops import ba_kernel, hamming_kernel, orb_kernel
+from bundle_adjustment_tpu_torch.ops import ba, ba_global_kernel, ba_kernel, hamming_kernel, \
+    orb_kernel
 from bundle_adjustment_tpu_torch.ops.ba_grid import BAProblemGrid
-from bundle_adjustment_tpu_torch.utils.synthetic import synthetic_window
+from bundle_adjustment_tpu_torch.utils.synthetic import synthetic_global_map, synthetic_window
 
 # Several pytest workers share the cores: more torch threads per worker
 # only contend with each other (three times slower in all).
@@ -113,6 +115,8 @@ def test_wrappers_take_the_plain_path_only_for_cpu_tensors():
     g = BAProblemGrid(**{k: torch.as_tensor(v, device="meta") for k, v in w.items()})
     with pytest.raises(ValueError, match="device"):
         ba_kernel.lm_solve(g, n_fixed=1)
+    with pytest.raises(ValueError, match="device"):
+        ba_global_kernel.solve(g, n_fixed=1)
 
 
 @pytest.mark.parametrize("change,needs", [
@@ -134,7 +138,9 @@ def test_pallas_ba_and_big_windows_raise():
     """The default configuration (use_pallas_ba=True, the window LM kernel
     K3) is ported: nothing refuses it on the card or on the CPU, and the
     kernel's wrapper refuses a tensor that is on neither.  A window wider
-    than pcg_min_cameras still needs K4 and the PCG solve."""
+    than pcg_min_cameras is ported too: 25 cameras solve on the CPU through
+    the PCG camera solve, whatever use_pallas_ba says.  What still raises is
+    the sharded solver's axis_name."""
     cfg = PipelineConfig(camera=CAM)
     assert cfg.ba.use_pallas_ba
     assert pipeline._unported(cfg, torch.device("cuda")) is None
@@ -145,10 +151,18 @@ def test_pallas_ba_and_big_windows_raise():
         ba_kernel.lm_solve(g, n_fixed=1)
     for use in (True, False):
         pipe = pipeline.VisualOdometryPipeline(
-            dataclasses.replace(cfg, ba=BAConfig(use_pallas_ba=use)), device="cpu")
+            dataclasses.replace(cfg, ba=BAConfig(use_pallas_ba=use, max_iterations=6)),
+            device="cpu")
         n = pipe.cfg.ba.pcg_min_cameras + 1
-        with pytest.raises(NotImplementedError, match="K4"):
-            pipe._solve_window(list(range(n)), list(range(n)), global_ba=True)
+        pipe.map, pipe.K = synthetic_global_map(0, C=n + 1, P=500, device="cpu")
+        out = pipe._solve_window(list(range(n)), list(range(n + 1)), global_ba=True)
+        assert out["n_cams"] == n == 25 and not out["diverged"]
+        assert np.isfinite(out["final"]) and out["final"] < 0.5 * out["initial"]
+        # the event that names a card window the kernels did not take is the card's
+        assert not [e for e in pipe.log.events if e["event"] == "pcg_plain_solver"]
+    problem = pipe.map.gather_window(list(range(n)), pipe.K, 8192, 32768)[0]
+    with pytest.raises(NotImplementedError, match="parallel"):
+        ba.ba_solve(problem, n_fixed=1, axis_name="pt")
 
 
 def test_package_version_and_entry_point():
