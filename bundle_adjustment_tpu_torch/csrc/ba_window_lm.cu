@@ -9,29 +9,40 @@
 //
 //   1. Rodrigues R and its analytic derivative per camera (small-angle
 //      series below theta^2 = 1e-8), in shared memory;
-//   2. per point: residuals and Jacobians of its live slots, Huber weights,
-//      V (3x3) and g_p in registers, the 6x3 coupling block of each
-//      adjustable camera to global scratch; V damped, inverted by the
-//      adjugate (|det| < 1e-12 -> 1e-12, point mask folded into 1/det, an
-//      inverse that is not finite -> 0);
-//   3. per adjustable camera: U (6x6), g_c and B z_p summed over the points;
-//   4. S = blockdiag(U) - sum_p B_c V^-1 B_c'^T, one pass per camera pair:
-//      each point touches only the cameras that see it;
-//   5. Gauss-Jordan without pivoting on [S | b] (n = 6C' <= 48) in shared
-//      memory, pivots below 1e-20 clamped;
-//   6. point back-substitution, trial cost, accept / reject, ftol / xtol,
+//   2. per point, in one pass: residuals and Jacobians of its live slots,
+//      each computed once, Huber weights, V (3x3) and g_p, the 6x3 coupling
+//      block of each adjustable camera to global scratch, V damped and
+//      inverted by the adjugate (|det| < 1e-12 -> 1e-12, point mask folded
+//      into 1/det, an inverse that is not finite -> 0); the same pass adds
+//      each slot's U (6x6) and -g_c, and each camera's B z_p, into per-thread
+//      accumulators in shared memory;
+//   3. S = blockdiag(U) - sum_p B_c V^-1 B_c'^T: per camera pair, each thread
+//      over its own points (the blocks it wrote in step 2), a warp butterfly;
+//   4. Gauss-Jordan without pivoting on [S | b] (n = 6C' <= 48), pivots below
+//      1e-20 clamped, by one warp with the rows in registers;
+//   5. point back-substitution, trial cost, accept / reject, ftol / xtol,
 //      stuck at lambda_max.
 //
-// The LM loop is inside the kernel: one launch, one thread block whose
-// threads stride over the points, __syncthreads() between phases.  The loop
-// state (lambda, cost, iteration, done, accept) is written by thread 0 to
-// shared memory and read by every thread after a barrier, so all threads
-// leave the loop together.
+// The launch is one thread-block cluster of N CTAs (N from the wrapper,
+// ops/ba_kernel.CLUSTER: 8 is portable, 16 is not) of 256 threads (128 at
+// C' = 8, where 256 threads' accumulators would not fit in shared memory),
+// the LM loop inside.  CTA r owns one contiguous range of points; the scratch stays point-fastest, so its reads are coalesced, and
+// a thread reads back only what it wrote itself.  Every sum over points is
+// first reduced inside the CTA in a fixed order (per-thread partials, warp
+// butterflies, warps or threads in order) into the CTA's own partial array
+// in shared memory: all C' cameras' 27 lanes and all pairs' 36 lanes in one
+// array (6 KB at C' = 8), the cost lanes in another phase.  One cluster
+// barrier per phase; then every CTA reads all ranks' partials through
+// distributed shared memory and adds them in rank order 0..N-1, so every CTA
+// holds bit-identical U, b, S, costs and loop state, runs the Gauss-Jordan
+// and the accept / reject itself and leaves the loop with the others: no
+// broadcast, no atomics.  The partial arrays are double-buffered, so the next
+// phase's barrier is the one that keeps a CTA from overwriting partials its
+// neighbours may still be reading; a last cluster barrier keeps every CTA's
+// shared memory alive until the others have read it.
 //
-// No float atomics.  Every sum over points is: per-thread partials over a
-// fixed stride, a butterfly of warp shuffles, then one thread per value
-// adding the warps' partials in warp order.  Two launches on the same input
-// give the same bits.
+// No float atomics, and the sums' order depends on the shape only: two
+// launches on the same input give the same bits.
 //
 // Not carried over from the TPU kernel: the one-hot matrix and its MXU
 // gathers, the (rows, P-lanes) transposes and the pad of P to 128, the dense
@@ -39,26 +50,35 @@
 // Cameras are indexed by cam_slot.  A slot whose camera index lies outside
 // [0, C) is treated as dead (memory safety; the grid never holds one).
 //
-// What bounds it on this card: operations, and before them latency.  The
-// bytes are small (the window is read once and the result written once,
-// under 1 MB at P = 8192); the arithmetic per iteration is about 27 MFLOP at
-// P = 8192, D = 5, C' = 3, most of it the Schur products of step 4.  One
-// block runs on one of the card's 132 SMs, so the kernel sits two orders of
-// magnitude above the card's bound by design; what it removes is the
-// hundreds of small launches and the host round trip per LM iteration of the
-// eager solver.  A cooperative multi-block grid is later work.
+// What bounds it on this card: latency.  The bytes are small (the window is
+// read once and the result written once, under 1 MB at P = 8192), the
+// arithmetic about 27 MFLOP per iteration at P = 8192, D = 5, C' = 3, a few
+// microseconds of the card's float32 rate; what is left is the chain of
+// dependent phases per LM iteration (two cluster barriers, the CTA
+// reductions, the 6C' pivots of one warp).  Where the one-block design of the
+// port's first version ran on one SM, computed each slot's Jacobians once
+// more per camera and crossed a block barrier per camera pair and two per
+// pivot, this one spreads the points over N SMs, computes the Jacobians once
+// and keeps the Gauss-Jordan inside one warp.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
+constexpr int kMaxThreads = 256;  // threads per CTA: 256, or 128 where the
+constexpr int kMaxWarps = kMaxThreads / 32;   // accumulators need the room
 constexpr int kMaxCams = 16;   // C, fixed cameras included
 constexpr int kMaxAdj = 8;     // C' = C - n_fixed
 constexpr int kMaxN = 6 * kMaxAdj;
-constexpr int kMaxRed = 36;    // widest block reduction (one 6x6 block)
+constexpr int kCamLanes = 27;  // per adjustable camera: U's upper triangle (21), b (6)
+constexpr int kPairLanes = 36; // per camera pair: one 6x6 block of sum B V^-1 B^T
+constexpr int kMaxPairs = kMaxAdj * (kMaxAdj + 1) / 2;
+constexpr int kMaxLanes = kMaxAdj * kCamLanes + kMaxPairs * kPairLanes;
+constexpr int kMaxCluster = 16;
 
 struct Args {
   const float* rvecs;
@@ -79,43 +99,21 @@ struct Args {
   float* scratch;
 };
 
-struct Shared {
+// Shared memory of one CTA; behind it (dynamic) the per-thread camera
+// accumulators acc[27 C'][threads + 1] (one column per thread; the odd row
+// stride keeps a row's reads free of bank conflicts), which the warps' pair
+// sums wpart[warps][36 * pairs] reuse once the accumulators are reduced.
+struct __align__(16) Shared {
   float rv[kMaxCams][3], tv[kMaxCams][3];      // current cameras
   float R[kMaxCams][9], dR[kMaxCams][27];      // dR[k*9 + i*3 + j] = dR_ij/dr_k
   float rv2[kMaxCams][3], tv2[kMaxCams][3];    // trial cameras
   float R2[kMaxCams][9];
-  float U[kMaxAdj][36];
   float S[kMaxN][kMaxN + 1];                   // column n is the right-hand side
-  float prow[kMaxN + 1], col[kMaxN];
-  float warp_part[kWarps][kMaxRed];
-  float red[kMaxRed];
-  float lam, cost;
-  int it, done, accept;
+  float x[kMaxN];                              // the camera step
+  float part[2][kMaxLanes];                    // this CTA's partials, double-buffered
+  float tot[kMaxLanes];                        // the cluster's sums
+  float wsum[kMaxWarps][4];                       // warps' partials of the small sums
 };
-
-// Sum v[0..N) over the block in a fixed order; the sums land in sh.red.
-template <int N>
-__device__ void block_reduce(float (&v)[N], Shared& sh) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    float x = v[i];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-    v[i] = x;
-  }
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) sh.warp_part[warp][i] = v[i];
-  }
-  __syncthreads();
-  if (threadIdx.x < N) {
-    float s = 0.0f;
-    for (int w = 0; w < kWarps; ++w) s += sh.warp_part[w][threadIdx.x];
-    sh.red[threadIdx.x] = s;
-  }
-  __syncthreads();
-}
 
 // R (and dR, unless null) of one rotation vector.
 __device__ void rodrigues(const float* w, float* R, float* dR) {
@@ -226,12 +224,61 @@ __device__ __forceinline__ bool slot_live(const Args& a, int p, int d, int& c, f
   return m != 0.0f && (unsigned)c < (unsigned)a.C;
 }
 
-// Huber cost 0.5 * sum(rho) and squared cost sum(r^2) of the state
-// (R, t, pts) over all live slots: sh.red[0], sh.red[1].
+// sh.part[buf][e] summed over the cluster's CTAs in rank order; the loads
+// are all in flight before the first add
+__device__ __forceinline__ float rank_sum(Shared& sh, int buf, int e,
+                                          cg::cluster_group& cluster) {
+  const int ranks = (int)cluster.num_blocks();
+  float v[kMaxCluster];
+#pragma unroll
+  for (int r = 0; r < kMaxCluster; ++r)
+    v[r] = r < ranks ? cluster.map_shared_rank(&sh.part[buf][0], r)[e] : 0.0f;
+  float x = v[0];
+#pragma unroll
+  for (int r = 1; r < kMaxCluster; ++r)
+    if (r < ranks) x += v[r];
+  return x;
+}
+
+// Sum v[0..N) (N <= 4) over the CTA into sh.part[buf], then over the
+// cluster: every thread of every CTA gets the same sums in out.
+template <int kThreads, int N>
+__device__ void cluster_sum_small(const float (&v)[N], Shared& sh, int buf,
+                                  cg::cluster_group& cluster, float (&out)[N]) {
+  constexpr int kWarps = kThreads / 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float w[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float x = v[i];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+    w[i] = x;
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) sh.wsum[warp][i] = w[i];
+  }
+  __syncthreads();
+  if (threadIdx.x < N) {
+    float s = 0.0f;
+    for (int k = 0; k < kWarps; ++k) s += sh.wsum[k][threadIdx.x];
+    sh.part[buf][threadIdx.x] = s;
+  }
+  cluster.sync();
+#pragma unroll
+  for (int i = 0; i < N; ++i) out[i] = rank_sum(sh, buf, i, cluster);
+}
+
+// Huber cost sum(rho) and squared cost sum(r^2) of the state (R, t, pts)
+// over all live slots of the CTA's points [lo, hi), summed over the cluster.
+template <int kThreads>
 __device__ void cost_pass(const Args& a, const Intrinsics& k, const float (*R)[9],
-                          const float (*t)[3], const float* pts, Shared& sh) {
+                          const float (*t)[3], const float* pts, int lo, int hi,
+                          Shared& sh, int buf, cg::cluster_group& cluster,
+                          float (&out)[2]) {
   float acc[2] = {0.0f, 0.0f};
-  for (int p = threadIdx.x; p < a.P; p += kThreads) {
+  for (int p = lo + threadIdx.x; p < hi; p += kThreads) {
     const float X[3] = {pts[3 * p], pts[3 * p + 1], pts[3 * p + 2]};
     for (int d = 0; d < a.D; ++d) {
       int c;
@@ -248,16 +295,98 @@ __device__ void cost_pass(const Args& a, const Intrinsics& k, const float (*R)[9
       }
     }
   }
-  block_reduce(acc, sh);
+  cluster_sum_small<kThreads>(acc, sh, buf, cluster, out);
 }
 
-__global__ void __launch_bounds__(kThreads) ba_window_lm_kernel(Args a) {
-  __shared__ Shared sh;
-  const int tid = threadIdx.x;
+// Gauss-Jordan without pivoting on [S | b] (n = N), by one warp: lane l holds
+// rows l and l + 32 in registers.  The eliminated column is dropped and the
+// rest shifted left, so every register index is a constant; after N steps
+// column 0 holds the solution.  Same operations as _gauss_jordan
+// (ops/ba_kernel.py): pivot clamped to 1e-20, prow = row_k * (1 / piv),
+// row_i -= row_i[k] * prow.
+template <int N>
+__device__ void gauss_jordan_warp(Shared& sh) {
+  constexpr int R = (N + 31) / 32;
+  const int lane = threadIdx.x & 31;
+  float r[R][N + 1];
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const int i = lane + 32 * q;
+#pragma unroll
+    for (int j = 0; j <= N; ++j) r[q][j] = i < N ? sh.S[i][j] : 0.0f;
+  }
+  for (int k = 0; k < N; ++k) {
+    const int owner = k & 31;
+    const bool upper = R > 1 && k >= 32;
+    float piv = __shfl_sync(0xffffffffu, upper ? r[R - 1][0] : r[0][0], owner);
+    if (fabsf(piv) < 1e-20f) piv = 1e-20f;
+    const float inv_piv = 1.0f / piv;
+    float f[R];
+    bool is_k[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      f[q] = r[q][0];
+      is_k[q] = lane + 32 * q == k;
+    }
+#pragma unroll
+    for (int j = 1; j <= N; ++j) {
+      const float pj =
+          __shfl_sync(0xffffffffu, upper ? r[R - 1][j] : r[0][j], owner) * inv_piv;
+#pragma unroll
+      for (int q = 0; q < R; ++q) r[q][j - 1] = is_k[q] ? pj : r[q][j] - f[q] * pj;
+    }
+#pragma unroll
+    for (int q = 0; q < R; ++q) r[q][N] = 0.0f;
+  }
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const int i = lane + 32 * q;
+    if (i < N) sh.x[i] = r[q][0];
+  }
+}
+
+__device__ void gauss_jordan(Shared& sh, int n) {
+  switch (n) {
+    case 6: gauss_jordan_warp<6>(sh); break;
+    case 12: gauss_jordan_warp<12>(sh); break;
+    case 18: gauss_jordan_warp<18>(sh); break;
+    case 24: gauss_jordan_warp<24>(sh); break;
+    case 30: gauss_jordan_warp<30>(sh); break;
+    case 36: gauss_jordan_warp<36>(sh); break;
+    case 42: gauss_jordan_warp<42>(sh); break;
+    default: gauss_jordan_warp<48>(sh); break;
+  }
+}
+
+// index of the pair (c1, c2), c1 <= c2, in the order c1 outer, c2 inner
+__device__ __forceinline__ int pair_index(int c1, int c2, int c_adj) {
+  return c1 * c_adj - c1 * (c1 - 1) / 2 + (c2 - c1);
+}
+
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads, 1) ba_window_lm_kernel(Args a) {
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kAcc = kThreads + 1;          // row stride of the accumulators
+  extern __shared__ __align__(16) unsigned char smem[];
+  Shared& sh = *reinterpret_cast<Shared*>(smem);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int ranks = (int)cluster.num_blocks();
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int C = a.C, P = a.P, D = a.D;
   const int c_adj = C - a.n_fixed;
   const int n = 6 * c_adj;
+  const int pairs = c_adj * (c_adj + 1) / 2;
+  const int cam_lanes = kCamLanes * c_adj;
+  const int pair_lanes = kPairLanes * pairs;
+  const int lanes = cam_lanes + pair_lanes;
   const Intrinsics k = {a.K[0], a.K[4], a.K[2], a.K[5]};
+  float* acc = reinterpret_cast<float*>(smem + sizeof(Shared));   // [cam_lanes][kAcc]
+  float* wpart = acc;                                             // [kWarps][pair_lanes]
+
+  // this CTA's points
+  const int chunk = (P + ranks - 1) / ranks;
+  const int lo = min(P, rank * chunk), hi = min(P, lo + chunk);
 
   // global scratch, point index fastest: coupling blocks B[c'][i*3+l][p],
   // V^-1 (6 unique values), g_p, the spare point buffer, camera bit masks
@@ -268,7 +397,7 @@ __global__ void __launch_bounds__(kThreads) ba_window_lm_kernel(Args a) {
   int* cbits = reinterpret_cast<int*>(pt_other + (size_t)3 * P);
   float* pt_cur = a.pts_out;
 
-  for (int i = tid; i < 3 * P; i += kThreads) pt_cur[i] = a.points[i];
+  for (int i = 3 * lo + tid; i < 3 * hi; i += kThreads) pt_cur[i] = a.points[i];
   if (tid < C) {
     for (int j = 0; j < 3; ++j) {
       sh.rv[tid][j] = a.rvecs[3 * tid + j];
@@ -278,27 +407,25 @@ __global__ void __launch_bounds__(kThreads) ba_window_lm_kernel(Args a) {
   }
   __syncthreads();
 
-  cost_pass(a, k, sh.R, sh.tv, pt_cur, sh);
-  const float init_cost = 0.5f * sh.red[0];
-  const float init_sq = sh.red[1];
-  if (tid == 0) {
-    sh.lam = a.lambda_init;
-    sh.cost = init_cost;
-    sh.it = 0;
-    sh.done = init_cost < 0.0f;
-    sh.accept = 0;
-  }
-  __syncthreads();
+  int buf = 0;
+  float c2[2];
+  cost_pass<kThreads>(a, k, sh.R, sh.tv, pt_cur, lo, hi, sh, buf, cluster, c2);
+  buf ^= 1;
+  const float init_cost = 0.5f * c2[0];
+  const float init_sq = c2[1];
+  // the loop state: the same values in every thread of every CTA
+  float lam = a.lambda_init, cost = init_cost;
+  int it = 0;
+  bool done = init_cost < 0.0f;
 
-  while (!sh.done && sh.it < a.max_iterations) {
-    const float lam = sh.lam;
-
+  while (!done && it < a.max_iterations) {
     // -- 1. rotations and their derivatives -------------------------------
     if (tid < C) rodrigues(sh.rv[tid], sh.R[tid], sh.dR[tid]);
+    for (int e = 0; e < cam_lanes; ++e) acc[e * kAcc + tid] = 0.0f;
     __syncthreads();
 
-    // -- 2. per point: V, g_p, coupling blocks, V^-1 -----------------------
-    for (int p = tid; p < P; p += kThreads) {
+    // -- 2. per point: V, g_p, coupling blocks, V^-1, and the camera lanes --
+    for (int p = lo + tid; p < hi; p += kThreads) {
       const float X[3] = {pt_cur[3 * p], pt_cur[3 * p + 1], pt_cur[3 * p + 2]};
       float V[6] = {0, 0, 0, 0, 0, 0};        // 00 01 02 11 12 22
       float gp[3] = {0, 0, 0};
@@ -331,6 +458,16 @@ __global__ void __launch_bounds__(kThreads) ba_window_lm_kernel(Args a) {
             float* dst = Bp + (size_t)(i * 3 + l) * P;
             *dst = seen ? *dst + y : y;
           }
+        float* ac = acc + ca * kCamLanes * kAcc + tid;
+        e = 0;
+#pragma unroll
+        for (int i = 0; i < 6; ++i) {
+#pragma unroll
+          for (int j = i; j < 6; ++j)
+            ac[(e++) * kAcc] +=
+                s.w[0] * s.jc[0][i] * s.jc[0][j] + s.w[1] * s.jc[1][i] * s.jc[1][j];
+          ac[(21 + i) * kAcc] -= s.w[0] * s.jc[0][i] * s.r[0] + s.w[1] * s.jc[1][i] * s.r[1];
+        }
       }
       const float v00 = V[0] + lam * fabsf(V[0]) + lam * 1e-6f;
       const float v11 = V[3] + lam * fabsf(V[3]) + lam * 1e-6f;
@@ -354,72 +491,51 @@ __global__ void __launch_bounds__(kThreads) ba_window_lm_kernel(Args a) {
 #pragma unroll
       for (int e = 0; e < 6; ++e) ok = ok && isfinite(iv[e]);
 #pragma unroll
-      for (int e = 0; e < 6; ++e) Vi[(size_t)e * P + p] = ok ? iv[e] : 0.0f;
+      for (int e = 0; e < 6; ++e) {
+        iv[e] = ok ? iv[e] : 0.0f;
+        Vi[(size_t)e * P + p] = iv[e];
+      }
 #pragma unroll
       for (int l = 0; l < 3; ++l) Gp[(size_t)l * P + p] = gp[l];
       cbits[p] = bits;
-    }
-    __syncthreads();
-
-    // -- 3. per adjustable camera: U, and b = -g_c + B z_p ------------------
-    for (int ca = 0; ca < c_adj; ++ca) {
-      const int c = ca + a.n_fixed;
-      float acc[27];                          // U upper triangle (21), b (6)
-#pragma unroll
-      for (int e = 0; e < 27; ++e) acc[e] = 0.0f;
-      for (int p = tid; p < P; p += kThreads) {
-        if (!((cbits[p] >> ca) & 1)) continue;
-        const float X[3] = {pt_cur[3 * p], pt_cur[3 * p + 1], pt_cur[3 * p + 2]};
-        for (int d = 0; d < D; ++d) {
-          int cd;
-          float m;
-          if (!slot_live(a, p, d, cd, m) || cd != c) continue;
-          SlotTerms s;
-          slot_terms(sh.R[c], sh.dR[c], sh.tv[c], X, a.uv + 2 * (p * D + d), m,
-                     a.delta, k, s);
-          int e = 0;
-#pragma unroll
-          for (int i = 0; i < 6; ++i) {
-#pragma unroll
-            for (int j = i; j < 6; ++j)
-              acc[e++] += s.w[0] * s.jc[0][i] * s.jc[0][j] + s.w[1] * s.jc[1][i] * s.jc[1][j];
-            acc[21 + i] -= s.w[0] * s.jc[0][i] * s.r[0] + s.w[1] * s.jc[1][i] * s.r[1];
-          }
-        }
-        float iv[6], gp[3];
-#pragma unroll
-        for (int e = 0; e < 6; ++e) iv[e] = Vi[(size_t)e * P + p];
-#pragma unroll
-        for (int l = 0; l < 3; ++l) gp[l] = Gp[(size_t)l * P + p];
-        const float zp[3] = {iv[0] * gp[0] + iv[1] * gp[1] + iv[2] * gp[2],
-                             iv[1] * gp[0] + iv[3] * gp[1] + iv[4] * gp[2],
-                             iv[2] * gp[0] + iv[4] * gp[1] + iv[5] * gp[2]};
+      // b_c += B_c z_p for every adjustable camera that sees the point
+      const float zp[3] = {iv[0] * gp[0] + iv[1] * gp[1] + iv[2] * gp[2],
+                           iv[1] * gp[0] + iv[3] * gp[1] + iv[4] * gp[2],
+                           iv[2] * gp[0] + iv[4] * gp[1] + iv[5] * gp[2]};
+      for (int ca = 0; ca < c_adj; ++ca) {
+        if (!((bits >> ca) & 1)) continue;
         const float* Bp = Bc + (size_t)18 * ca * P + p;
+        float* ac = acc + (ca * kCamLanes + 21) * kAcc + tid;
 #pragma unroll
         for (int i = 0; i < 6; ++i)
-          acc[21 + i] += Bp[(size_t)(i * 3) * P] * zp[0] + Bp[(size_t)(i * 3 + 1) * P] * zp[1] +
-                         Bp[(size_t)(i * 3 + 2) * P] * zp[2];
+          ac[i * kAcc] += Bp[(size_t)(i * 3) * P] * zp[0] + Bp[(size_t)(i * 3 + 1) * P] * zp[1] +
+                              Bp[(size_t)(i * 3 + 2) * P] * zp[2];
       }
-      block_reduce(acc, sh);
-      if (tid < 36) {
-        const int i = tid / 6, j = tid % 6;
-        const int lo = i < j ? i : j, hi = i < j ? j : i;
-        sh.U[ca][tid] = sh.red[lo * 6 - lo * (lo - 1) / 2 + (hi - lo)];
-      } else if (tid < 42) {
-        sh.S[ca * 6 + tid - 36][n] = sh.red[21 + tid - 36];
-      }
-      // sh.red is read above and next written after the next reduction's
-      // first barrier; sh.U and sh.S are read after later barriers
     }
 
-    // -- 4. S = blockdiag(U) - sum_p B_c1 V^-1 B_c2^T ----------------------
-    for (int c1 = 0; c1 < c_adj; ++c1) {
-      for (int c2 = c1; c2 < c_adj; ++c2) {
-        const int need = (1 << c1) | (1 << c2);
-        float acc[36];
+    __syncthreads();
+    // the CTA's camera lanes: each thread sums one row over the threads, in
+    // four interleaved partials
+    for (int e = tid; e < cam_lanes; e += kThreads) {
+      const float* row = acc + e * kAcc;
+      float x[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 8
+      for (int t = 0; t < kThreads; t += 4) {
 #pragma unroll
-        for (int e = 0; e < 36; ++e) acc[e] = 0.0f;
-        for (int p = tid; p < P; p += kThreads) {
+        for (int u = 0; u < 4; ++u) x[u] += row[t + u];
+      }
+      sh.part[buf][e] = (x[0] + x[1]) + (x[2] + x[3]);
+    }
+    __syncthreads();   // the accumulators are read: wpart may reuse them
+
+    // -- 3. per camera pair: sum_p B_c1 V^-1 B_c2^T over this thread's points
+    for (int c1 = 0, q = 0; c1 < c_adj; ++c1) {
+      for (int c2 = c1; c2 < c_adj; ++c2, ++q) {
+        const int need = (1 << c1) | (1 << c2);
+        float pa[36];
+#pragma unroll
+        for (int e = 0; e < 36; ++e) pa[e] = 0.0f;
+        for (int p = lo + tid; p < hi; p += kThreads) {
           if ((cbits[p] & need) != need) continue;
           float iv[6], b2[18];
 #pragma unroll
@@ -437,54 +553,65 @@ __global__ void __launch_bounds__(kThreads) ba_window_lm_kernel(Args a) {
             const float t2 = x0 * iv[2] + x1 * iv[4] + x2 * iv[5];
 #pragma unroll
             for (int j = 0; j < 6; ++j)
-              acc[i * 6 + j] += t0 * b2[j * 3] + t1 * b2[j * 3 + 1] + t2 * b2[j * 3 + 2];
+              pa[i * 6 + j] += t0 * b2[j * 3] + t1 * b2[j * 3 + 1] + t2 * b2[j * 3 + 2];
           }
         }
-        block_reduce(acc, sh);
-        if (tid < 36) {
-          const int i = tid / 6, j = tid % 6;
-          float val = -sh.red[tid];
-          if (c1 == c2) {
-            const float u = sh.U[c1][tid];
-            val += u;
-            if (i == j) val += lam * fabsf(u) + lam * 1e-6f + 1e-8f;
-          }
-          sh.S[c1 * 6 + i][c2 * 6 + j] = val;
-          if (c1 != c2) sh.S[c2 * 6 + j][c1 * 6 + i] = val;
+#pragma unroll
+        for (int e = 0; e < 36; ++e) {
+          float x = pa[e];
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+          if (lane == 0) wpart[warp * pair_lanes + q * kPairLanes + e] = x;
         }
       }
     }
     __syncthreads();
 
-    // -- 5. Gauss-Jordan on [S | b], no pivoting ---------------------------
-    for (int kk = 0; kk < n; ++kk) {
-      float piv = sh.S[kk][kk];
-      if (fabsf(piv) < 1e-20f) piv = 1e-20f;
-      const float inv_piv = 1.0f / piv;
-      if (tid <= n) sh.prow[tid] = sh.S[kk][tid] * inv_piv;
-      if (tid < n) sh.col[tid] = tid == kk ? 0.0f : sh.S[tid][kk];
-      __syncthreads();
-      for (int e = tid; e < n * (n + 1); e += kThreads) {
-        const int i = e / (n + 1), j = e % (n + 1);
-        sh.S[i][j] = i == kk ? sh.prow[j] : sh.S[i][j] - sh.col[i] * sh.prow[j];
-      }
-      __syncthreads();
+    // -- 4. the CTA's pair lanes, then the cluster's sums in rank order ----
+    for (int e = tid; e < pair_lanes; e += kThreads) {
+      float x = 0.0f;
+      for (int w = 0; w < kWarps; ++w) x += wpart[w * pair_lanes + e];
+      sh.part[buf][cam_lanes + e] = x;
     }
+    cluster.sync();
+    for (int e = tid; e < lanes; e += kThreads) sh.tot[e] = rank_sum(sh, buf, e, cluster);
+    buf ^= 1;
+    __syncthreads();
+
+    // -- 5. S = blockdiag(U) - sum B V^-1 B^T, damped; b; Gauss-Jordan -----
+    for (int e = tid; e < n * n; e += kThreads) {
+      const int i = e / n, j = e % n;
+      const int c1 = i / 6, c2 = j / 6, ii = i % 6, jj = j % 6;
+      float val = c1 <= c2
+                      ? -sh.tot[cam_lanes + pair_index(c1, c2, c_adj) * kPairLanes + ii * 6 + jj]
+                      : -sh.tot[cam_lanes + pair_index(c2, c1, c_adj) * kPairLanes + jj * 6 + ii];
+      if (c1 == c2) {
+        const int lo_ = ii < jj ? ii : jj, hi_ = ii < jj ? jj : ii;
+        const float u = sh.tot[c1 * kCamLanes + lo_ * 6 - lo_ * (lo_ - 1) / 2 + (hi_ - lo_)];
+        val += u;
+        if (ii == jj) val += lam * fabsf(u) + lam * 1e-6f + 1e-8f;
+      }
+      sh.S[i][j] = val;
+    }
+    for (int i = tid; i < n; i += kThreads) sh.S[i][n] = sh.tot[(i / 6) * kCamLanes + 21 + i % 6];
+    __syncthreads();
+    if (warp == 0) gauss_jordan(sh, n);
+    __syncthreads();
 
     // -- 6. trial cameras, back-substitution, trial cost -------------------
     if (tid < C) {
       for (int j = 0; j < 3; ++j) {
         const bool adj = tid >= a.n_fixed;
         const int row = (tid - a.n_fixed) * 6 + j;
-        sh.rv2[tid][j] = sh.rv[tid][j] + (adj ? sh.S[row][n] : 0.0f);
-        sh.tv2[tid][j] = sh.tv[tid][j] + (adj ? sh.S[row + 3][n] : 0.0f);
+        sh.rv2[tid][j] = sh.rv[tid][j] + (adj ? sh.x[row] : 0.0f);
+        sh.tv2[tid][j] = sh.tv[tid][j] + (adj ? sh.x[row + 3] : 0.0f);
       }
       rodrigues(sh.rv2[tid], sh.R2[tid], nullptr);
     }
     __syncthreads();
 
-    float acc[3] = {0.0f, 0.0f, 0.0f};        // sum rho, |dp|^2, |points|^2
-    for (int p = tid; p < P; p += kThreads) {
+    float tc[3] = {0.0f, 0.0f, 0.0f};          // sum rho, |dp|^2, |points|^2
+    for (int p = lo + tid; p < hi; p += kThreads) {
       const float X[3] = {pt_cur[3 * p], pt_cur[3 * p + 1], pt_cur[3 * p + 2]};
       float iv[6], rhs[3];
 #pragma unroll
@@ -497,7 +624,7 @@ __global__ void __launch_bounds__(kThreads) ba_window_lm_kernel(Args a) {
         const float* Bp = Bc + (size_t)18 * ca * P + p;
 #pragma unroll
         for (int i = 0; i < 6; ++i) {
-          const float dci = sh.S[ca * 6 + i][n];
+          const float dci = sh.x[ca * 6 + i];
 #pragma unroll
           for (int l = 0; l < 3; ++l) rhs[l] -= Bp[(size_t)(i * 3 + l) * P] * dci;
         }
@@ -510,8 +637,8 @@ __global__ void __launch_bounds__(kThreads) ba_window_lm_kernel(Args a) {
       for (int l = 0; l < 3; ++l) {
         X2[l] = X[l] + dp[l];
         pt_other[3 * p + l] = X2[l];
-        acc[1] += dp[l] * dp[l];
-        acc[2] += X[l] * X[l];
+        tc[1] += dp[l] * dp[l];
+        tc[2] += X[l] * X[l];
       }
       for (int d = 0; d < D; ++d) {
         int c;
@@ -522,35 +649,35 @@ __global__ void __launch_bounds__(kThreads) ba_window_lm_kernel(Args a) {
 #pragma unroll
         for (int q = 0; q < 2; ++q) {
           const float av = fabsf(r[q]);
-          acc[0] += av <= a.delta ? r[q] * r[q] : 2.0f * a.delta * av - a.delta * a.delta;
+          tc[0] += av <= a.delta ? r[q] * r[q] : 2.0f * a.delta * av - a.delta * a.delta;
         }
       }
     }
-    block_reduce(acc, sh);
+    float ts[3];
+    cluster_sum_small<kThreads>(tc, sh, buf, cluster, ts);
+    buf ^= 1;
 
-    if (tid == 0) {
-      const float new_cost = 0.5f * sh.red[0];
-      float step2 = sh.red[1], param2 = sh.red[2];
-      for (int i = 0; i < n; ++i) step2 += sh.S[i][n] * sh.S[i][n];
-      for (int c = 0; c < C; ++c)
-        for (int j = 0; j < 3; ++j)
-          param2 += sh.rv[c][j] * sh.rv[c][j] + sh.tv[c][j] * sh.tv[c][j];
-      const float cost = sh.cost;
-      const bool accept = new_cost < cost;
-      const bool converged =
-          accept && ((cost - new_cost) <= a.ftol * fmaxf(cost, 1e-12f) ||
-                     sqrtf(step2) <= a.xtol * (sqrtf(param2) + a.xtol));
-      const float lam2 = accept ? fmaxf(lam * a.lambda_down, a.lambda_min)
-                                : fminf(lam * a.lambda_up, a.lambda_max);
-      const bool stuck = !accept && lam2 >= a.lambda_max;
-      if (accept) sh.cost = new_cost;
-      sh.lam = lam2;
-      sh.accept = accept;
-      sh.it += 1;
-      sh.done = converged || stuck;
-    }
+    // -- 7. accept / reject: every thread of every CTA decides alike -------
+    const float new_cost = 0.5f * ts[0];
+    float step2 = ts[1], param2 = ts[2];
+    for (int i = 0; i < n; ++i) step2 += sh.x[i] * sh.x[i];
+    for (int c = 0; c < C; ++c)
+      for (int j = 0; j < 3; ++j)
+        param2 += sh.rv[c][j] * sh.rv[c][j] + sh.tv[c][j] * sh.tv[c][j];
+    const bool accept = new_cost < cost;
+    const bool converged =
+        accept && ((cost - new_cost) <= a.ftol * fmaxf(cost, 1e-12f) ||
+                   sqrtf(step2) <= a.xtol * (sqrtf(param2) + a.xtol));
+    const float lam2 = accept ? fmaxf(lam * a.lambda_down, a.lambda_min)
+                              : fminf(lam * a.lambda_up, a.lambda_max);
+    const bool stuck = !accept && lam2 >= a.lambda_max;
+    if (accept) cost = new_cost;
+    lam = lam2;
+    it += 1;
+    done = converged || stuck;
+    // every thread has read sh.rv, sh.tv and sh.x before they are written
     __syncthreads();
-    if (sh.accept) {
+    if (accept) {
       float* t = pt_cur;
       pt_cur = pt_other;
       pt_other = t;
@@ -561,38 +688,47 @@ __global__ void __launch_bounds__(kThreads) ba_window_lm_kernel(Args a) {
         }
       }
     }
-    // every thread has read sh.accept, sh.done and sh.it before thread 0
-    // writes them again: the next write lies behind the barriers below
-    __syncthreads();
   }
 
   if (tid < C) rodrigues(sh.rv[tid], sh.R[tid], nullptr);
   __syncthreads();
-  cost_pass(a, k, sh.R, sh.tv, pt_cur, sh);
-  const float final_sq = sh.red[1];
+  cost_pass<kThreads>(a, k, sh.R, sh.tv, pt_cur, lo, hi, sh, buf, cluster, c2);
+  const float final_sq = c2[1];
 
   if (pt_cur != a.pts_out)
-    for (int i = tid; i < 3 * P; i += kThreads) a.pts_out[i] = pt_cur[i];
-  if (tid < C) {
+    for (int i = 3 * lo + tid; i < 3 * hi; i += kThreads) a.pts_out[i] = pt_cur[i];
+  if (rank == 0 && tid < C) {
     for (int j = 0; j < 3; ++j) {
       a.rv_out[3 * tid + j] = sh.rv[tid][j];
       a.tv_out[3 * tid + j] = sh.tv[tid][j];
     }
   }
-  if (tid == 0) {
+  if (rank == 0 && tid == 0) {
     a.stats[0] = init_cost;
-    a.stats[1] = sh.cost;
+    a.stats[1] = cost;
     a.stats[2] = init_sq;
     a.stats[3] = final_sq;
-    a.stats[4] = (float)sh.it;
-    a.stats[5] = sh.cost < init_cost ? 1.0f : 0.0f;
-    a.stats[6] = sh.lam;
+    a.stats[4] = (float)it;
+    a.stats[5] = cost < init_cost ? 1.0f : 0.0f;
+    a.stats[6] = lam;
     a.stats[7] = 0.0f;
   }
+  // no CTA leaves while another may still read its partials
+  cluster.sync();
 }
+
+size_t smem_bytes(int c_adj, int threads) {
+  const size_t accs = (size_t)kCamLanes * c_adj * (threads + 1);
+  const size_t pair_sums = (size_t)(threads / 32) * kPairLanes * (c_adj * (c_adj + 1) / 2);
+  return sizeof(Shared) + sizeof(float) * (accs > pair_sums ? accs : pair_sums);
+}
+
+constexpr size_t kSmemLimit = 232448;   // what one CTA may use on sm_90
 
 }  // namespace
 
+// cluster: CTAs in the one cluster of the launch (1 .. 16; above 8 is
+// non-portable).
 extern "C" int ba_window_lm(const void* rvecs, const void* tvecs, const void* points,
                             const void* cam_slot, const void* uv, const void* mask,
                             const void* point_mask, const void* K, int C, int P, int D,
@@ -600,11 +736,27 @@ extern "C" int ba_window_lm(const void* rvecs, const void* tvecs, const void* po
                             float lambda_init, float lambda_up, float lambda_down,
                             float lambda_min, float lambda_max, float ftol, float xtol,
                             void* rv_out, void* tv_out, void* pts_out, void* stats,
-                            void* scratch, void* stream) {
+                            void* scratch, int cluster, void* stream) {
   const int c_adj = C - n_fixed;
   if (C < 1 || C > kMaxCams || n_fixed < 0 || c_adj < 1 || c_adj > kMaxAdj || P < 1 ||
-      D < 1)
+      D < 1 || cluster < 1 || cluster > kMaxCluster)
     return (int)cudaErrorInvalidValue;
+  // 256 threads per CTA where their accumulators fit (C' <= 7), else 128
+  const int threads = smem_bytes(c_adj, 256) <= kSmemLimit ? 256 : 128;
+  static bool attributes_set = false;
+  if (!attributes_set) {
+    cudaError_t err = cudaSuccess;
+    void (*const fns[2])(Args) = {ba_window_lm_kernel<128>, ba_window_lm_kernel<256>};
+    for (auto fn : fns) {
+      if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)kSmemLimit);
+      if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    }
+    if (err != cudaSuccess) return (int)err;
+    attributes_set = true;
+  }
   Args a;
   a.rvecs = (const float*)rvecs;
   a.tvecs = (const float*)tvecs;
@@ -632,6 +784,21 @@ extern "C" int ba_window_lm(const void* rvecs, const void* tvecs, const void* po
   a.pts_out = (float*)pts_out;
   a.stats = (float*)stats;
   a.scratch = (float*)scratch;
-  ba_window_lm_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(a);
+
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem_bytes(c_adj, threads);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = threads == 256 ? cudaLaunchKernelEx(&cfg, ba_window_lm_kernel<256>, a)
+                                         : cudaLaunchKernelEx(&cfg, ba_window_lm_kernel<128>, a);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

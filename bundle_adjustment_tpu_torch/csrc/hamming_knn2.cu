@@ -6,91 +6,295 @@
 // index of that row, and the second-smallest distance, without storing the
 // N1 x N2 distance matrix.
 //
-// Semantics (the XLA oracle hamming.knn2 / _top2_rows):
-//   * train rows are scanned in increasing order and the running
-//     (best, idx, second) updates with strict '<', so idx is the FIRST
-//     index of the minimum and a tie gives second == best;
-//   * an invalid train row scores exactly INVALID_DIST (1e9) -- the Pallas
-//     kernel adds 1e9 to the count instead, which the ratio test cannot tell
-//     apart (best < INVALID_DIST gate);
-//   * with a single train row, second stays +inf.
+// Semantics (the XLA oracle hamming.knn2 / _top2_rows): idx is the FIRST
+// index of the minimum and a tie gives second == best; an invalid train row
+// scores exactly INVALID_DIST (1e9) -- the Pallas kernel adds 1e9 to the
+// count instead, which the ratio test cannot tell apart (best < INVALID_DIST
+// gate); with a single train row, second stays +inf.
 //
-// What bounds it on this card: at the main path's 4000 x 4000 the inputs
-// are 2 x 128 KB, so bytes are nothing; the work is 4000*4000*8 XOR+POPC
-// plus the compare/select, integer ALU work on the CUDA cores (the tensor
-// cores have no popcount).  Design: one thread per query row holds its 8
-// words in registers; train rows stream through shared memory in tiles of
-// 256 rows, each word read by all threads of the block at once (a shared
-// memory broadcast, no bank conflicts).  Distances stay integers until the
-// final store, so results are exact.  Small blocks (64 threads) spread the
-// 4000 queries over ~63 SMs; splitting the train set across blocks to fill
-// all 132 SMs is later work.
+// Distances are computed as the TPU kernel computes them on its matrix unit
+// (hamming_pallas.py:46-49): d = popc(a) + popc(b) - 2 * popc(a AND b).  The
+// inner term is an exact integer product on the tensor cores, in one of two
+// forms, both built (the wrapper picks one, chip_smoke.py times both):
+//   * binary: mma.m16n8k256 .b1 .and.popc, one MMA per 16 x 8 tile of pairs,
+//     the packed words used as they are;
+//   * s8: mma.m16n8k32 .s8 on 0/1 bytes, eight MMAs per tile; the words are
+//     expanded to bytes, the queries in registers, each train chunk into
+//     shared memory as it is staged.
+// popc(a) and popc(b) come from __popc as the rows load.  Every sum is an s32
+// integer, so the result is exact.
+//
+// Layout: a 2-D grid of 128-query tiles x train splits.  Each warp holds two
+// 16-row query tiles as MMA fragments and walks the block's train split in
+// 8-row tiles staged through shared memory; each thread folds the (best, idx,
+// second) of its two query rows per tile over the columns of its accumulator
+// fragment, in increasing train index (strict '<').  The four lanes that share
+// a query row merge by shuffles; one partial per (query, split) goes to a
+// scratch buffer that the wrapper allocates.  A second small pass merges the
+// splits per query.  Every merge uses the rule that is independent of merge
+// order and equals the sequential scan with strict '<':
+//   best   = the lexicographic minimum of (distance, index) over the parts;
+//   second = the smallest of all the other candidates' values
+//            (min of the loser's best and both parts' seconds).
+//
+// What bounds it on this card: operations, and before them latency.  At the
+// main path's 4000 x 4000 the inputs are 2 x 128 KB and the products 0.13 M
+// binary (or 1 M s8) MMAs, a few microseconds of tensor-core time; the
+// running top-2 is 16 M compare/selects on the CUDA cores.  The grid has
+// 32 x 17 = 544 blocks of 4 warps, four times the 132 SMs, where the one-
+// thread-per-query design filled 63 SMs with two warps each.
 
 #include <cuda_runtime.h>
-#include <stdint.h>
 #include <limits.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 64;
-constexpr int kTile = 256;
-constexpr int kInvalid = 1000000000;  // INVALID_DIST, exact in float32
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kQTiles = 2;                       // 16-row query tiles per warp
+constexpr int kBlockQ = 16 * kQTiles * kWarps;   // 128 queries per block
+constexpr int kChunk = 64;                       // train rows staged at a time
+constexpr int kStrideB1 = 12;    // words per staged row, binary form (8 + pad)
+constexpr int kStrideS8 = 68;    // words per staged row, s8 form (64 + pad)
+constexpr int kInvalid = 1000000000;             // INVALID_DIST, exact in float32
 
-__global__ void knn2_kernel(const uint32_t* __restrict__ d1, int n1,
-                            const uint32_t* __restrict__ d2, int n2,
-                            const uint8_t* __restrict__ valid2,
-                            float* __restrict__ best_out,
-                            int* __restrict__ idx_out,
-                            float* __restrict__ second_out) {
-  __shared__ uint32_t tile[kTile][8];
-  __shared__ uint8_t tvalid[kTile];
+// (b, i, s) <- merge of (b, i, s) and (b2, i2, s2); see the header.
+__device__ __forceinline__ void merge(int& b, int& i, int& s, int b2, int i2, int s2) {
+  if (b2 < b || (b2 == b && i2 < i)) {
+    s = min(b, s2);
+    b = b2;
+    i = i2;
+  } else {
+    s = min(s, b2);
+  }
+}
 
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  uint32_t a[8];
+// 4 bits -> 4 bytes of 0 / 1, bit k to byte k
+__device__ __forceinline__ uint32_t spread4(uint32_t x) {
+  return (x & 1u) | ((x & 2u) << 7) | ((x & 4u) << 14) | ((x & 8u) << 21);
+}
+
+__device__ __forceinline__ void mma_b1(int (&c)[4], const uint32_t* a, uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t* a, uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One block: 128 queries against the train rows [lo, hi) of split blockIdx.y.
+// part holds three (splits, n1) int planes: best, idx, second.
+template <bool kBinary>
+__global__ void __launch_bounds__(kThreads)
+    knn2_split_kernel(const uint32_t* __restrict__ d1, int n1,
+                      const uint32_t* __restrict__ d2, int n2,
+                      const uint8_t* __restrict__ valid2, int rows_per_split,
+                      int* __restrict__ part) {
+  constexpr int kStride = kBinary ? kStrideB1 : kStrideS8;
+  constexpr int kA = kBinary ? 4 : 32;           // A-fragment registers per tile
+  __shared__ uint32_t tw[kChunk * kStride];
+  __shared__ int tpop[kChunk];
+  __shared__ uint8_t tval[kChunk];
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;         // MMA group and thread in group
+  const int q0 = blockIdx.x * kBlockQ + warp * 16 * kQTiles;
+  const int splits = gridDim.y;
+  const int lo = blockIdx.y * rows_per_split;
+  const int hi = min(n2, lo + rows_per_split);
+
+  // A fragments of the two query rows g and g + 8 of each tile (the PTX
+  // fragment layout: a0 / a2 row g, a1 / a3 row g + 8; a0 / a1 the lower half
+  // of K, a2 / a3 the upper), and their popcounts
+  uint32_t a[kQTiles][kA];
+  int pa[kQTiles][2];
 #pragma unroll
-  for (int k = 0; k < 8; ++k) a[k] = (q < n1) ? d1[(size_t)q * 8 + k] : 0u;
-
-  int best = INT_MAX, second = INT_MAX, idx = 0;
-  for (int t0 = 0; t0 < n2; t0 += kTile) {
-    const int nt = min(kTile, n2 - t0);
-    for (int e = threadIdx.x; e < nt * 8; e += blockDim.x) {
-      tile[e >> 3][e & 7] = d2[(size_t)t0 * 8 + e];
-    }
-    for (int j = threadIdx.x; j < nt; j += blockDim.x) tvalid[j] = valid2[t0 + j];
-    __syncthreads();
-    for (int j = 0; j < nt; ++j) {
-      int d = 0;
+  for (int qt = 0; qt < kQTiles; ++qt) {
 #pragma unroll
-      for (int k = 0; k < 8; ++k) d += __popc(a[k] ^ tile[j][k]);
-      d = tvalid[j] ? d : kInvalid;
-      if (d < best) {
-        second = best;
-        best = d;
-        idx = t0 + j;
-      } else if (d < second) {
-        second = d;
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + 16 * qt + g + 8 * h;
+      uint32_t w[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) w[k] = row < n1 ? d1[(size_t)row * 8 + k] : 0u;
+      int pc = 0;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) pc += __popc(w[k]);
+      pa[qt][h] = pc;
+      if (kBinary) {
+        a[qt][h] = w[t];                         // bits 32t .. 32t + 31
+        a[qt][2 + h] = w[t + 4];                 // bits 128 + 32t ..
+      } else {
+#pragma unroll
+        for (int s = 0; s < 8; ++s) {            // K step s: the bits of word s
+          a[qt][4 * s + h] = spread4((w[s] >> (4 * t)) & 15u);
+          a[qt][4 * s + 2 + h] = spread4((w[s] >> (4 * t + 16)) & 15u);
+        }
       }
     }
+  }
+
+  int best[kQTiles][2], idx[kQTiles][2], second[kQTiles][2];
+#pragma unroll
+  for (int qt = 0; qt < kQTiles; ++qt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) best[qt][h] = idx[qt][h] = second[qt][h] = INT_MAX;
+
+  for (int c0 = lo; c0 < hi; c0 += kChunk) {
+    const int nc = min(kChunk, hi - c0);
+    __syncthreads();                             // the previous chunk is consumed
+    for (int e = tid; e < kChunk * 8; e += kThreads) {
+      const int r = e >> 3, k = e & 7;
+      const uint32_t w = r < nc ? d2[(size_t)(c0 + r) * 8 + k] : 0u;
+      if (kBinary) {
+        tw[r * kStride + k] = w;
+      } else {
+#pragma unroll
+        for (int nib = 0; nib < 8; ++nib) tw[r * kStride + 8 * k + nib] = spread4((w >> (4 * nib)) & 15u);
+      }
+    }
+    for (int r = tid; r < kChunk; r += kThreads) {
+      int pc = 0;
+      if (r < nc) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) pc += __popc(d2[(size_t)(c0 + r) * 8 + k]);
+      }
+      tpop[r] = pc;
+      tval[r] = r < nc ? valid2[c0 + r] : 0;
+    }
     __syncthreads();
+
+    for (int n0 = 0; n0 < nc; n0 += 8) {
+      // B fragment of train row n0 + g (b0 the lower half of K, b1 the upper)
+      const uint32_t* br = tw + (n0 + g) * kStride;
+      uint32_t bf[kBinary ? 2 : 16];
+      if (kBinary) {
+        bf[0] = br[t];
+        bf[1] = br[t + 4];
+      } else {
+#pragma unroll
+        for (int s = 0; s < 8; ++s) {
+          bf[2 * s] = br[8 * s + t];
+          bf[2 * s + 1] = br[8 * s + 4 + t];
+        }
+      }
+      // this thread's accumulator columns: train rows n0 + 2t and n0 + 2t + 1
+      int pb[2], col_ok[2], col_val[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = n0 + 2 * t + h;
+        col_ok[h] = col < nc;
+        pb[h] = tpop[col];
+        col_val[h] = tval[col];
+      }
+#pragma unroll
+      for (int qt = 0; qt < kQTiles; ++qt) {
+        int c[4] = {0, 0, 0, 0};
+        if (kBinary) {
+          mma_b1(c, a[qt], bf[0], bf[1]);
+        } else {
+#pragma unroll
+          for (int s = 0; s < 8; ++s) mma_s8(c, &a[qt][4 * s], bf[2 * s], bf[2 * s + 1]);
+        }
+        // c0, c1: row g, columns 2t, 2t + 1; c2, c3: row g + 8
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int d = !col_ok[h] ? INT_MAX
+                          : col_val[h] ? pa[qt][hr] + pb[h] - 2 * c[2 * hr + h]
+                                       : kInvalid;
+            if (d < best[qt][hr]) {              // train index increases: strict '<'
+              second[qt][hr] = best[qt][hr];
+              best[qt][hr] = d;
+              idx[qt][hr] = c0 + n0 + 2 * t + h;
+            } else if (d < second[qt][hr]) {
+              second[qt][hr] = d;
+            }
+          }
+        }
+      }
+    }
   }
-  if (q < n1) {
-    best_out[q] = (best == INT_MAX) ? INFINITY : (float)best;
-    idx_out[q] = idx;
-    second_out[q] = (second == INT_MAX) ? INFINITY : (float)second;
+
+  // the four lanes of a query row merge; lane t == 0 writes the partial
+#pragma unroll
+  for (int qt = 0; qt < kQTiles; ++qt) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      int b = best[qt][hr], i = idx[qt][hr], s = second[qt][hr];
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        const int b2 = __shfl_xor_sync(0xffffffffu, b, o);
+        const int i2 = __shfl_xor_sync(0xffffffffu, i, o);
+        const int s2 = __shfl_xor_sync(0xffffffffu, s, o);
+        merge(b, i, s, b2, i2, s2);
+      }
+      const int row = q0 + 16 * qt + g + 8 * hr;
+      if (t == 0 && row < n1) {
+        const size_t at = (size_t)blockIdx.y * n1 + row;
+        part[at] = b;
+        part[(size_t)splits * n1 + at] = i;
+        part[(size_t)2 * splits * n1 + at] = s;
+      }
+    }
   }
+}
+
+// One thread per query: the splits' partials merged in split order.
+__global__ void knn2_merge_kernel(const int* __restrict__ part, int n1, int splits,
+                                  float* __restrict__ best_out, int* __restrict__ idx_out,
+                                  float* __restrict__ second_out) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= n1) return;
+  int b = INT_MAX, i = INT_MAX, s = INT_MAX;
+  for (int sp = 0; sp < splits; ++sp) {
+    const size_t at = (size_t)sp * n1 + q;
+    merge(b, i, s, part[at], part[(size_t)splits * n1 + at], part[(size_t)2 * splits * n1 + at]);
+  }
+  best_out[q] = b == INT_MAX ? INFINITY : (float)b;
+  idx_out[q] = i;
+  second_out[q] = s == INT_MAX ? INFINITY : (float)s;
 }
 
 }  // namespace
 
+// splits x rows_per_split must cover n2 with no empty split; part holds
+// 3 * splits * n1 ints.  binary != 0 takes the .b1 MMA form, else the .s8 one.
 extern "C" int hamming_knn2(const void* d1, int n1, const void* d2, int n2,
-                            const void* valid2, void* best, void* idx,
+                            const void* valid2, int splits, int rows_per_split,
+                            void* part, int binary, void* best, void* idx,
                             void* second, void* stream) {
-  if (n1 > 0) {
-    const int blocks = (n1 + kThreads - 1) / kThreads;
-    knn2_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)d1, n1, (const uint32_t*)d2, n2,
-        (const uint8_t*)valid2, (float*)best, (int*)idx, (float*)second);
-  }
+  if (n1 < 0 || n2 < 1 || splits < 1 || rows_per_split < 1 ||
+      (long long)splits * rows_per_split < n2 ||
+      (long long)(splits - 1) * rows_per_split >= n2)
+    return (int)cudaErrorInvalidValue;
+  if (n1 == 0) return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  const dim3 grid((n1 + kBlockQ - 1) / kBlockQ, splits);
+  if (binary)
+    knn2_split_kernel<true><<<grid, kThreads, 0, st>>>(
+        (const uint32_t*)d1, n1, (const uint32_t*)d2, n2, (const uint8_t*)valid2,
+        rows_per_split, (int*)part);
+  else
+    knn2_split_kernel<false><<<grid, kThreads, 0, st>>>(
+        (const uint32_t*)d1, n1, (const uint32_t*)d2, n2, (const uint8_t*)valid2,
+        rows_per_split, (int*)part);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  knn2_merge_kernel<<<(n1 + 127) / 128, 128, 0, st>>>((const int*)part, n1, splits,
+                                                       (float*)best, (int*)idx, (float*)second);
   return (int)cudaGetLastError();
 }

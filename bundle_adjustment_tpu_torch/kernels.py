@@ -35,11 +35,11 @@ _F = ctypes.c_float
 #: kernel name -> (source file, C entry point, argtypes)
 KERNELS = {
     "hamming_knn2": ("hamming_knn2.cu", "hamming_knn2",
-                     [_P, _I, _P, _I, _P, _P, _P, _P, _P]),
+                     [_P, _I, _P, _I, _P, _I, _I, _P, _I, _P, _P, _P, _P]),
     "orb_gather40": ("orb_gather.cu", "orb_gather40",
                      [_P, _I, _I, _P, _P, _I, _P, _P]),
     "ba_window_lm": ("ba_window_lm.cu", "ba_window_lm",
-                     [_P] * 8 + [_I] * 5 + [_F] * 8 + [_P] * 6),
+                     [_P] * 8 + [_I] * 5 + [_F] * 8 + [_P] * 5 + [_I, _P]),
     "ba_global_setup": ("ba_global_pcg.cu", "ba_global_setup",
                         [_P] * 9 + [_I] * 4 + [_P] * 6),
     "ba_global_matvec": ("ba_global_pcg.cu", "ba_global_matvec",

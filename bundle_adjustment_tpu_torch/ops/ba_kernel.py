@@ -36,10 +36,11 @@ The shape gate.  ``6 * (C - n_fixed) <= 48`` bounds the in-kernel
 Gauss-Jordan (the system and its right-hand side sit in shared memory) and
 ``D <= 12`` the per-point slot loop, as on the TPU; ``C <= 16`` bounds the
 camera state in shared memory.  The TPU gate's ``P <= 2048`` and its 10 MB
-estimate are Mosaic's and are not kept: one thread block strides over the
-points, and what must survive between the kernel's phases (per point: one
-6x3 coupling block per adjustable camera, V^-1, g_p, the trial point, a
-camera bit mask: ``18 * C' + 13`` floats) lives in a global scratch buffer.
+estimate are Mosaic's and are not kept: one thread-block cluster of
+``CLUSTER`` CTAs splits the points between them, and what must survive
+between the kernel's phases (per point: one 6x3 coupling block per
+adjustable camera, V^-1, g_p, the trial point, a camera bit mask:
+``18 * C' + 13`` floats) lives in a global scratch buffer.
 P is bounded by keeping that buffer within ``SCRATCH_LIMIT_BYTES`` = 32 MiB,
 so that it stays in the H100's 50 MB L2 between phases: P <= 53,430 at
 C' = 8 and P <= 125,203 at C' = 3.  Every default window (``max_points`` =
@@ -61,6 +62,9 @@ MAX_SYSTEM = 48          # 6 * adjustable cameras
 MAX_SLOTS = 12           # D
 MAX_CAMERAS = 16         # C, fixed ones included
 SCRATCH_LIMIT_BYTES = 32 << 20
+#: CTAs in the kernel's thread-block cluster (8 is the portable size, 16 needs
+#: the non-portable attribute; chip_smoke.py times both)
+CLUSTER = 16
 
 
 def scratch_floats(C: int, P: int, n_fixed: int) -> int:
@@ -276,11 +280,11 @@ def _check(grid: BAProblemGrid, n_fixed: int):
 def launch(grid: BAProblemGrid, n_fixed: int, max_iterations: int,
            huber_delta: float, lambda_init: float, lambda_up: float,
            lambda_down: float, lambda_min: float, lambda_max: float,
-           ftol: float, xtol: float):
-    """Launch the kernel on a checked CUDA window.  Returns (rvecs, tvecs,
-    points, stats) with the kernel's eight float32 stats lanes: initial
-    cost, final cost, initial and final squared cost, iterations, accepted,
-    the last lambda, 0."""
+           ftol: float, xtol: float, cluster: int = CLUSTER):
+    """Launch the kernel, one cluster of ``cluster`` CTAs, on a checked CUDA
+    window.  Returns (rvecs, tvecs, points, stats) with the kernel's eight
+    float32 stats lanes: initial cost, final cost, initial and final squared
+    cost, iterations, accepted, the last lambda, 0."""
     C, P, D = _check(grid, n_fixed)
     dev = grid.rvecs.device
     g = BAProblemGrid(*(t.contiguous() for t in grid))
@@ -298,7 +302,7 @@ def launch(grid: BAProblemGrid, n_fixed: int, max_iterations: int,
              float(lambda_up), float(lambda_down), float(lambda_min),
              float(lambda_max), float(ftol), float(xtol),
              rv.data_ptr(), tv.data_ptr(), pts.data_ptr(), stats.data_ptr(),
-             scratch.data_ptr(), stream)
+             scratch.data_ptr(), int(cluster), stream)
     kernels.check(NAME, err)
     kernels.LAUNCHES[NAME] += 1
     return rv, tv, pts, stats

@@ -1,8 +1,11 @@
 """Fused Hamming 2-NN: the CUDA kernel's wrapper and its plain version.
 
 Counterpart of ``bundle_adjustment_tpu.ops.hamming_pallas`` (K1).  The
-kernel (``csrc/hamming_knn2.cu``) streams train descriptors past a running
-(best, idx, second) per query and never stores the N1 x N2 matrix.
+kernel (``csrc/hamming_knn2.cu``) computes the distances on the tensor cores
+as ``popc(a) + popc(b) - 2 popc(a AND b)`` and never stores the N1 x N2
+matrix: a 2-D grid of query tiles x train splits (``split_plan``) folds a
+running (best, idx, second) per query and split, and a second pass merges the
+splits by ``merge_top2``'s rule.
 
 ``knn2_fused`` launches the kernel for CUDA tensors and runs ``knn2_plain``
 (the matmul oracle, ``hamming.knn2``) for CPU tensors; nothing falls back
@@ -23,6 +26,38 @@ from bundle_adjustment_tpu_torch.ops import hamming
 
 NAME = "hamming_knn2"
 
+#: the MMA form the wrapper launches: the binary ``m16n8k256 .b1 .and.popc``
+#: (True) or ``m16n8k32 .s8`` on 0/1 bytes (False); both are exact, and
+#: ``chip_smoke.py`` times both
+BINARY = True
+QUERY_TILE = 128         # queries per block (csrc/hamming_knn2.cu kBlockQ)
+TARGET_BLOCKS = 4 * 132  # four blocks for each of an H100's 132 SMs
+
+
+def split_plan(n1: int, n2: int):
+    """(splits, rows per split) of the train set: enough blocks to cover the
+    card's SMs several times, at least 8 train rows per split, no split
+    empty."""
+    q_tiles = max(1, -(-n1 // QUERY_TILE))
+    splits = max(1, min(-(-n2 // 8), -(-TARGET_BLOCKS // q_tiles)))
+    rows = -(-n2 // splits)
+    return -(-n2 // rows), rows
+
+
+def merge_top2(a, b):
+    """The kernel's merge of two partial (best, idx, second) results, each
+    three (N,) tensors: best is the lexicographic minimum of (best, idx),
+    second the smallest of the other candidates' values.  The rule is
+    independent of merge order and equals one scan of the whole train set
+    with strict '<' (the first index of the minimum; a tie gives second ==
+    best)."""
+    (b1, i1, s1), (b2, i2, s2) = a, b
+    take = (b2 < b1) | ((b2 == b1) & (i2 < i1))
+    best = torch.where(take, b2, b1)
+    idx = torch.where(take, i2, i1)
+    second = torch.where(take, torch.minimum(b1, s2), torch.minimum(s1, b2))
+    return best, idx, second
+
 
 def knn2_plain(d1_u32, d2_u32, valid2=None):
     """Plain PyTorch version: (best f32, idx i32, second f32), each (N1,)."""
@@ -33,6 +68,28 @@ def _check(d: torch.Tensor, what: str):
     if d.dtype != torch.int32 or d.ndim != 2 or d.shape[1] != 8:
         raise ValueError(f"{what}: expected (N, 8) int32 words, got "
                          f"{tuple(d.shape)} {d.dtype}")
+
+
+def launch(d1: torch.Tensor, d2: torch.Tensor, valid2: torch.Tensor,
+           binary: bool = BINARY):
+    """Launch the kernel on checked, contiguous CUDA inputs (n2 >= 1)."""
+    n1, n2 = d1.shape[0], d2.shape[0]
+    splits, rows = split_plan(n1, n2)
+    dev = d1.device
+    # one allocation: the splits' partials, then best, idx and second (the
+    # call is short enough for its allocations to show in its time)
+    buf = torch.empty((3 * splits + 3) * n1, dtype=torch.int32, device=dev)
+    part = buf[: 3 * splits * n1]
+    best, idx, second = buf[3 * splits * n1:].view(3, n1)
+    best, second = best.view(torch.float32), second.view(torch.float32)
+    fn = kernels.library_fn(NAME)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(d1.data_ptr(), n1, d2.data_ptr(), n2, valid2.data_ptr(), splits, rows,
+             part.data_ptr(), int(binary), best.data_ptr(), idx.data_ptr(),
+             second.data_ptr(), stream)
+    kernels.check(NAME, err)
+    kernels.LAUNCHES[NAME] += 1
+    return best, idx, second
 
 
 def knn2_fused(d1_u32: torch.Tensor, d2_u32: torch.Tensor,
@@ -56,15 +113,4 @@ def knn2_fused(d1_u32: torch.Tensor, d2_u32: torch.Tensor,
         raise ValueError(f"unsupported device {d1_u32.device}")
     if n2 < 1:
         raise ValueError("knn2 needs at least one train descriptor")
-    d1c, d2c, v2c = (d1_u32.contiguous(), d2_u32.contiguous(),
-                     valid2.contiguous())
-    best = torch.empty(n1, dtype=torch.float32, device=d1c.device)
-    idx = torch.empty(n1, dtype=torch.int32, device=d1c.device)
-    second = torch.empty(n1, dtype=torch.float32, device=d1c.device)
-    fn = kernels.library_fn(NAME)
-    stream = torch.cuda.current_stream(d1c.device).cuda_stream
-    err = fn(d1c.data_ptr(), n1, d2c.data_ptr(), n2, v2c.data_ptr(),
-             best.data_ptr(), idx.data_ptr(), second.data_ptr(), stream)
-    kernels.check(NAME, err)
-    kernels.LAUNCHES[NAME] += 1
-    return best, idx, second
+    return launch(d1_u32.contiguous(), d2_u32.contiguous(), valid2.contiguous())

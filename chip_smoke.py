@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``bundle_adjustment_tpu_torch``) on one
 NVIDIA card.
 
-    python3 chip_smoke.py [--frames 40] [--seed 0]
+    python3 chip_smoke.py [--frames 40] [--seed 0] [--profile N]
+    python3 chip_smoke.py --kernel-times [--tree DIR]
 
 Phases, each of which exits non-zero when it fails:
 
@@ -12,15 +13,18 @@ Phases, each of which exits non-zero when it fails:
    K4 share one source);
 3. K1, the Hamming 2-NN kernel, against its plain PyTorch version on the
    card at 4000 x 4000 (invalid train slots, planted ties) and at a ragged
-   size: exact equality; kernel and plain times from CUDA events;
+   size: exact equality, both MMA forms (b1 and s8); kernel and plain times
+   from CUDA events;
 4. K2, the ORB patch gather, against its plain version on a 1280 x 720
    level with 2067 keypoints, edge starts included: exact equality;
 5. K3, the window LM solve, against its plain version on seeded synthetic
    windows: one LM iteration and a full solve at the main path's shape
    (C = 5, n_fixed = 2, P = 8192), at C = 9 / n_fixed = 1 (6C' = 48) with a
-   ragged P and at D = 12, all with padding points and dead slots; one point
+   ragged P, at D = 12 and at the widest window the gate admits (C = 10,
+   n_fixed = 2, P = 53,430), all with padding points and dead slots; one point
    on a camera centre; two launches bit-equal; times per solve and per LM
-   iteration from CUDA events;
+   iteration from CUDA events, at both cluster sizes (8 and 16 CTAs) and at
+   the widest window;
 5b. K4, the four global-BA PCG roles (setup, matvec, backsub, cost), each
    against its plain version at the global path's shape (200 cameras, 30,000
    points bucketed to P = 32,768, D = 4, n_fixed = 2) and at a ragged one
@@ -33,7 +37,9 @@ Phases, each of which exits non-zero when it fails:
    ``VisualOdometryPipeline.process_frame`` and ``finalize``, with the
    kernels' launch counters set to 0 just before and read just after, and
    what came out: keyframes, map points, BA results, trajectory against the
-   ground truth, outputs on disk;
+   ground truth, outputs on disk; the shapes of its K3 launches, and the
+   device time per launch of K1 and K3 on its own inputs, replayed under the
+   profiler after the run;
 7. the earlier path, ``BAConfig(use_pallas_ba=False)`` (the grid solver), on
    the same frames until its first windowed BA completes;
 8. determinism: the first 12 frames through two fresh pipelines give equal
@@ -48,6 +54,10 @@ Phases, each of which exits non-zero when it fails:
    ``BAConfig(pcg_min_cameras=3)`` until a windowed BA completes, so that
    every windowed BA takes the PCG branch and K4, then ``finalize``.
 
+``--kernel-times [--tree DIR]`` only builds and times K1 and K3
+(``kernel_times``) on this checkout or on another commit's tree, for
+comparing two commits in one call.
+
 The line before the last is the kernels' JSON record, the line before that
 the card's name and power limit; the last line is the ``{"ok": true, ...}``
 record.  Imports nothing of JAX.
@@ -59,6 +69,7 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -138,15 +149,33 @@ def check_knn2(torch, hamming_kernel, gen, n1: int, n2: int, dev) -> dict:
               float((idx_k - idx_p).abs().max()))
     ms = cuda_ms(lambda: hamming_kernel.knn2_fused(d1, d2, valid2))
     plain_ms = cuda_ms(lambda: hamming_kernel.knn2_plain(d1, d2, valid2))
+    # both MMA forms, each exact, timed side by side (the wrapper launches
+    # hamming_kernel.BINARY's)
+    forms = {}
+    for binary in (True, False):
+        out = hamming_kernel.launch(d1, d2, valid2, binary=binary)
+        if not all(torch.equal(a, b) for a, b in zip(out, (best_p, idx_p, second_p))):
+            fail(f"K1 {n1}x{n2}: the {'b1' if binary else 's8'} form differs from the "
+                 "plain version")
+        def call(binary=binary):
+            return hamming_kernel.launch(d1, d2, valid2, binary=binary)
+
+        forms["b1" if binary else "s8"] = (cuda_ms(call), sum(device_ms_per_call(
+            torch, [call] * 20, ("knn2_split_kernel", "knn2_merge_kernel")).values()))
     # bytes: both word arrays and the mask read once, three (N1,) outputs
     nbytes = (n1 + n2) * 32 + n2 + 3 * n1 * 4
     # operations: XOR + POPC + ADD per word, 8 words, for every pair
     ops = n1 * n2 * 8 * 3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
+    splits, rows = hamming_kernel.split_plan(n1, n2)
     print(f"K1 hamming_knn2 {n1}x{n2}: exact (ties {ties}, invalid train "
           f"{int((~valid2).sum())}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {max(t_bytes, t_ops):.5f} ms")
+          f"bound {max(t_bytes, t_ops):.5f} ms; forms (event ms, device ms per call): b1 "
+          f"{forms['b1'][0]:.4f}, {forms['b1'][1]:.4f}; s8 {forms['s8'][0]:.4f}, "
+          f"{forms['s8'][1]:.4f} (wrapper: {'b1' if hamming_kernel.BINARY else 's8'}); "
+          f"grid {-(-n1 // hamming_kernel.QUERY_TILE)} query tiles x {splits} train splits "
+          f"of {rows} rows")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes > t_ops else "operations")
@@ -236,15 +265,17 @@ def check_window_lm(torch, np, ba_kernel, grid_cls, synthetic_window, so3_exp_np
         ("main C=5 n_fixed=2 P=8192 D=5", 2, dict(C=5, n_pts=6000, P=8192, D=5)),
         ("C=9 n_fixed=1 P=1777 D=6 (6C'=48, ragged P)", 1, dict(C=9, n_pts=1531, P=1777, D=6)),
         ("C=10 n_fixed=2 P=1024 D=12", 2, dict(C=10, n_pts=900, P=1024, D=12)),
+        # the widest window the gate admits: 32 MiB of scratch at C' = 8
+        ("widest C=10 n_fixed=2 P=53430 D=5", 2, dict(C=10, n_pts=50000, P=53430, D=5)),
     ]
     main_err = None
     for name, n_fixed, kw in shapes:
         _, g = window(seed + 1, **kw)
         dead = float((g.mask == 0).float().mean())
         # (a) one LM iteration: rvecs and tvecs 1e-5, points 1e-4 absolute,
-        # costs 1e-5 relative.  Measured on one H100 over the three shapes:
-        # rvecs 4.0e-07 to 5.8e-07, tvecs 2.2e-06 to 3.1e-06, points 6.2e-06
-        # to 5.7e-05, costs 9.5e-08 to 7.8e-06
+        # costs 1e-5 relative.  Measured on one H100 over the four shapes
+        # (cluster of 16 CTAs): rvecs 3.0e-07 to 8.1e-07, tvecs 9.5e-07 to
+        # 4.6e-06, points 6.7e-06 to 5.8e-05, costs 2.8e-07 to 4.6e-06
         a = ba_kernel.lm_solve(g, n_fixed=n_fixed, max_iterations=1)
         b = ba_kernel.lm_solve_plain(g, n_fixed=n_fixed, max_iterations=1)
         torch.cuda.synchronize()
@@ -308,6 +339,29 @@ def check_window_lm(torch, np, ba_kernel, grid_cls, synthetic_window, so3_exp_np
                        warmup=1, reps=2, trials=3)
     K_IT = 12
     free = dict(opts, ftol=0.0, xtol=0.0)
+
+    def marginal(g_, cluster):
+        """(ms per solve, ms per LM iteration, iterations run, ms of one)"""
+        it = int(ba_kernel.launch(g_, n_fixed, **dict(free, max_iterations=K_IT),
+                                  cluster=cluster)[3][4])
+        tk = cuda_ms(lambda: ba_kernel.launch(g_, n_fixed, **dict(free, max_iterations=K_IT),
+                                              cluster=cluster))
+        t1 = cuda_ms(lambda: ba_kernel.launch(g_, n_fixed, **dict(free, max_iterations=1),
+                                              cluster=cluster))
+        solve = cuda_ms(lambda: ba_kernel.launch(g_, n_fixed, **opts, cluster=cluster))
+        return solve, (tk - t1) / max(it - 1, 1), it, t1
+
+    # the two cluster sizes side by side, and the widest window
+    sizes = {}
+    for cluster in (8, 16):
+        sizes[cluster] = marginal(g, cluster)
+    _, g_wide = window(seed + 1, **shapes[3][2])
+    wide = marginal(g_wide, ba_kernel.CLUSTER)
+    print(f"K3 cluster sizes at the main shape: " + "; ".join(
+        f"{c} CTAs: solve {v[0]:.4f} ms, per LM iteration {v[1]:.4f} ms" for c, v in sizes.items())
+        + f" (the wrapper launches {ba_kernel.CLUSTER}); widest window (P=53430, C'=8): solve "
+        f"{wide[0]:.4f} ms, per LM iteration {wide[1]:.4f} ms, "
+        f"{wide[1] / sizes[ba_kernel.CLUSTER][1]:.2f} times the main shape's")
     it_k = int(ba_kernel.launch(g, n_fixed, **dict(free, max_iterations=K_IT))[3][4])
     t_k = cuda_ms(lambda: ba_kernel.launch(g, n_fixed, **dict(free, max_iterations=K_IT)))
     t_1 = cuda_ms(lambda: ba_kernel.launch(g, n_fixed, **dict(free, max_iterations=1)))
@@ -550,7 +604,8 @@ def check_global(torch, np, mods, seed: int, dev) -> dict:
     return records
 
 
-K_NAMES = ("knn2_kernel", "gather40_kernel", "ba_window_lm_kernel", "setup_points_kernel",
+K_NAMES = ("knn2_split_kernel", "knn2_merge_kernel", "gather40_kernel", "ba_window_lm_kernel",
+           "setup_points_kernel",
            "camera_sum_kernel", "matvec_points_kernel", "backsub_points_kernel",
            "cost_points_kernel", "cost_final_kernel")
 
@@ -579,6 +634,79 @@ def profile_call(torch, label: str, fn) -> None:
         if e.device_type == DeviceType.CUDA and any(k in e.key for k in K_NAMES):
             print(f"{e.key[:60]}: {e.count} launches, device time "
                   f"{e.self_device_time_total / max(e.count, 1) / 1e3:.4f} ms each")
+
+
+def recorded(module, name: str, keep):
+    """Replace ``module.name`` by a function that hands its arguments to
+    ``keep`` and calls it; returns the original, to be put back."""
+    orig = getattr(module, name)
+
+    def call(*a, **kw):
+        keep(a, kw)
+        return orig(*a, **kw)
+
+    setattr(module, name, call)
+    return orig
+
+
+def device_ms_per_call(torch, calls, keys) -> dict:
+    """Each of ``calls`` once under torch.profiler: key -> device ms per call
+    of the CUDA kernels whose names contain the key."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for fn in calls:
+            fn()
+        torch.cuda.synchronize()
+    out = {k: 0.0 for k in keys}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            for k in keys:
+                if k in e.key:
+                    out[k] += e.self_device_time_total / 1e3
+    return {k: v / max(len(calls), 1) for k, v in out.items()}
+
+
+def kernel_times(torch, seed: int, dev) -> dict:
+    """K1 at 4000 x 4000 and K3 at the main path's window (C = 5, n_fixed =
+    2, P = 8192, D = 5) and at the widest one the gate admits (C = 10, P =
+    53,430), through the wrappers' calls that every tree of the port since K3
+    has: CUDA-event ms per call, device ms per launch under the profiler, ms
+    per LM iteration by the marginal protocol.  ``--kernel-times --tree DIR``
+    runs it on another commit's tree."""
+    from bundle_adjustment_tpu_torch import kernels
+    from bundle_adjustment_tpu_torch.ops import ba_kernel, hamming_kernel
+    from bundle_adjustment_tpu_torch.ops.ba_grid import BAProblemGrid
+    from bundle_adjustment_tpu_torch.utils.synthetic import synthetic_window
+
+    kernels.build_all()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    d1, d2 = (torch.randint(-2 ** 31, 2 ** 31, (4000, 8), generator=gen, dtype=torch.int64,
+                            device=dev).to(torch.int32) for _ in range(2))
+    valid2 = torch.rand(4000, generator=gen, device=dev) > 0.1
+    out = dict(k1_ms=cuda_ms(lambda: hamming_kernel.knn2_fused(d1, d2, valid2)))
+    out["k1_device_ms"] = sum(device_ms_per_call(
+        torch, [lambda: hamming_kernel.knn2_fused(d1, d2, valid2)] * 20, ("knn2",)).values())
+    opts = dict(max_iterations=50, huber_delta=1.0, lambda_init=1e-3, lambda_up=4.0,
+                lambda_down=0.5, lambda_min=1e-10, lambda_max=1e8, ftol=1e-5, xtol=1e-5)
+    free = dict(opts, ftol=0.0, xtol=0.0)
+    for tag, kw in (("k3", dict(C=5, n_pts=6000, P=8192, D=5)),
+                    ("k3_wide", dict(C=10, n_pts=50000, P=53430, D=5))):
+        w = synthetic_window(seed + 1, **kw)
+        g = BAProblemGrid(**{k: torch.as_tensor(v, device=dev) for k, v in w.items()})
+        its = int(ba_kernel.launch(g, 2, **opts)[3][4])
+        it12 = int(ba_kernel.launch(g, 2, **dict(free, max_iterations=12))[3][4])
+        t12 = cuda_ms(lambda: ba_kernel.launch(g, 2, **dict(free, max_iterations=12)))
+        t1 = cuda_ms(lambda: ba_kernel.launch(g, 2, **dict(free, max_iterations=1)))
+        out[f"{tag}_solve_ms"] = cuda_ms(lambda: ba_kernel.launch(g, 2, **opts))
+        out[f"{tag}_solve_iterations"] = its
+        out[f"{tag}_iteration_ms"] = (t12 - t1) / (it12 - 1)
+        out[f"{tag}_device_ms"] = device_ms_per_call(
+            torch, [lambda: ba_kernel.launch(g, 2, **opts)] * 5, ("ba_window_lm",))["ba_window_lm"]
+    return out
 
 
 def profile_frames(torch, frames, cfg, pipeline_cls, log_cls) -> None:
@@ -627,6 +755,12 @@ def main() -> int:
                     help="after the checks, profile a fresh pipeline over the "
                          "first N frames and one finalize of the global path's "
                          "map (default 0: no profile)")
+    ap.add_argument("--kernel-times", action="store_true",
+                    help="only build the kernels and time K1 and K3 (kernel_times), print "
+                         "one JSON line and exit")
+    ap.add_argument("--tree", default=None, metavar="DIR",
+                    help="with --kernel-times: import the port from DIR (a git archive of "
+                         "another commit) instead of this checkout")
     args = ap.parse_args()
 
     import numpy as np
@@ -634,6 +768,16 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs an NVIDIA card")
+    if args.kernel_times:
+        if args.tree:
+            sys.path.insert(0, os.path.abspath(args.tree))
+        from bundle_adjustment_tpu_torch import device as device_mod
+        device_mod.set_float32_numerics()
+        import bundle_adjustment_tpu_torch
+        times = kernel_times(torch, args.seed, torch.device("cuda", 0))
+        print(json.dumps(dict(tree=os.path.dirname(bundle_adjustment_tpu_torch.__file__),
+                              card=nvidia_smi_line(), **times)))
+        return 0
 
     from bundle_adjustment_tpu_torch import device as device_mod
     from bundle_adjustment_tpu_torch import kernels
@@ -671,7 +815,10 @@ def main() -> int:
     t0 = time.perf_counter()
     built = kernels.build_all(verbose=True)
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.2f} s "
-          f"(per kernel: { {k: round(v, 2) for k, v in built.items()} })")
+          f"(per kernel: { {k: round(v, 2) for k, v in built.items()} }); registers and "
+          "shared memory per kernel in ptxas's lines above")
+    print(f"K3 launches one cluster of {ba_kernel.CLUSTER} CTAs; K1 launches the "
+          f"{'b1' if hamming_kernel.BINARY else 's8'} MMA form")
 
     # -- 3./4./5. kernels against their plain versions -----------------------
     gen = torch.Generator(device=dev)
@@ -700,6 +847,18 @@ def main() -> int:
     log = EventLog(echo=False)
     pipe = VisualOdometryPipeline(cfg, log=log, device="cuda")
 
+    # the main path's K1 and K3 launches are recorded (K3's windows and the
+    # first K1 inputs cloned) and replayed under the profiler after the run
+    k1_shapes, k1_calls, k3_calls = [], [], []
+
+    def keep_k1(a, kw):
+        k1_shapes.append((a[0].shape[0], a[1].shape[0]))
+        if len(k1_calls) < 12:
+            k1_calls.append((tuple(t.clone() for t in a), kw))
+
+    orig_k1 = recorded(hamming_kernel, "launch", keep_k1)
+    orig_k3 = recorded(ba_kernel, "launch", lambda a, kw: k3_calls.append(
+        ((BAProblemGrid(*(t.clone() for t in a[0])),) + a[1:], kw)))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
@@ -711,6 +870,7 @@ def main() -> int:
     finalize_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     peak_mem = torch.cuda.max_memory_allocated()
+    hamming_kernel.launch, ba_kernel.launch = orig_k1, orig_k3
     frame_of_kf, statuses = run["frame_of_kf"], run["statuses"]
 
     n_kf = pipe.map.num_keyframes
@@ -773,6 +933,28 @@ def main() -> int:
     print(f"time in BA solves (events' elapsed_s): {ba_s:.2f} s of "
           f"{fm.sum() / 1e3 + finalize_s:.2f} s for all frames and finalize; per solve "
           + ", ".join(f"{e.get('elapsed_s', 0.0) * 1e3:.0f}" for e in ba_events) + " ms")
+
+    print("K3 launches on the main path (C, P, D, n_fixed): " + ", ".join(
+        f"({a[0].rvecs.shape[0]}, {a[0].cam_slot.shape[0]}, {a[0].cam_slot.shape[1]}, {a[1]})"
+        for a, _ in k3_calls))
+    # each recorded K1 input three times: a profile of a few short launches
+    # has come back without their device records
+    dev_k1 = device_ms_per_call(torch, [lambda a=a, kw=kw: orig_k1(*a, **kw)
+                                        for a, kw in k1_calls] * 3,
+                                ("knn2_split_kernel", "knn2_merge_kernel"))
+    dev_k3 = device_ms_per_call(torch, [lambda a=a, kw=kw: orig_k3(*a, **kw)
+                                        for a, kw in k3_calls], ("ba_window_lm_kernel",))
+
+    def shown(ms):
+        return f"{ms:.4f} ms" if ms > 0 else "not measured (no device records)"
+
+    print(f"device time per launch on the main path's own inputs, replayed under the "
+          f"profiler: K1 {shown(sum(dev_k1.values()))} (split pass "
+          f"{dev_k1['knn2_split_kernel']:.4f}, merge {dev_k1['knn2_merge_kernel']:.4f}) over "
+          f"the first {len(k1_calls)} of {len(k1_shapes)} launches, three times each (shapes "
+          f"{sorted(set(k1_shapes))}); K3 {shown(dev_k3['ba_window_lm_kernel'])} over "
+          f"{len(k3_calls)} launches (cluster of {ba_kernel.CLUSTER} CTAs)")
+    del k1_calls, k3_calls      # the clones stay out of the later phases' peak memory
 
     # -- 7. the earlier path: the grid solver -------------------------------
     cfg_grid = dataclasses.replace(cfg, ba=dataclasses.replace(cfg.ba, use_pallas_ba=False))

@@ -6,6 +6,8 @@ exact: distances are integers <= 256 (or the INVALID_DIST sentinel) in both
 implementations, and both take the first index on ties.
 """
 
+import itertools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -108,6 +110,89 @@ def test_pack_and_unpack_bits_match_jax():
     np.testing.assert_array_equal(
         tham.hamming_matrix(tw[:20], tw[17:]).numpy(),
         np.asarray(jham.hamming_matrix(jnp.asarray(jw[:20]), jnp.asarray(jw[17:]))))
+
+
+def _chunk_results(d1, d2, valid2, bounds):
+    """knn2_plain on each train chunk [bounds[i], bounds[i+1]), its indices
+    offset to the whole set's."""
+    out = []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        b, i, s = hamming_kernel.knn2_plain(d1, d2[lo:hi], valid2[lo:hi])
+        out.append((b, i + lo, s))
+    return out
+
+
+# chunk bounds over a 37-row train set: one-row chunks, and ties and invalid
+# rows across chunk boundaries (_merge_case)
+MERGE_BOUNDS = [
+    [0, 1, 2, 10, 11, 25, 37],
+    [0, 9, 10, 20, 36, 37],
+    [0, 18, 19, 37],
+]
+
+
+def _merge_case(seed):
+    d1, d2, valid2 = _case(seed, 50, 37, invalid_frac=0.2)
+    d2[10] = d2[9]              # a duplicate across the boundary at 10
+    d2[25] = d2[24]
+    d2[19] = d2[17]
+    d1[:6] = d2[[9, 10, 24, 25, 17, 19]]   # queries whose best is tied across chunks
+    valid2[[0, 1, 36]] = False  # invalid one-row chunks
+    return d1, d2, valid2
+
+
+@pytest.mark.parametrize("bounds", MERGE_BOUNDS, ids=lambda b: f"{len(b) - 1}chunks")
+def test_split_merge_rule_equals_one_scan(bounds):
+    """The kernel's split merge (merge_top2: best the lexicographic minimum of
+    (distance, index), second the smallest of the other candidates) gives,
+    in every order and as a tree, knn2_plain on the whole train set and the
+    JAX package's hamming.knn2, bit for bit."""
+    d1, d2, valid2 = _merge_case(len(bounds))
+    d1t, d2t, v2t = _port(d1), _port(d2), torch.as_tensor(valid2)
+    whole = hamming_kernel.knn2_plain(d1t, d2t, v2t)
+    jax_whole = [np.asarray(x) for x in jham.knn2(jnp.asarray(d1), jnp.asarray(d2), None,
+                                                    jnp.asarray(valid2))]
+    for a, b in zip(whole, jax_whole):
+        np.testing.assert_array_equal(a.numpy(), b)
+    assert (whole[0] == whole[2]).any(), "the case plants no tie"
+    parts = _chunk_results(d1t, d2t, v2t, bounds)
+    merged = []
+    for order in itertools.permutations(range(len(parts))):
+        acc = parts[order[0]]
+        for k in order[1:]:
+            acc = hamming_kernel.merge_top2(acc, parts[k])
+        merged.append(acc)
+    tree = list(parts)
+    while len(tree) > 1:
+        tree = [hamming_kernel.merge_top2(*tree[i:i + 2]) if i + 1 < len(tree) else tree[i]
+                for i in range(0, len(tree), 2)]
+    merged.append(tree[0])
+    for m in merged:
+        for a, b in zip(m, whole):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+@pytest.mark.parametrize("n1,n2", [(4000, 4000), (4001, 2999), (4000, 12), (4000, 1), (5, 700)])
+def test_split_plan_covers_the_train_set_and_merges_exactly(n1, n2):
+    """split_plan leaves no split empty and covers every train row; merging
+    knn2_plain over its splits in split order (what the kernel's second pass
+    does) equals knn2_plain on the whole set.  At the main path's 4000 x 4000
+    the grid is at least four blocks per SM of an H100."""
+    splits, rows = hamming_kernel.split_plan(n1, n2)
+    assert splits >= 1 and (splits - 1) * rows < n2 <= splits * rows
+    if (n1, n2) == (4000, 4000):
+        assert -(-n1 // hamming_kernel.QUERY_TILE) * splits >= 4 * 132
+    m = min(n1, 300)             # the plain check on the first queries only
+    d1, d2, valid2 = _case(n1 + n2, m, n2)
+    d1t, d2t, v2t = _port(d1), _port(d2), torch.as_tensor(valid2)
+    bounds = [min(n2, k * rows) for k in range(splits + 1)]
+    parts = _chunk_results(d1t, d2t, v2t, bounds)
+    acc = parts[0]
+    for part in parts[1:]:
+        acc = hamming_kernel.merge_top2(acc, part)
+    for a, b in zip(acc, hamming_kernel.knn2_plain(d1t, d2t, v2t)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
 def test_wrapper_checks_its_inputs():

@@ -173,6 +173,42 @@ def test_hamming_kernel_matches_plain_on_the_card(card, n1, n2):
         assert torch.equal(a, b)
 
 
+# K1 at the edges of the tiling: few train rows (fewer than the splits the
+# query count alone would ask for, and one), shapes that are not multiples of
+# the MMA tiles, all train rows tied, all train rows invalid
+K1_EDGES = [(4000, 12, "random"), (4000, 1, "random"), (4001, 2999, "random"),
+            (300, 700, "tied"), (300, 700, "invalid")]
+
+
+def _knn2_edge(n1, n2, kind):
+    d1, d2, valid2 = _knn2_case(n1 * 7 + n2, n1, n2)
+    if kind == "tied":
+        d2[:] = d2[0]
+        valid2[:] = True
+    elif kind == "invalid":
+        valid2[:] = False
+    return d1, d2, valid2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("binary", [True, False], ids=["b1", "s8"])
+@pytest.mark.parametrize("n1,n2,kind", K1_EDGES, ids=[f"{a}x{b}{k}" for a, b, k in K1_EDGES])
+def test_hamming_kernel_tiling_edges_on_the_card(card, n1, n2, kind, binary):
+    """Both MMA forms, exact against the plain version at the tiling's edges."""
+    args = [x.to(card) for x in _knn2_edge(n1, n2, kind)]
+    out = hamming_kernel.launch(*args, binary=binary)
+    torch.cuda.synchronize()
+    plain = hamming_kernel.knn2_plain(*args)
+    for a, b in zip(out, plain):
+        assert torch.equal(a, b)
+    if kind == "tied":
+        assert torch.equal(out[0], out[2]) and not out[1].any()
+    if kind == "invalid":
+        assert bool((out[0] == 1e9).all()) and not out[1].any()
+    if n2 == 1:
+        assert bool(torch.isinf(out[2]).all())
+
+
 @pytest.mark.cuda
 def test_gather_kernel_matches_plain_on_the_card(card):
     """At the main path's shapes: eight pyramid levels of a 1280x720 frame
@@ -233,6 +269,47 @@ def test_window_kernel_full_solve_matches_plain_on_the_card(card, shape):
     assert abs(int(a[3].iterations) - int(b[3].iterations)) <= 2
     assert bool(a[3].accepted) == bool(b[3].accepted) is True
     assert float(a[3].final_cost) < 0.9 * float(a[3].initial_cost)
+
+
+# K3 at the cluster's edges: fewer points than the cluster has threads (a
+# single point; 300), and the widest window the gate admits (32 MiB of scratch)
+K3_EDGES = [
+    dict(C=5, n_fixed=2, n_pts=1, P=1, D=5),
+    dict(C=5, n_fixed=2, n_pts=300, P=300, D=5),
+    dict(C=10, n_fixed=2, n_pts=50000, P=53430, D=5),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", K3_EDGES, ids=lambda s: f"C{s['C']}P{s['P']}D{s['D']}")
+def test_window_kernel_cluster_edges_match_plain_on_the_card(card, shape):
+    """At both cluster sizes: one iteration and a full solve within the
+    tolerances of the tests above, and two launches bit-equal."""
+    n_fixed, kw = _split(shape)
+    assert ba_kernel.eligible_shape(kw["C"], kw["P"], kw["D"], n_fixed)
+    g = _window(card, 16, **kw)
+    opts = dict(max_iterations=50, huber_delta=1.0, lambda_init=1e-3, lambda_up=4.0,
+                lambda_down=0.5, lambda_min=1e-10, lambda_max=1e8, ftol=1e-5, xtol=1e-5)
+    one = ba_kernel.lm_solve_plain(g, n_fixed=n_fixed, max_iterations=1)
+    full = ba_kernel.lm_solve_plain(g, n_fixed=n_fixed)
+    for cluster in (8, 16):
+        a = ba_kernel.launch(g, n_fixed, **dict(opts, max_iterations=1), cluster=cluster)
+        torch.cuda.synchronize()
+        assert float((a[0] - one[0]).abs().max()) <= 1e-5, cluster
+        assert float((a[1] - one[1]).abs().max()) <= 1e-5, cluster
+        assert float((a[2] - one[2]).abs().max()) <= 1e-4, cluster
+        np.testing.assert_allclose(a[3][:4].cpu().numpy(), _costs(one[3]), rtol=1e-5)
+        assert int(a[3][4]) == 1 and bool(a[3][5] > 0.5) == bool(one[3].accepted)
+        r1 = ba_kernel.launch(g, n_fixed, **opts, cluster=cluster)
+        r2 = ba_kernel.launch(g, n_fixed, **opts, cluster=cluster)
+        torch.cuda.synchronize()
+        for x, y in zip(r1, r2):
+            assert torch.equal(x, y), cluster
+        np.testing.assert_allclose(float(r1[3][0]), float(full[3].initial_cost), rtol=1e-5)
+        np.testing.assert_allclose(float(r1[3][1]), float(full[3].final_cost), rtol=1e-2)
+        assert abs(int(r1[3][4]) - int(full[3].iterations)) <= 2
+        assert bool(r1[3][5] > 0.5) == bool(full[3].accepted)
+        assert all(bool(torch.isfinite(x).all()) for x in r1[:3])
 
 
 @pytest.mark.cuda
