@@ -23,17 +23,18 @@
 //   5. point back-substitution, trial cost, accept / reject, ftol / xtol,
 //      stuck at lambda_max.
 //
-// The launch is one thread-block cluster of N CTAs (N from the wrapper,
-// ops/ba_kernel.CLUSTER: 8 is portable, 16 is not) of 256 threads (128 at
-// C' = 8, where 256 threads' accumulators would not fit in shared memory),
-// the LM loop inside.  CTA r owns one contiguous range of points; the scratch stays point-fastest, so its reads are coalesced, and
+// The launch is one thread-block cluster of kCluster = 16 CTAs (a
+// non-portable size; 8, the portable one, was measured slower on an H100:
+// 0.0725 against 0.0407 ms per LM iteration at C = 5, n_fixed = 2, P = 8192)
+// of 256 threads (128 at C' = 8, where 256 threads' accumulators would not fit
+// in shared memory), the LM loop inside.  CTA r owns one contiguous range of points; the scratch stays point-fastest, so its reads are coalesced, and
 // a thread reads back only what it wrote itself.  Every sum over points is
 // first reduced inside the CTA in a fixed order (per-thread partials, warp
 // butterflies, warps or threads in order) into the CTA's own partial array
 // in shared memory: all C' cameras' 27 lanes and all pairs' 36 lanes in one
 // array (6 KB at C' = 8), the cost lanes in another phase.  One cluster
 // barrier per phase; then every CTA reads all ranks' partials through
-// distributed shared memory and adds them in rank order 0..N-1, so every CTA
+// distributed shared memory and adds them in rank order 0..15, so every CTA
 // holds bit-identical U, b, S, costs and loop state, runs the Gauss-Jordan
 // and the accept / reject itself and leaves the loop with the others: no
 // broadcast, no atomics.  The partial arrays are double-buffered, so the next
@@ -58,7 +59,7 @@
 // reductions, the 6C' pivots of one warp).  Where the one-block design of the
 // port's first version ran on one SM, computed each slot's Jacobians once
 // more per camera and crossed a block barrier per camera pair and two per
-// pivot, this one spreads the points over N SMs, computes the Jacobians once
+// pivot, this one spreads the points over 16 SMs, computes the Jacobians once
 // and keeps the Gauss-Jordan inside one warp.
 
 #include <cooperative_groups.h>
@@ -78,7 +79,7 @@ constexpr int kCamLanes = 27;  // per adjustable camera: U's upper triangle (21)
 constexpr int kPairLanes = 36; // per camera pair: one 6x6 block of sum B V^-1 B^T
 constexpr int kMaxPairs = kMaxAdj * (kMaxAdj + 1) / 2;
 constexpr int kMaxLanes = kMaxAdj * kCamLanes + kMaxPairs * kPairLanes;
-constexpr int kMaxCluster = 16;
+constexpr int kCluster = 16;   // CTAs in the launch's one cluster
 
 struct Args {
   const float* rvecs;
@@ -228,15 +229,12 @@ __device__ __forceinline__ bool slot_live(const Args& a, int p, int d, int& c, f
 // are all in flight before the first add
 __device__ __forceinline__ float rank_sum(Shared& sh, int buf, int e,
                                           cg::cluster_group& cluster) {
-  const int ranks = (int)cluster.num_blocks();
-  float v[kMaxCluster];
+  float v[kCluster];
 #pragma unroll
-  for (int r = 0; r < kMaxCluster; ++r)
-    v[r] = r < ranks ? cluster.map_shared_rank(&sh.part[buf][0], r)[e] : 0.0f;
+  for (int r = 0; r < kCluster; ++r) v[r] = cluster.map_shared_rank(&sh.part[buf][0], r)[e];
   float x = v[0];
 #pragma unroll
-  for (int r = 1; r < kMaxCluster; ++r)
-    if (r < ranks) x += v[r];
+  for (int r = 1; r < kCluster; ++r) x += v[r];
   return x;
 }
 
@@ -371,7 +369,6 @@ __global__ void __launch_bounds__(kThreads, 1) ba_window_lm_kernel(Args a) {
   Shared& sh = *reinterpret_cast<Shared*>(smem);
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
-  const int ranks = (int)cluster.num_blocks();
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int C = a.C, P = a.P, D = a.D;
   const int c_adj = C - a.n_fixed;
@@ -385,7 +382,7 @@ __global__ void __launch_bounds__(kThreads, 1) ba_window_lm_kernel(Args a) {
   float* wpart = acc;                                             // [kWarps][pair_lanes]
 
   // this CTA's points
-  const int chunk = (P + ranks - 1) / ranks;
+  const int chunk = (P + kCluster - 1) / kCluster;
   const int lo = min(P, rank * chunk), hi = min(P, lo + chunk);
 
   // global scratch, point index fastest: coupling blocks B[c'][i*3+l][p],
@@ -727,8 +724,6 @@ constexpr size_t kSmemLimit = 232448;   // what one CTA may use on sm_90
 
 }  // namespace
 
-// cluster: CTAs in the one cluster of the launch (1 .. 16; above 8 is
-// non-portable).
 extern "C" int ba_window_lm(const void* rvecs, const void* tvecs, const void* points,
                             const void* cam_slot, const void* uv, const void* mask,
                             const void* point_mask, const void* K, int C, int P, int D,
@@ -736,10 +731,10 @@ extern "C" int ba_window_lm(const void* rvecs, const void* tvecs, const void* po
                             float lambda_init, float lambda_up, float lambda_down,
                             float lambda_min, float lambda_max, float ftol, float xtol,
                             void* rv_out, void* tv_out, void* pts_out, void* stats,
-                            void* scratch, int cluster, void* stream) {
+                            void* scratch, void* stream) {
   const int c_adj = C - n_fixed;
   if (C < 1 || C > kMaxCams || n_fixed < 0 || c_adj < 1 || c_adj > kMaxAdj || P < 1 ||
-      D < 1 || cluster < 1 || cluster > kMaxCluster)
+      D < 1)
     return (int)cudaErrorInvalidValue;
   // 256 threads per CTA where their accumulators fit (C' <= 7), else 128
   const int threads = smem_bytes(c_adj, 256) <= kSmemLimit ? 256 : 128;
@@ -786,13 +781,13 @@ extern "C" int ba_window_lm(const void* rvecs, const void* tvecs, const void* po
   a.scratch = (float*)scratch;
 
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, 1, 1);
+  cfg.gridDim = dim3(kCluster, 1, 1);
   cfg.blockDim = dim3(threads, 1, 1);
   cfg.dynamicSmemBytes = smem_bytes(c_adj, threads);
   cfg.stream = (cudaStream_t)stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.x = kCluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -802,3 +797,6 @@ extern "C" int ba_window_lm(const void* rvecs, const void* tvecs, const void* po
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
+
+// the CTAs of the launch's cluster, for the record of a run
+extern "C" int ba_window_lm_cluster_size() { return kCluster; }

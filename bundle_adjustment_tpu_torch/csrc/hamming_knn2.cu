@@ -14,15 +14,13 @@
 //
 // Distances are computed as the TPU kernel computes them on its matrix unit
 // (hamming_pallas.py:46-49): d = popc(a) + popc(b) - 2 * popc(a AND b).  The
-// inner term is an exact integer product on the tensor cores, in one of two
-// forms, both built (the wrapper picks one, chip_smoke.py times both):
-//   * binary: mma.m16n8k256 .b1 .and.popc, one MMA per 16 x 8 tile of pairs,
-//     the packed words used as they are;
-//   * s8: mma.m16n8k32 .s8 on 0/1 bytes, eight MMAs per tile; the words are
-//     expanded to bytes, the queries in registers, each train chunk into
-//     shared memory as it is staged.
-// popc(a) and popc(b) come from __popc as the rows load.  Every sum is an s32
-// integer, so the result is exact.
+// inner term is an exact integer product on the tensor cores: the binary
+// mma.m16n8k256 .b1 .and.popc, one MMA per 16 x 8 tile of pairs, the packed
+// words used as they are.  (An m16n8k32 .s8 form on 0/1 bytes, eight MMAs per
+// tile on words expanded to bytes, was built beside it and measured slower on
+// an H100: 0.0537 against 0.0226 ms of device time at 4000 x 4000.)  popc(a)
+// and popc(b) come from __popc as the rows load.  Every sum is an s32 integer,
+// so the result is exact.
 //
 // Layout: a 2-D grid of 128-query tiles x train splits.  Each warp holds two
 // 16-row query tiles as MMA fragments and walks the block's train split in
@@ -36,13 +34,16 @@
 //   best   = the lexicographic minimum of (distance, index) over the parts;
 //   second = the smallest of all the other candidates' values
 //            (min of the loser's best and both parts' seconds).
+// The wrapper (ops/hamming_kernel.split_plan) picks the split count from the
+// card's SM count and the query tile, which it passes to the C entry to be
+// checked against kBlockQ.
 //
 // What bounds it on this card: operations, and before them latency.  At the
 // main path's 4000 x 4000 the inputs are 2 x 128 KB and the products 0.13 M
-// binary (or 1 M s8) MMAs, a few microseconds of tensor-core time; the
-// running top-2 is 16 M compare/selects on the CUDA cores.  The grid has
-// 32 x 17 = 544 blocks of 4 warps, four times the 132 SMs, where the one-
-// thread-per-query design filled 63 SMs with two warps each.
+// binary MMAs, a few microseconds of tensor-core time; the running top-2 is
+// 16 M compare/selects on the CUDA cores.  The grid has 32 x 17 = 544 blocks
+// of 4 warps, four times the 132 SMs, where the one-thread-per-query design
+// filled 63 SMs with two warps each.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -56,8 +57,7 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kQTiles = 2;                       // 16-row query tiles per warp
 constexpr int kBlockQ = 16 * kQTiles * kWarps;   // 128 queries per block
 constexpr int kChunk = 64;                       // train rows staged at a time
-constexpr int kStrideB1 = 12;    // words per staged row, binary form (8 + pad)
-constexpr int kStrideS8 = 68;    // words per staged row, s8 form (64 + pad)
+constexpr int kStride = 12;                      // words per staged row (8 + pad)
 constexpr int kInvalid = 1000000000;             // INVALID_DIST, exact in float32
 
 // (b, i, s) <- merge of (b, i, s) and (b2, i2, s2); see the header.
@@ -71,11 +71,6 @@ __device__ __forceinline__ void merge(int& b, int& i, int& s, int b2, int i2, in
   }
 }
 
-// 4 bits -> 4 bytes of 0 / 1, bit k to byte k
-__device__ __forceinline__ uint32_t spread4(uint32_t x) {
-  return (x & 1u) | ((x & 2u) << 7) | ((x & 4u) << 14) | ((x & 8u) << 21);
-}
-
 __device__ __forceinline__ void mma_b1(int (&c)[4], const uint32_t* a, uint32_t b0,
                                        uint32_t b1) {
   asm volatile(
@@ -85,25 +80,13 @@ __device__ __forceinline__ void mma_b1(int (&c)[4], const uint32_t* a, uint32_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t* a, uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // One block: 128 queries against the train rows [lo, hi) of split blockIdx.y.
 // part holds three (splits, n1) int planes: best, idx, second.
-template <bool kBinary>
 __global__ void __launch_bounds__(kThreads)
     knn2_split_kernel(const uint32_t* __restrict__ d1, int n1,
                       const uint32_t* __restrict__ d2, int n2,
                       const uint8_t* __restrict__ valid2, int rows_per_split,
                       int* __restrict__ part) {
-  constexpr int kStride = kBinary ? kStrideB1 : kStrideS8;
-  constexpr int kA = kBinary ? 4 : 32;           // A-fragment registers per tile
   __shared__ uint32_t tw[kChunk * kStride];
   __shared__ int tpop[kChunk];
   __shared__ uint8_t tval[kChunk];
@@ -119,7 +102,7 @@ __global__ void __launch_bounds__(kThreads)
   // A fragments of the two query rows g and g + 8 of each tile (the PTX
   // fragment layout: a0 / a2 row g, a1 / a3 row g + 8; a0 / a1 the lower half
   // of K, a2 / a3 the upper), and their popcounts
-  uint32_t a[kQTiles][kA];
+  uint32_t a[kQTiles][4];
   int pa[kQTiles][2];
 #pragma unroll
   for (int qt = 0; qt < kQTiles; ++qt) {
@@ -133,16 +116,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int k = 0; k < 8; ++k) pc += __popc(w[k]);
       pa[qt][h] = pc;
-      if (kBinary) {
-        a[qt][h] = w[t];                         // bits 32t .. 32t + 31
-        a[qt][2 + h] = w[t + 4];                 // bits 128 + 32t ..
-      } else {
-#pragma unroll
-        for (int s = 0; s < 8; ++s) {            // K step s: the bits of word s
-          a[qt][4 * s + h] = spread4((w[s] >> (4 * t)) & 15u);
-          a[qt][4 * s + 2 + h] = spread4((w[s] >> (4 * t + 16)) & 15u);
-        }
-      }
+      a[qt][h] = w[t];                           // bits 32t .. 32t + 31
+      a[qt][2 + h] = w[t + 4];                   // bits 128 + 32t ..
     }
   }
 
@@ -157,13 +132,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();                             // the previous chunk is consumed
     for (int e = tid; e < kChunk * 8; e += kThreads) {
       const int r = e >> 3, k = e & 7;
-      const uint32_t w = r < nc ? d2[(size_t)(c0 + r) * 8 + k] : 0u;
-      if (kBinary) {
-        tw[r * kStride + k] = w;
-      } else {
-#pragma unroll
-        for (int nib = 0; nib < 8; ++nib) tw[r * kStride + 8 * k + nib] = spread4((w >> (4 * nib)) & 15u);
-      }
+      tw[r * kStride + k] = r < nc ? d2[(size_t)(c0 + r) * 8 + k] : 0u;
     }
     for (int r = tid; r < kChunk; r += kThreads) {
       int pc = 0;
@@ -179,17 +148,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int n0 = 0; n0 < nc; n0 += 8) {
       // B fragment of train row n0 + g (b0 the lower half of K, b1 the upper)
       const uint32_t* br = tw + (n0 + g) * kStride;
-      uint32_t bf[kBinary ? 2 : 16];
-      if (kBinary) {
-        bf[0] = br[t];
-        bf[1] = br[t + 4];
-      } else {
-#pragma unroll
-        for (int s = 0; s < 8; ++s) {
-          bf[2 * s] = br[8 * s + t];
-          bf[2 * s + 1] = br[8 * s + 4 + t];
-        }
-      }
+      const uint32_t b0 = br[t], b1 = br[t + 4];
       // this thread's accumulator columns: train rows n0 + 2t and n0 + 2t + 1
       int pb[2], col_ok[2], col_val[2];
 #pragma unroll
@@ -202,12 +161,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int qt = 0; qt < kQTiles; ++qt) {
         int c[4] = {0, 0, 0, 0};
-        if (kBinary) {
-          mma_b1(c, a[qt], bf[0], bf[1]);
-        } else {
-#pragma unroll
-          for (int s = 0; s < 8; ++s) mma_s8(c, &a[qt][4 * s], bf[2 * s], bf[2 * s + 1]);
-        }
+        mma_b1(c, a[qt], b0, b1);
         // c0, c1: row g, columns 2t, 2t + 1; c2, c3: row g + 8
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
@@ -272,26 +226,22 @@ __global__ void knn2_merge_kernel(const int* __restrict__ part, int n1, int spli
 }  // namespace
 
 // splits x rows_per_split must cover n2 with no empty split; part holds
-// 3 * splits * n1 ints.  binary != 0 takes the .b1 MMA form, else the .s8 one.
+// 3 * splits * n1 ints.  query_tile is the wrapper's idea of kBlockQ, on which
+// its split count rests: a mismatch is refused.
 extern "C" int hamming_knn2(const void* d1, int n1, const void* d2, int n2,
                             const void* valid2, int splits, int rows_per_split,
-                            void* part, int binary, void* best, void* idx,
+                            void* part, int query_tile, void* best, void* idx,
                             void* second, void* stream) {
-  if (n1 < 0 || n2 < 1 || splits < 1 || rows_per_split < 1 ||
+  if (n1 < 0 || n2 < 1 || splits < 1 || rows_per_split < 1 || query_tile != kBlockQ ||
       (long long)splits * rows_per_split < n2 ||
       (long long)(splits - 1) * rows_per_split >= n2)
     return (int)cudaErrorInvalidValue;
   if (n1 == 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
   const dim3 grid((n1 + kBlockQ - 1) / kBlockQ, splits);
-  if (binary)
-    knn2_split_kernel<true><<<grid, kThreads, 0, st>>>(
-        (const uint32_t*)d1, n1, (const uint32_t*)d2, n2, (const uint8_t*)valid2,
-        rows_per_split, (int*)part);
-  else
-    knn2_split_kernel<false><<<grid, kThreads, 0, st>>>(
-        (const uint32_t*)d1, n1, (const uint32_t*)d2, n2, (const uint8_t*)valid2,
-        rows_per_split, (int*)part);
+  knn2_split_kernel<<<grid, kThreads, 0, st>>>(
+      (const uint32_t*)d1, n1, (const uint32_t*)d2, n2, (const uint8_t*)valid2,
+      rows_per_split, (int*)part);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   knn2_merge_kernel<<<(n1 + 127) / 128, 128, 0, st>>>((const int*)part, n1, splits,

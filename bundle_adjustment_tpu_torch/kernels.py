@@ -39,7 +39,7 @@ KERNELS = {
     "orb_gather40": ("orb_gather.cu", "orb_gather40",
                      [_P, _I, _I, _P, _P, _I, _P, _P]),
     "ba_window_lm": ("ba_window_lm.cu", "ba_window_lm",
-                     [_P] * 8 + [_I] * 5 + [_F] * 8 + [_P] * 5 + [_I, _P]),
+                     [_P] * 8 + [_I] * 5 + [_F] * 8 + [_P] * 6),
     "ba_global_setup": ("ba_global_pcg.cu", "ba_global_setup",
                         [_P] * 9 + [_I] * 4 + [_P] * 6),
     "ba_global_matvec": ("ba_global_pcg.cu", "ba_global_matvec",
@@ -131,6 +131,15 @@ def library_fn(name: str):
         fn.restype = ctypes.c_int
         _loaded[name] = fn
     return fn
+
+
+def library_const(name: str, symbol: str) -> int:
+    """An int that kernel ``name``'s library exports through a C function of
+    no arguments (a compile-time constant of its source)."""
+    library_fn(name)
+    fn = getattr(ctypes.CDLL(str(_lib_path(name))), symbol)
+    fn.restype = ctypes.c_int
+    return int(fn())
 
 
 def check(name: str, err: int) -> None:

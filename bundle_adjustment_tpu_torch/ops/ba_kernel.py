@@ -37,7 +37,7 @@ Gauss-Jordan (the system and its right-hand side sit in shared memory) and
 ``D <= 12`` the per-point slot loop, as on the TPU; ``C <= 16`` bounds the
 camera state in shared memory.  The TPU gate's ``P <= 2048`` and its 10 MB
 estimate are Mosaic's and are not kept: one thread-block cluster of
-``CLUSTER`` CTAs splits the points between them, and what must survive
+16 CTAs splits the points between them, and what must survive
 between the kernel's phases (per point: one 6x3 coupling block per
 adjustable camera, V^-1, g_p, the trial point, a camera bit mask:
 ``18 * C' + 13`` floats) lives in a global scratch buffer.
@@ -62,9 +62,6 @@ MAX_SYSTEM = 48          # 6 * adjustable cameras
 MAX_SLOTS = 12           # D
 MAX_CAMERAS = 16         # C, fixed ones included
 SCRATCH_LIMIT_BYTES = 32 << 20
-#: CTAs in the kernel's thread-block cluster (8 is the portable size, 16 needs
-#: the non-portable attribute; chip_smoke.py times both)
-CLUSTER = 16
 
 
 def scratch_floats(C: int, P: int, n_fixed: int) -> int:
@@ -280,8 +277,8 @@ def _check(grid: BAProblemGrid, n_fixed: int):
 def launch(grid: BAProblemGrid, n_fixed: int, max_iterations: int,
            huber_delta: float, lambda_init: float, lambda_up: float,
            lambda_down: float, lambda_min: float, lambda_max: float,
-           ftol: float, xtol: float, cluster: int = CLUSTER):
-    """Launch the kernel, one cluster of ``cluster`` CTAs, on a checked CUDA
+           ftol: float, xtol: float):
+    """Launch the kernel, one thread-block cluster, on a checked CUDA
     window.  Returns (rvecs, tvecs, points, stats) with the kernel's eight
     float32 stats lanes: initial cost, final cost, initial and final squared
     cost, iterations, accepted, the last lambda, 0."""
@@ -302,7 +299,7 @@ def launch(grid: BAProblemGrid, n_fixed: int, max_iterations: int,
              float(lambda_up), float(lambda_down), float(lambda_min),
              float(lambda_max), float(ftol), float(xtol),
              rv.data_ptr(), tv.data_ptr(), pts.data_ptr(), stats.data_ptr(),
-             scratch.data_ptr(), int(cluster), stream)
+             scratch.data_ptr(), stream)
     kernels.check(NAME, err)
     kernels.LAUNCHES[NAME] += 1
     return rv, tv, pts, stats

@@ -26,20 +26,19 @@ from bundle_adjustment_tpu_torch.ops import hamming
 
 NAME = "hamming_knn2"
 
-#: the MMA form the wrapper launches: the binary ``m16n8k256 .b1 .and.popc``
-#: (True) or ``m16n8k32 .s8`` on 0/1 bytes (False); both are exact, and
-#: ``chip_smoke.py`` times both
-BINARY = True
-QUERY_TILE = 128         # queries per block (csrc/hamming_knn2.cu kBlockQ)
-TARGET_BLOCKS = 4 * 132  # four blocks for each of an H100's 132 SMs
+#: queries per block: the kernel's kBlockQ, which its C entry checks
+QUERY_TILE = 128
+BLOCKS_PER_SM = 4
+
+_sm_count: dict = {}
 
 
-def split_plan(n1: int, n2: int):
+def split_plan(n1: int, n2: int, sm_count: int):
     """(splits, rows per split) of the train set: enough blocks to cover the
-    card's SMs several times, at least 8 train rows per split, no split
-    empty."""
+    card's ``sm_count`` SMs ``BLOCKS_PER_SM`` times, at least 8 train rows
+    per split, no split empty."""
     q_tiles = max(1, -(-n1 // QUERY_TILE))
-    splits = max(1, min(-(-n2 // 8), -(-TARGET_BLOCKS // q_tiles)))
+    splits = max(1, min(-(-n2 // 8), -(-BLOCKS_PER_SM * sm_count // q_tiles)))
     rows = -(-n2 // splits)
     return -(-n2 // rows), rows
 
@@ -70,12 +69,14 @@ def _check(d: torch.Tensor, what: str):
                          f"{tuple(d.shape)} {d.dtype}")
 
 
-def launch(d1: torch.Tensor, d2: torch.Tensor, valid2: torch.Tensor,
-           binary: bool = BINARY):
+def launch(d1: torch.Tensor, d2: torch.Tensor, valid2: torch.Tensor):
     """Launch the kernel on checked, contiguous CUDA inputs (n2 >= 1)."""
     n1, n2 = d1.shape[0], d2.shape[0]
-    splits, rows = split_plan(n1, n2)
     dev = d1.device
+    sms = _sm_count.get(dev)
+    if sms is None:
+        sms = _sm_count[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits, rows = split_plan(n1, n2, sms)
     # one allocation: the splits' partials, then best, idx and second (the
     # call is short enough for its allocations to show in its time)
     buf = torch.empty((3 * splits + 3) * n1, dtype=torch.int32, device=dev)
@@ -85,7 +86,7 @@ def launch(d1: torch.Tensor, d2: torch.Tensor, valid2: torch.Tensor,
     fn = kernels.library_fn(NAME)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(d1.data_ptr(), n1, d2.data_ptr(), n2, valid2.data_ptr(), splits, rows,
-             part.data_ptr(), int(binary), best.data_ptr(), idx.data_ptr(),
+             part.data_ptr(), QUERY_TILE, best.data_ptr(), idx.data_ptr(),
              second.data_ptr(), stream)
     kernels.check(NAME, err)
     kernels.LAUNCHES[NAME] += 1

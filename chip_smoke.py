@@ -13,8 +13,8 @@ Phases, each of which exits non-zero when it fails:
    K4 share one source);
 3. K1, the Hamming 2-NN kernel, against its plain PyTorch version on the
    card at 4000 x 4000 (invalid train slots, planted ties) and at a ragged
-   size: exact equality, both MMA forms (b1 and s8); kernel and plain times
-   from CUDA events;
+   size: exact equality; kernel and plain times from CUDA events, the
+   kernel's device time under the profiler;
 4. K2, the ORB patch gather, against its plain version on a 1280 x 720
    level with 2067 keypoints, edge starts included: exact equality;
 5. K3, the window LM solve, against its plain version on seeded synthetic
@@ -23,8 +23,7 @@ Phases, each of which exits non-zero when it fails:
    ragged P, at D = 12 and at the widest window the gate admits (C = 10,
    n_fixed = 2, P = 53,430), all with padding points and dead slots; one point
    on a camera centre; two launches bit-equal; times per solve and per LM
-   iteration from CUDA events, at both cluster sizes (8 and 16 CTAs) and at
-   the widest window;
+   iteration from CUDA events, at the main shape and at the widest window;
 5b. K4, the four global-BA PCG roles (setup, matvec, backsub, cost), each
    against its plain version at the global path's shape (200 cameras, 30,000
    points bucketed to P = 32,768, D = 4, n_fixed = 2) and at a ragged one
@@ -37,9 +36,11 @@ Phases, each of which exits non-zero when it fails:
    ``VisualOdometryPipeline.process_frame`` and ``finalize``, with the
    kernels' launch counters set to 0 just before and read just after, and
    what came out: keyframes, map points, BA results, trajectory against the
-   ground truth, outputs on disk; the shapes of its K3 launches, and the
-   device time per launch of K1 and K3 on its own inputs, replayed under the
-   profiler after the run;
+   ground truth, outputs on disk; then an untimed second run over the same
+   frames records the inputs of K1 and K3, must give the same statuses, and
+   prints the shapes of its K3 launches and the time per launch of K1 and K3
+   on those inputs, each replayed several times (the spread of CUDA-event
+   times, and the device time under the profiler);
 7. the earlier path, ``BAConfig(use_pallas_ba=False)`` (the grid solver), on
    the same frames until its first windowed BA completes;
 8. determinism: the first 12 frames through two fresh pipelines give equal
@@ -55,8 +56,9 @@ Phases, each of which exits non-zero when it fails:
    every windowed BA takes the PCG branch and K4, then ``finalize``.
 
 ``--kernel-times [--tree DIR]`` only builds and times K1 and K3
-(``kernel_times``) on this checkout or on another commit's tree, for
-comparing two commits in one call.
+(``kernel_times``, K3 per LM iteration over a sweep of C' and P as well) on
+this checkout or on another commit's tree, for comparing two commits in one
+call.
 
 The line before the last is the kernels' JSON record, the line before that
 the card's name and power limit; the last line is the ``{"ok": true, ...}``
@@ -106,6 +108,33 @@ def cuda_ms(fn, warmup: int = 3, reps: int = 20, trials: int = 5) -> float:
     return statistics.median(times)
 
 
+def each_call_ms(torch, fn, n: int) -> list:
+    """CUDA-event ms of each of ``n`` calls of ``fn()``, one at a time after a
+    warm-up call."""
+    fn()
+    out = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def k3_iteration_ms(ba_kernel, g, n_fixed: int, opts: dict, k_it: int = 12) -> float:
+    """K3's ms per LM iteration on the window ``g`` by the marginal protocol:
+    ``k_it`` iterations with ftol = xtol = 0 minus one, over the iterations
+    run between them."""
+    free = dict(opts, ftol=0.0, xtol=0.0)
+    it = int(ba_kernel.launch(g, n_fixed, **dict(free, max_iterations=k_it))[3][4])
+    tk = cuda_ms(lambda: ba_kernel.launch(g, n_fixed, **dict(free, max_iterations=k_it)))
+    t1 = cuda_ms(lambda: ba_kernel.launch(g, n_fixed, **dict(free, max_iterations=1)))
+    return (tk - t1) / max(it - 1, 1)
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -149,33 +178,22 @@ def check_knn2(torch, hamming_kernel, gen, n1: int, n2: int, dev) -> dict:
               float((idx_k - idx_p).abs().max()))
     ms = cuda_ms(lambda: hamming_kernel.knn2_fused(d1, d2, valid2))
     plain_ms = cuda_ms(lambda: hamming_kernel.knn2_plain(d1, d2, valid2))
-    # both MMA forms, each exact, timed side by side (the wrapper launches
-    # hamming_kernel.BINARY's)
-    forms = {}
-    for binary in (True, False):
-        out = hamming_kernel.launch(d1, d2, valid2, binary=binary)
-        if not all(torch.equal(a, b) for a, b in zip(out, (best_p, idx_p, second_p))):
-            fail(f"K1 {n1}x{n2}: the {'b1' if binary else 's8'} form differs from the "
-                 "plain version")
-        def call(binary=binary):
-            return hamming_kernel.launch(d1, d2, valid2, binary=binary)
-
-        forms["b1" if binary else "s8"] = (cuda_ms(call), sum(device_ms_per_call(
-            torch, [call] * 20, ("knn2_split_kernel", "knn2_merge_kernel")).values()))
+    device_ms, records = per_call(device_ms_per_launch(
+        torch, [lambda: hamming_kernel.knn2_fused(d1, d2, valid2)] * 20, ("knn2",)))
     # bytes: both word arrays and the mask read once, three (N1,) outputs
     nbytes = (n1 + n2) * 32 + n2 + 3 * n1 * 4
     # operations: XOR + POPC + ADD per word, 8 words, for every pair
     ops = n1 * n2 * 8 * 3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
-    splits, rows = hamming_kernel.split_plan(n1, n2)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits, rows = hamming_kernel.split_plan(n1, n2, sms)
     print(f"K1 hamming_knn2 {n1}x{n2}: exact (ties {ties}, invalid train "
-          f"{int((~valid2).sum())}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {max(t_bytes, t_ops):.5f} ms; forms (event ms, device ms per call): b1 "
-          f"{forms['b1'][0]:.4f}, {forms['b1'][1]:.4f}; s8 {forms['s8'][0]:.4f}, "
-          f"{forms['s8'][1]:.4f} (wrapper: {'b1' if hamming_kernel.BINARY else 's8'}); "
-          f"grid {-(-n1 // hamming_kernel.QUERY_TILE)} query tiles x {splits} train splits "
-          f"of {rows} rows")
+          f"{int((~valid2).sum())}); kernel {ms:.4f} ms (device {device_ms:.4f} ms, {records} "
+          f"of 20 launches recorded), plain "
+          f"{plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.5f} ms; grid "
+          f"{-(-n1 // hamming_kernel.QUERY_TILE)} query tiles x {splits} train splits of "
+          f"{rows} rows over {sms} SMs")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes > t_ops else "operations")
@@ -339,29 +357,9 @@ def check_window_lm(torch, np, ba_kernel, grid_cls, synthetic_window, so3_exp_np
                        warmup=1, reps=2, trials=3)
     K_IT = 12
     free = dict(opts, ftol=0.0, xtol=0.0)
-
-    def marginal(g_, cluster):
-        """(ms per solve, ms per LM iteration, iterations run, ms of one)"""
-        it = int(ba_kernel.launch(g_, n_fixed, **dict(free, max_iterations=K_IT),
-                                  cluster=cluster)[3][4])
-        tk = cuda_ms(lambda: ba_kernel.launch(g_, n_fixed, **dict(free, max_iterations=K_IT),
-                                              cluster=cluster))
-        t1 = cuda_ms(lambda: ba_kernel.launch(g_, n_fixed, **dict(free, max_iterations=1),
-                                              cluster=cluster))
-        solve = cuda_ms(lambda: ba_kernel.launch(g_, n_fixed, **opts, cluster=cluster))
-        return solve, (tk - t1) / max(it - 1, 1), it, t1
-
-    # the two cluster sizes side by side, and the widest window
-    sizes = {}
-    for cluster in (8, 16):
-        sizes[cluster] = marginal(g, cluster)
     _, g_wide = window(seed + 1, **shapes[3][2])
-    wide = marginal(g_wide, ba_kernel.CLUSTER)
-    print(f"K3 cluster sizes at the main shape: " + "; ".join(
-        f"{c} CTAs: solve {v[0]:.4f} ms, per LM iteration {v[1]:.4f} ms" for c, v in sizes.items())
-        + f" (the wrapper launches {ba_kernel.CLUSTER}); widest window (P=53430, C'=8): solve "
-        f"{wide[0]:.4f} ms, per LM iteration {wide[1]:.4f} ms, "
-        f"{wide[1] / sizes[ba_kernel.CLUSTER][1]:.2f} times the main shape's")
+    wide_solve = cuda_ms(lambda: ba_kernel.launch(g_wide, n_fixed, **opts))
+    wide_it = k3_iteration_ms(ba_kernel, g_wide, n_fixed, opts)
     it_k = int(ba_kernel.launch(g, n_fixed, **dict(free, max_iterations=K_IT))[3][4])
     t_k = cuda_ms(lambda: ba_kernel.launch(g, n_fixed, **dict(free, max_iterations=K_IT)))
     t_1 = cuda_ms(lambda: ba_kernel.launch(g, n_fixed, **dict(free, max_iterations=1)))
@@ -379,6 +377,9 @@ def check_window_lm(torch, np, ba_kernel, grid_cls, synthetic_window, so3_exp_np
           f"plain {(p_k - p_1) / (it_k - 1):.3f} ms ({it_k} iterations minus 1); one "
           f"iteration kernel {t_1:.4f} ms, plain {p_1:.3f} ms; {ops / 1e6:.1f} Mop, "
           f"{nbytes / 1e6:.2f} MB, bound {max(t_bytes, t_ops):.5f} ms")
+    print(f"K3 widest window (C=10, n_fixed=2, P=53430, D=5): solve {wide_solve:.4f} ms, per "
+          f"LM iteration {wide_it:.4f} ms, {wide_it / ((t_k - t_1) / (it_k - 1)):.2f} times "
+          "the main shape's")
     return dict(max_abs_err=main_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes > t_ops else "operations")
@@ -649,9 +650,12 @@ def recorded(module, name: str, keep):
     return orig
 
 
-def device_ms_per_call(torch, calls, keys) -> dict:
-    """Each of ``calls`` once under torch.profiler: key -> device ms per call
-    of the CUDA kernels whose names contain the key."""
+def device_ms_per_launch(torch, calls, keys) -> dict:
+    """Each of ``calls`` once under torch.profiler: for each CUDA kernel whose
+    name contains one of ``keys``, (device ms per recorded launch, records).
+    A profile can come back with fewer records than launches (none of a few
+    short K1 launches, some of K3's), so the mean is over the records, and
+    their count is kept to be printed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -660,13 +664,24 @@ def device_ms_per_call(torch, calls, keys) -> dict:
         for fn in calls:
             fn()
         torch.cuda.synchronize()
-    out = {k: 0.0 for k in keys}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            for k in keys:
-                if k in e.key:
-                    out[k] += e.self_device_time_total / 1e3
-    return {k: v / max(len(calls), 1) for k, v in out.items()}
+    return {e.key: (e.self_device_time_total / 1e3 / e.count, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.count and any(k in e.key for k in keys)}
+
+
+def per_call(rec: dict) -> tuple:
+    """(device ms per call, fewest records of a kernel) from
+    ``device_ms_per_launch`` for calls that launch each kernel once; ms 0.0
+    and records 0 when no record came back."""
+    return (sum(ms for ms, _ in rec.values()),
+            min((n for _, n in rec.values()), default=0))
+
+
+def pooled(rec: dict) -> tuple:
+    """(device ms per recorded launch, records) over all kernels of
+    ``device_ms_per_launch``'s result."""
+    n = sum(c for _, c in rec.values())
+    return (sum(ms * c for ms, c in rec.values()) / n if n else 0.0, n)
 
 
 def kernel_times(torch, seed: int, dev) -> dict:
@@ -674,8 +689,10 @@ def kernel_times(torch, seed: int, dev) -> dict:
     2, P = 8192, D = 5) and at the widest one the gate admits (C = 10, P =
     53,430), through the wrappers' calls that every tree of the port since K3
     has: CUDA-event ms per call, device ms per launch under the profiler, ms
-    per LM iteration by the marginal protocol.  ``--kernel-times --tree DIR``
-    runs it on another commit's tree."""
+    per LM iteration by the marginal protocol, the last also over C' = 3, 7,
+    8 (C = 5, 9, 10, n_fixed = 2) at P = 8192 and 53,430, which splits the
+    widest window's cost between its points and its cameras.
+    ``--kernel-times --tree DIR`` runs it on another commit's tree."""
     from bundle_adjustment_tpu_torch import kernels
     from bundle_adjustment_tpu_torch.ops import ba_kernel, hamming_kernel
     from bundle_adjustment_tpu_torch.ops.ba_grid import BAProblemGrid
@@ -688,24 +705,24 @@ def kernel_times(torch, seed: int, dev) -> dict:
                             device=dev).to(torch.int32) for _ in range(2))
     valid2 = torch.rand(4000, generator=gen, device=dev) > 0.1
     out = dict(k1_ms=cuda_ms(lambda: hamming_kernel.knn2_fused(d1, d2, valid2)))
-    out["k1_device_ms"] = sum(device_ms_per_call(
-        torch, [lambda: hamming_kernel.knn2_fused(d1, d2, valid2)] * 20, ("knn2",)).values())
+    out["k1_device_ms"], out["k1_device_records"] = per_call(device_ms_per_launch(
+        torch, [lambda: hamming_kernel.knn2_fused(d1, d2, valid2)] * 20, ("knn2",)))
     opts = dict(max_iterations=50, huber_delta=1.0, lambda_init=1e-3, lambda_up=4.0,
                 lambda_down=0.5, lambda_min=1e-10, lambda_max=1e8, ftol=1e-5, xtol=1e-5)
-    free = dict(opts, ftol=0.0, xtol=0.0)
-    for tag, kw in (("k3", dict(C=5, n_pts=6000, P=8192, D=5)),
-                    ("k3_wide", dict(C=10, n_pts=50000, P=53430, D=5))):
-        w = synthetic_window(seed + 1, **kw)
-        g = BAProblemGrid(**{k: torch.as_tensor(v, device=dev) for k, v in w.items()})
-        its = int(ba_kernel.launch(g, 2, **opts)[3][4])
-        it12 = int(ba_kernel.launch(g, 2, **dict(free, max_iterations=12))[3][4])
-        t12 = cuda_ms(lambda: ba_kernel.launch(g, 2, **dict(free, max_iterations=12)))
-        t1 = cuda_ms(lambda: ba_kernel.launch(g, 2, **dict(free, max_iterations=1)))
+    windows = {}
+    for C in (5, 9, 10):
+        for P, n_pts in ((8192, 6000), (53430, 50000)):
+            w = synthetic_window(seed + 1, C=C, n_pts=n_pts, P=P, D=5)
+            windows[C - 2, P] = BAProblemGrid(**{k: torch.as_tensor(v, device=dev)
+                                                 for k, v in w.items()})
+    out["k3_iteration_ms"] = {f"C'={c} P={p}": k3_iteration_ms(ba_kernel, g, 2, opts)
+                              for (c, p), g in windows.items()}
+    for tag, key in (("k3", (3, 8192)), ("k3_wide", (8, 53430))):
+        g = windows[key]
         out[f"{tag}_solve_ms"] = cuda_ms(lambda: ba_kernel.launch(g, 2, **opts))
-        out[f"{tag}_solve_iterations"] = its
-        out[f"{tag}_iteration_ms"] = (t12 - t1) / (it12 - 1)
-        out[f"{tag}_device_ms"] = device_ms_per_call(
-            torch, [lambda: ba_kernel.launch(g, 2, **opts)] * 5, ("ba_window_lm",))["ba_window_lm"]
+        out[f"{tag}_solve_iterations"] = int(ba_kernel.launch(g, 2, **opts)[3][4])
+        out[f"{tag}_device_ms"], out[f"{tag}_device_records"] = per_call(device_ms_per_launch(
+            torch, [lambda: ba_kernel.launch(g, 2, **opts)] * 5, ("ba_window_lm",)))
     return out
 
 
@@ -817,8 +834,8 @@ def main() -> int:
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.2f} s "
           f"(per kernel: { {k: round(v, 2) for k, v in built.items()} }); registers and "
           "shared memory per kernel in ptxas's lines above")
-    print(f"K3 launches one cluster of {ba_kernel.CLUSTER} CTAs; K1 launches the "
-          f"{'b1' if hamming_kernel.BINARY else 's8'} MMA form")
+    print(f"K3 launches one cluster of "
+          f"{kernels.library_const(ba_kernel.NAME, 'ba_window_lm_cluster_size')} CTAs")
 
     # -- 3./4./5. kernels against their plain versions -----------------------
     gen = torch.Generator(device=dev)
@@ -847,18 +864,6 @@ def main() -> int:
     log = EventLog(echo=False)
     pipe = VisualOdometryPipeline(cfg, log=log, device="cuda")
 
-    # the main path's K1 and K3 launches are recorded (K3's windows and the
-    # first K1 inputs cloned) and replayed under the profiler after the run
-    k1_shapes, k1_calls, k3_calls = [], [], []
-
-    def keep_k1(a, kw):
-        k1_shapes.append((a[0].shape[0], a[1].shape[0]))
-        if len(k1_calls) < 12:
-            k1_calls.append((tuple(t.clone() for t in a), kw))
-
-    orig_k1 = recorded(hamming_kernel, "launch", keep_k1)
-    orig_k3 = recorded(ba_kernel, "launch", lambda a, kw: k3_calls.append(
-        ((BAProblemGrid(*(t.clone() for t in a[0])),) + a[1:], kw)))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
@@ -870,7 +875,6 @@ def main() -> int:
     finalize_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     peak_mem = torch.cuda.max_memory_allocated()
-    hamming_kernel.launch, ba_kernel.launch = orig_k1, orig_k3
     frame_of_kf, statuses = run["frame_of_kf"], run["statuses"]
 
     n_kf = pipe.map.num_keyframes
@@ -934,27 +938,68 @@ def main() -> int:
           f"{fm.sum() / 1e3 + finalize_s:.2f} s for all frames and finalize; per solve "
           + ", ".join(f"{e.get('elapsed_s', 0.0) * 1e3:.0f}" for e in ba_events) + " ms")
 
+    # an untimed second run over the same frames records the first K1 inputs
+    # and every K3 window (clones), which are then replayed alone
+    k1_shapes, k1_calls, k3_calls = [], [], []
+
+    def keep_k1(a, kw):
+        k1_shapes.append((a[0].shape[0], a[1].shape[0]))
+        if len(k1_calls) < 12:
+            k1_calls.append((tuple(t.clone() for t in a), kw))
+
+    orig_k1 = recorded(hamming_kernel, "launch", keep_k1)
+    orig_k3 = recorded(ba_kernel, "launch", lambda a, kw: k3_calls.append(
+        ((BAProblemGrid(*(t.clone() for t in a[0])),) + a[1:], kw)))
+    try:
+        rec = VisualOdometryPipeline(cfg, log=EventLog(echo=False), device="cuda")
+        rec_statuses = drive(torch, rec, frames)["statuses"]
+        rec.finalize(tempfile.mkdtemp(prefix="chip_smoke_rec_"))
+        torch.cuda.synchronize()
+    finally:
+        hamming_kernel.launch, ba_kernel.launch = orig_k1, orig_k3
+    if rec_statuses != statuses or len(k3_calls) != launches["ba_window_lm"] \
+            or len(k1_shapes) != launches["hamming_knn2"]:
+        fail("the recording run's statuses or K1/K3 launches differ from the main path's")
     print("K3 launches on the main path (C, P, D, n_fixed): " + ", ".join(
         f"({a[0].rvecs.shape[0]}, {a[0].cam_slot.shape[0]}, {a[0].cam_slot.shape[1]}, {a[1]})"
         for a, _ in k3_calls))
     # each recorded K1 input three times: a profile of a few short launches
     # has come back without their device records
-    dev_k1 = device_ms_per_call(torch, [lambda a=a, kw=kw: orig_k1(*a, **kw)
-                                        for a, kw in k1_calls] * 3,
-                                ("knn2_split_kernel", "knn2_merge_kernel"))
-    dev_k3 = device_ms_per_call(torch, [lambda a=a, kw=kw: orig_k3(*a, **kw)
-                                        for a, kw in k3_calls], ("ba_window_lm_kernel",))
+    dev_k1 = device_ms_per_launch(torch, [lambda a=a, kw=kw: hamming_kernel.launch(*a, **kw)
+                                          for a, kw in k1_calls] * 3, ("knn2",))
+    # each K3 window five times alone by CUDA events (a launch of a
+    # millisecond or more, so the events read the device), then all of them
+    # once under the profiler, three times over: the spread of each reading
+    K3_REPS = 5
+    k3_each = [each_call_ms(torch, lambda a=a, kw=kw: ba_kernel.launch(*a, **kw), K3_REPS)
+               for a, kw in k3_calls]
+    k3_work = []                # (LM iterations, bound ms) of each window
+    for a, kw in k3_calls:
+        its = int(ba_kernel.launch(*a, **kw)[3][4])
+        nbytes, ops = window_work(torch, a[0], a[1], its)
+        k3_work.append((its, max(nbytes / HBM_BYTES_PER_S, ops / CUDA_CORE_OPS_PER_S) * 1e3))
+    dev_k3 = [pooled(device_ms_per_launch(
+        torch, [lambda a=a, kw=kw: ba_kernel.launch(*a, **kw) for a, kw in k3_calls],
+        ("ba_window_lm",))) for _ in range(3)]
 
-    def shown(ms):
-        return f"{ms:.4f} ms" if ms > 0 else "not measured (no device records)"
+    def shown(ms, records, launches):
+        return (f"{ms:.4f} ms ({records} of {launches} launches recorded)" if records
+                else "not measured (no device records)")
 
-    print(f"device time per launch on the main path's own inputs, replayed under the "
-          f"profiler: K1 {shown(sum(dev_k1.values()))} (split pass "
-          f"{dev_k1['knn2_split_kernel']:.4f}, merge {dev_k1['knn2_merge_kernel']:.4f}) over "
-          f"the first {len(k1_calls)} of {len(k1_shapes)} launches, three times each (shapes "
-          f"{sorted(set(k1_shapes))}); K3 {shown(dev_k3['ba_window_lm_kernel'])} over "
-          f"{len(k3_calls)} launches (cluster of {ba_kernel.CLUSTER} CTAs)")
-    del k1_calls, k3_calls      # the clones stay out of the later phases' peak memory
+    k1_ms, k1_records = per_call(dev_k1)
+    print(f"K1 on the main path's own inputs, replayed: device time per launch "
+          f"{shown(k1_ms, k1_records, 3 * len(k1_calls))} ("
+          + ", ".join(f"{k[:60]} {ms:.4f}" for k, (ms, _) in dev_k1.items())
+          + f") over the first {len(k1_calls)} of {len(k1_shapes)} launches, three times each "
+          f"(shapes {sorted(set(k1_shapes))})")
+    print(f"K3 on the main path's own windows, replayed: event ms per launch (min, median, max "
+          f"of {K3_REPS}) " + "; ".join(
+              f"{min(t):.4f}, {statistics.median(t):.4f}, {max(t):.4f}" for t in k3_each)
+          + f"; mean of the medians {statistics.mean(statistics.median(t) for t in k3_each):.4f}"
+          " ms; LM iterations and bound ms " + "; ".join(f"{i}, {b:.5f}" for i, b in k3_work)
+          + f"; device time per recorded launch under the profiler in three passes: "
+          + ", ".join(shown(ms, n, len(k3_calls)) for ms, n in dev_k3))
+    del k1_calls, k3_calls, rec      # the clones stay out of the later phases' peak memory
 
     # -- 7. the earlier path: the grid solver -------------------------------
     cfg_grid = dataclasses.replace(cfg, ba=dataclasses.replace(cfg.ba, use_pallas_ba=False))

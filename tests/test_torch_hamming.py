@@ -178,8 +178,8 @@ def test_split_plan_covers_the_train_set_and_merges_exactly(n1, n2):
     """split_plan leaves no split empty and covers every train row; merging
     knn2_plain over its splits in split order (what the kernel's second pass
     does) equals knn2_plain on the whole set.  At the main path's 4000 x 4000
-    the grid is at least four blocks per SM of an H100."""
-    splits, rows = hamming_kernel.split_plan(n1, n2)
+    the grid is at least four blocks per SM of an H100 (132 SMs)."""
+    splits, rows = hamming_kernel.split_plan(n1, n2, 132)
     assert splits >= 1 and (splits - 1) * rows < n2 <= splits * rows
     if (n1, n2) == (4000, 4000):
         assert -(-n1 // hamming_kernel.QUERY_TILE) * splits >= 4 * 132

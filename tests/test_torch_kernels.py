@@ -191,12 +191,11 @@ def _knn2_edge(n1, n2, kind):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("binary", [True, False], ids=["b1", "s8"])
 @pytest.mark.parametrize("n1,n2,kind", K1_EDGES, ids=[f"{a}x{b}{k}" for a, b, k in K1_EDGES])
-def test_hamming_kernel_tiling_edges_on_the_card(card, n1, n2, kind, binary):
-    """Both MMA forms, exact against the plain version at the tiling's edges."""
+def test_hamming_kernel_tiling_edges_on_the_card(card, n1, n2, kind):
+    """Exact against the plain version at the tiling's edges."""
     args = [x.to(card) for x in _knn2_edge(n1, n2, kind)]
-    out = hamming_kernel.launch(*args, binary=binary)
+    out = hamming_kernel.launch(*args)
     torch.cuda.synchronize()
     plain = hamming_kernel.knn2_plain(*args)
     for a, b in zip(out, plain):
@@ -283,8 +282,8 @@ K3_EDGES = [
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", K3_EDGES, ids=lambda s: f"C{s['C']}P{s['P']}D{s['D']}")
 def test_window_kernel_cluster_edges_match_plain_on_the_card(card, shape):
-    """At both cluster sizes: one iteration and a full solve within the
-    tolerances of the tests above, and two launches bit-equal."""
+    """One iteration and a full solve within the tolerances of the tests
+    above, and two launches bit-equal."""
     n_fixed, kw = _split(shape)
     assert ba_kernel.eligible_shape(kw["C"], kw["P"], kw["D"], n_fixed)
     g = _window(card, 16, **kw)
@@ -292,24 +291,23 @@ def test_window_kernel_cluster_edges_match_plain_on_the_card(card, shape):
                 lambda_down=0.5, lambda_min=1e-10, lambda_max=1e8, ftol=1e-5, xtol=1e-5)
     one = ba_kernel.lm_solve_plain(g, n_fixed=n_fixed, max_iterations=1)
     full = ba_kernel.lm_solve_plain(g, n_fixed=n_fixed)
-    for cluster in (8, 16):
-        a = ba_kernel.launch(g, n_fixed, **dict(opts, max_iterations=1), cluster=cluster)
-        torch.cuda.synchronize()
-        assert float((a[0] - one[0]).abs().max()) <= 1e-5, cluster
-        assert float((a[1] - one[1]).abs().max()) <= 1e-5, cluster
-        assert float((a[2] - one[2]).abs().max()) <= 1e-4, cluster
-        np.testing.assert_allclose(a[3][:4].cpu().numpy(), _costs(one[3]), rtol=1e-5)
-        assert int(a[3][4]) == 1 and bool(a[3][5] > 0.5) == bool(one[3].accepted)
-        r1 = ba_kernel.launch(g, n_fixed, **opts, cluster=cluster)
-        r2 = ba_kernel.launch(g, n_fixed, **opts, cluster=cluster)
-        torch.cuda.synchronize()
-        for x, y in zip(r1, r2):
-            assert torch.equal(x, y), cluster
-        np.testing.assert_allclose(float(r1[3][0]), float(full[3].initial_cost), rtol=1e-5)
-        np.testing.assert_allclose(float(r1[3][1]), float(full[3].final_cost), rtol=1e-2)
-        assert abs(int(r1[3][4]) - int(full[3].iterations)) <= 2
-        assert bool(r1[3][5] > 0.5) == bool(full[3].accepted)
-        assert all(bool(torch.isfinite(x).all()) for x in r1[:3])
+    a = ba_kernel.launch(g, n_fixed, **dict(opts, max_iterations=1))
+    torch.cuda.synchronize()
+    assert float((a[0] - one[0]).abs().max()) <= 1e-5
+    assert float((a[1] - one[1]).abs().max()) <= 1e-5
+    assert float((a[2] - one[2]).abs().max()) <= 1e-4
+    np.testing.assert_allclose(a[3][:4].cpu().numpy(), _costs(one[3]), rtol=1e-5)
+    assert int(a[3][4]) == 1 and bool(a[3][5] > 0.5) == bool(one[3].accepted)
+    r1 = ba_kernel.launch(g, n_fixed, **opts)
+    r2 = ba_kernel.launch(g, n_fixed, **opts)
+    torch.cuda.synchronize()
+    for x, y in zip(r1, r2):
+        assert torch.equal(x, y)
+    np.testing.assert_allclose(float(r1[3][0]), float(full[3].initial_cost), rtol=1e-5)
+    np.testing.assert_allclose(float(r1[3][1]), float(full[3].final_cost), rtol=1e-2)
+    assert abs(int(r1[3][4]) - int(full[3].iterations)) <= 2
+    assert bool(r1[3][5] > 0.5) == bool(full[3].accepted)
+    assert all(bool(torch.isfinite(x).all()) for x in r1[:3])
 
 
 @pytest.mark.cuda
