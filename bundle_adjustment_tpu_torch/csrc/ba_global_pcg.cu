@@ -28,17 +28,33 @@
 // 54 lanes U upper triangle (21) | g_c (6) | W V^-1 g_p (6) | W V^-1 W^T
 // upper triangle (21).
 //
-// Gather and scatter.  The TPU kernels move camera rows with one-hot matmuls.
-// Here a thread reads its slot's camera row by index, and the sums over the
-// points of one camera are a segmented sum: the caller builds once per solve
-// a camera-major list of the live (slot, point) pairs of adjustable cameras
-// (`pairs`, entry d*P + p, with `offsets` per camera: a stable sort, since
-// cam_slot and mask do not change during a solve), the per-point pass writes
-// one row of values per pair, and camera_sum_kernel, one block per camera,
-// adds that camera's rows in list order: per-thread partials over a fixed
-// stride, a butterfly of warp shuffles, then the warps' partials in warp
-// order.  No float atomics: two launches on the same input give the same
-// bits.  The same kernel serves setup (54 columns) and matvec (6).
+// Per-camera sums over tiles of the pair list.  The TPU kernels move camera
+// rows with one-hot matmuls.  Here the caller builds once per solve
+// (ops/ba_global_kernel.camera_index) the camera-major list of the live
+// (slot, point) pairs of adjustable cameras (`pairs`, entry d*P + p; a stable
+// sort, since cam_slot and mask do not change during a solve) and a tile plan
+// over it: the list is cut into tiles of a fixed number of pairs, and where a
+// camera's pairs end, into segments, so that each segment lies in one tile
+// and belongs to one camera (`seg_start`, `seg_cam`; `tile_seg` lists each
+// tile's segments, `cam_seg` each camera's).  One CTA of kTileThreads takes a
+// tile.  For each of its segments in turn, thread i forms in registers the
+// lanes of the segment's pairs i, i + kTileThreads, ... of the tile and adds
+// them; the CTA sums the threads (lanes paired across bit 4 of the lane index
+// first, then 3, 2, 1, 0 by warp shuffles, then the warps in warp order in
+// shared memory).  A camera that lies in one segment is written at once.  For
+// one that spans several, each segment's sum goes to `carry`, the CTA takes a
+// ticket on the camera's counter, and the CTA that takes the last ticket adds
+// the camera's partials in segment order and sets the counter back to 0.
+// Which CTA does that depends on scheduling; the order of the sum does not.
+// No float atomics: two launches on one input give the same bits.  Nothing is
+// written per slot for the sums: no rows of lanes go out to memory and back.
+//
+// Each of setup and matvec is a per-point kernel and a per-tile kernel on the
+// same stream, the second launched with programmatic stream serialization
+// (Hopper's programmatic dependent launch): the first lets it launch at once
+// (griddepcontrol.launch_dependents), the second waits (griddepcontrol.wait)
+// before it reads what the first wrote, so its launch and CTA placement
+// overlap the first's tail.
 //
 // A slot is dead when its mask is 0 or its camera index lies outside [0, C):
 // it is skipped, adds exact zeros as the masked one-hot does, and whatever
@@ -52,21 +68,28 @@
 // inverse that is not finite (a point on a camera centre) becomes 0.
 //
 // What bounds it on this card: bytes, and before them latency.  At C = 200,
-// P = 32,768, D = 4 setup writes Y, V^-1 and z_p (10.6 MB) and moves its
-// 54-lane rows once out and once back (28 MB each way, mostly in the 50 MB
-// L2); matvec and backsub stream Y (9.4 MB); cost reads 3 MB.  That is a few
-// microseconds of device-memory time per pass against roughly 1e8
-// operations at most (setup), so each pass is a launch-and-latency-sized
-// piece of work; the per-camera sum runs C' blocks, fewer than two per SM.
-// The design keeps every pass one simple kernel and spends nothing on tiling.
+// P = 32,768, D = 4 setup writes Y, V^-1 and z_p (10.6 MB) and matvec,
+// backsub and cost read 3 to 10 MB, a few microseconds of device-memory time
+// per pass against roughly 1e8 operations at most (setup): each pass is a
+// launch-and-latency-sized piece of work.  Setup's tile kernel forms each
+// pair's 54 lanes again from the point's V^-1 and z_p (the slot's Jacobians
+// are recomputed, not stored), so its scratch is the tiles' carries, a few
+// hundred KB, where one row of 54 lanes per slot would be 28 MB out and back.
+// Matvec's tile kernel reads Y again for the pairs (9.4 MB, from L2).  The
+// tiles spread each camera's pairs over all SMs; a camera's share no longer
+// decides the time of one CTA.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kPointThreads = 128;   // per-point passes
-constexpr int kSumThreads = 128;     // per-camera segmented sum
+constexpr int kTileThreads = 256;    // per-tile pass
+constexpr int kTileWarps = kTileThreads / 32;
 constexpr int kCostThreads = 256;
 constexpr int kCam = 39;             // R 9, dR 27, t 3
 constexpr int kCamC = 12;            // R 9, t 3
@@ -75,6 +98,25 @@ constexpr int kRed = 54;
 struct Intrinsics {
   float fx, fy, cx, cy;
 };
+
+// The tile plan of one solve and its scratch (module comment).
+struct Plan {
+  const int* pairs;       // camera-major live pairs, entry d*P + p
+  const int* seg_start;   // (n_seg + 1,): segment k is pairs[seg_start[k] .. seg_start[k+1])
+  const int* seg_cam;     // (n_seg,): its adjustable camera
+  const int* tile_seg;    // (n_tiles + 1,): tile t holds segments tile_seg[t] .. tile_seg[t+1]
+  const int* cam_seg;     // (C' + 1,): camera a owns segments cam_seg[a] .. cam_seg[a+1]
+  float* carry;           // (n_seg, N) the segments' sums of cameras that span several
+  int* ticket;            // (C',) one counter per camera, 0 between launches
+};
+
+__device__ __forceinline__ void pdl_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+__device__ __forceinline__ void pdl_wait() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
 
 // Sum v[0..N) over a block of THREADS threads in a fixed order.  Thread i < N
 // returns the i-th sum; `part` is shared memory of (THREADS / 32) * N floats.
@@ -97,6 +139,123 @@ __device__ float block_sum(float (&v)[N], float* part) {
   if (threadIdx.x < N)
     for (int w = 0; w < kWarps; ++w) s += part[w * N + threadIdx.x];
   return s;
+}
+
+// One step of a butterfly reduce-scatter over a warp: the lanes that differ
+// in bit `o` of the lane index swap halves of w[0..L), and each keeps the sum
+// of the half it owns.
+template <int L>
+__device__ __forceinline__ void scatter_step(float* w, int o) {
+  const bool upper = (threadIdx.x & o) != 0;
+#pragma unroll
+  for (int j = 0; j < L / 2; ++j) {
+    const float send = upper ? w[j] : w[j + L / 2];
+    const float keep = upper ? w[j + L / 2] : w[j];
+    w[j] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+  }
+}
+
+// block_sum's tree for N <= 64 lanes over kTileThreads threads, with 62
+// shuffles a thread instead of 5N: after the reduce-scatter, lane l holds the
+// warp's sums of lanes 2l and 2l + 1 (padded to 64).  `part` holds
+// kTileWarps * 64 floats.
+template <int N>
+__device__ float block_sum_scatter(const float (&v)[N], float* part) {
+  static_assert(N <= 64, "at most 64 lanes");
+  float w[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) w[i] = i < N ? v[i] : 0.0f;
+  scatter_step<64>(w, 16);
+  scatter_step<32>(w, 8);
+  scatter_step<16>(w, 4);
+  scatter_step<8>(w, 2);
+  scatter_step<4>(w, 1);
+  float* mine = part + (threadIdx.x >> 5) * 64 + 2 * (threadIdx.x & 31);
+  mine[0] = w[0];
+  mine[1] = w[1];
+  __syncthreads();
+  float s = 0.0f;
+  if (threadIdx.x < N)
+    for (int wp = 0; wp < kTileWarps; ++wp) s += part[wp * 64 + threadIdx.x];
+  return s;
+}
+
+// For each segment k of tile t in turn: each thread adds, through
+// `lanes(r, pair, a, acc)`, the N lanes of its pairs of the segment (`r` is
+// the pair's round in the tile: the thread's pairs are tile pairs
+// threadIdx.x + r * kTileThreads), the CTA sums the threads, and
+// `done(k, a, s)` takes thread i's sum of lane i.  `part` is shared memory
+// of kTileWarps * 64 floats.
+template <int N, class Lanes, class Done>
+__device__ void segment_sums(const Plan& pl, int t, float* part, Lanes lanes, Done done) {
+  const int k0 = pl.tile_seg[t], k1 = pl.tile_seg[t + 1];
+  int pos = pl.seg_start[k0] + threadIdx.x;
+  int r = 0;
+  for (int k = k0; k < k1; ++k) {
+    const int hi = pl.seg_start[k + 1];
+    const int a = pl.seg_cam[k];
+    float acc[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) acc[i] = 0.0f;
+    for (; pos < hi; pos += kTileThreads, ++r) lanes(r, pl.pairs[pos], a, acc);
+    __syncthreads();                      // the last segment's shared memory is read
+    float s;
+    if constexpr (N > 8)
+      s = block_sum_scatter<N>(acc, part);
+    else
+      s = block_sum<N, kTileThreads>(acc, part);
+    done(k, a, s);
+  }
+}
+
+// Segment k of camera a is summed: thread i < N holds lane i in v.  A camera
+// in one segment is written to out (C', N) at once; otherwise the segment
+// goes to carry, and the CTA that takes the camera's last ticket adds its
+// segments in order.
+template <int N>
+__device__ void finish_segment(const Plan& pl, int k, int a, float v, float* __restrict__ out) {
+  __shared__ int s_last;
+  const int j0 = pl.cam_seg[a], j1 = pl.cam_seg[a + 1];
+  if (j1 - j0 == 1) {
+    if (threadIdx.x < N) out[(size_t)a * N + threadIdx.x] = v;
+    return;
+  }
+  if (threadIdx.x < N) {
+    pl.carry[(size_t)k * N + threadIdx.x] = v;
+    __threadfence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(&pl.ticket[a], 1) == j1 - j0 - 1;
+  __syncthreads();
+  if (s_last) {                           // every other segment of camera a is in carry
+    if (threadIdx.x < N) {
+      __threadfence();
+      float sum = 0.0f;
+      for (int j = j0; j < j1; ++j) sum += __ldcg(&pl.carry[(size_t)j * N + threadIdx.x]);
+      out[(size_t)a * N + threadIdx.x] = sum;
+    }
+    if (threadIdx.x == 0) pl.ticket[a] = 0;
+  }
+}
+
+// Before griddepcontrol.wait: bring tile t's part of the plan into L1, so
+// that the per-segment lookups after it do not wait on L2.
+__device__ __forceinline__ void prefetch_plan(const Plan& pl, int t) {
+  const int k0 = pl.tile_seg[t], k1 = pl.tile_seg[t + 1];
+  for (int k = k0 + (int)threadIdx.x; k < k1; k += kTileThreads) {
+    asm volatile("prefetch.global.L1 [%0];" ::"l"(pl.seg_start + k + 1));
+    const int a = pl.seg_cam[k];
+    asm volatile("prefetch.global.L1 [%0];" ::"l"(pl.cam_seg + a));
+    asm volatile("prefetch.global.L1 [%0];" ::"l"(pl.cam_seg + a + 1));
+  }
+}
+
+// Rows of out (C', N) of cameras with no live pair: zeros (no tile writes them).
+__device__ __forceinline__ void zero_pairless(const int* __restrict__ cam_seg, int c_adj, int N,
+                                              float* __restrict__ out) {
+  for (int a = blockIdx.x * blockDim.x + threadIdx.x; a < c_adj; a += gridDim.x * blockDim.x)
+    if (cam_seg[a] == cam_seg[a + 1])
+      for (int i = 0; i < N; ++i) out[(size_t)a * N + i] = 0.0f;
 }
 
 __device__ __forceinline__ bool slot_live(const int* slot, const float* mask, int C, int P,
@@ -168,6 +327,15 @@ __device__ __forceinline__ void slot_terms(const float* cam, const float* X, con
   }
 }
 
+// Y = the slot's coupling block w Jc^T Jp, (6, 3).
+__device__ __forceinline__ void coupling_block(const SlotTerms& s, float (&Ys)[6][3]) {
+#pragma unroll
+  for (int i = 0; i < 6; ++i)
+#pragma unroll
+    for (int l = 0; l < 3; ++l)
+      Ys[i][l] = s.w[0] * s.jc[0][i] * s.jp[0][l] + s.w[1] * s.jc[1][i] * s.jp[1][l];
+}
+
 // y = V^-1 q with V^-1 packed as 00 01 02 11 12 22.
 __device__ __forceinline__ void vinv_apply(const float* iv, const float* q, float* y) {
   y[0] = iv[0] * q[0] + iv[1] * q[1] + iv[2] * q[2];
@@ -176,19 +344,19 @@ __device__ __forceinline__ void vinv_apply(const float* iv, const float* q, floa
 }
 
 // ---------------------------------------------------------------------------
-// setup, the per-point pass: one thread per point, two loops over its slots.
-// The first sums V and g_p; the second computes the slot's Jacobians again
-// (holding D slots' Jacobians in registers would spill), then Y and the 54
-// reduction lanes of each live slot of an adjustable camera.
+// setup.  The per-point kernel: one thread per point, one loop over its
+// slots (the slot's Jacobians once): V, g_p and Y; then V^-1 and z_p.
 // ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(kPointThreads)
 setup_points_kernel(const float* __restrict__ cam, const float* __restrict__ pt,
                     const int* __restrict__ slot, const float* __restrict__ mask,
                     const float* __restrict__ uv, const float* __restrict__ pmask,
-                    const float* __restrict__ scal, int C, int P, int D, int n_fixed,
-                    float* __restrict__ Y, float* __restrict__ Vinv, float* __restrict__ zp,
-                    float* __restrict__ rows) {
+                    const float* __restrict__ scal, const int* __restrict__ cam_seg, int C,
+                    int P, int D, int n_fixed, float* __restrict__ Y, float* __restrict__ Vinv,
+                    float* __restrict__ zp, float* __restrict__ red) {
+  pdl_launch_dependents();
+  zero_pairless(cam_seg, C - n_fixed, kRed, red);
   const int p = blockIdx.x * kPointThreads + threadIdx.x;
   if (p >= P) return;
   const Intrinsics k = {scal[0], scal[1], scal[2], scal[3]};
@@ -200,7 +368,12 @@ setup_points_kernel(const float* __restrict__ cam, const float* __restrict__ pt,
   for (int d = 0; d < D; ++d) {
     int c;
     float m;
-    if (!slot_live(slot, mask, C, P, d, p, c, m)) continue;
+    float* Yd = Y + (size_t)(d * 18) * P + p;
+    if (!slot_live(slot, mask, C, P, d, p, c, m)) {
+#pragma unroll
+      for (int e = 0; e < 18; ++e) Yd[(size_t)e * P] = 0.0f;
+      continue;
+    }
     const float uvd[2] = {uv[(size_t)(2 * d) * P + p], uv[(size_t)(2 * d + 1) * P + p]};
     SlotTerms s;
     slot_terms(cam + (size_t)c * kCam, X, uvd, m, delta, k, s);
@@ -212,6 +385,13 @@ setup_points_kernel(const float* __restrict__ cam, const float* __restrict__ pt,
         V[e++] += s.w[0] * s.jp[0][l] * s.jp[0][lp] + s.w[1] * s.jp[1][l] * s.jp[1][lp];
       gp[l] += s.w[0] * s.jp[0][l] * s.r[0] + s.w[1] * s.jp[1][l] * s.r[1];
     }
+    float Ys[6][3];
+    coupling_block(s, Ys);
+    const bool adj = c >= n_fixed;
+#pragma unroll
+    for (int i = 0; i < 6; ++i)
+#pragma unroll
+      for (int l = 0; l < 3; ++l) Yd[(size_t)(i * 3 + l) * P] = adj ? Ys[i][l] : 0.0f;
   }
 
   const float v00 = V[0] + lam * fabsf(V[0]) + lam * 1e-6f;
@@ -242,76 +422,156 @@ setup_points_kernel(const float* __restrict__ cam, const float* __restrict__ pt,
   vinv_apply(iv, gp, z);
 #pragma unroll
   for (int l = 0; l < 3; ++l) zp[(size_t)l * P + p] = z[l];
+}
 
-  for (int d = 0; d < D; ++d) {
-    int c;
-    float m;
-    float* Yd = Y + (size_t)(d * 18) * P + p;
-    if (!slot_live(slot, mask, C, P, d, p, c, m) || c < n_fixed) {
+// U (21) and g_c (6) of one pair from its slot's terms: lanes 0..26.
+__device__ __forceinline__ void u_gc_lanes(const SlotTerms& s, float (&acc)[27]) {
+  int e = 0;
 #pragma unroll
-      for (int e = 0; e < 18; ++e) Yd[(size_t)e * P] = 0.0f;
-      continue;
-    }
-    const float uvd[2] = {uv[(size_t)(2 * d) * P + p], uv[(size_t)(2 * d + 1) * P + p]};
-    SlotTerms s;
-    slot_terms(cam + (size_t)c * kCam, X, uvd, m, delta, k, s);
-    float Ys[6][3], YV[6][3];
+  for (int i = 0; i < 6; ++i)
 #pragma unroll
-    for (int i = 0; i < 6; ++i) {
+    for (int j = i; j < 6; ++j)
+      acc[e++] += s.w[0] * s.jc[0][i] * s.jc[0][j] + s.w[1] * s.jc[1][i] * s.jc[1][j];
 #pragma unroll
-      for (int l = 0; l < 3; ++l) {
-        Ys[i][l] = s.w[0] * s.jc[0][i] * s.jp[0][l] + s.w[1] * s.jc[1][i] * s.jp[1][l];
-        Yd[(size_t)(i * 3 + l) * P] = Ys[i][l];
-      }
-      vinv_apply(iv, Ys[i], YV[i]);      // V^-1 is symmetric: (Y V^-1)_i = V^-1 Y_i
-    }
-    float* Rd = rows + (size_t)(d * kRed) * P + p;
-    int e = 0;
+  for (int i = 0; i < 6; ++i)
+    acc[e++] += s.w[0] * s.jc[0][i] * s.r[0] + s.w[1] * s.jc[1][i] * s.r[1];
+}
+
+// W V^-1 g_p (6) and the block-Jacobi W V^-1 W^T (21) of one pair from its
+// Y block, V^-1 and z_p: lanes 27..53.
+__device__ __forceinline__ void wz_do_lanes(const float (&Ys)[6][3], const float* iv,
+                                            const float* z, float (&acc)[27]) {
+  int e = 0;
 #pragma unroll
-    for (int i = 0; i < 6; ++i)
+  for (int i = 0; i < 6; ++i) acc[e++] += Ys[i][0] * z[0] + Ys[i][1] * z[1] + Ys[i][2] * z[2];
 #pragma unroll
-      for (int j = i; j < 6; ++j)
-        Rd[(size_t)(e++) * P] = s.w[0] * s.jc[0][i] * s.jc[0][j] + s.w[1] * s.jc[1][i] * s.jc[1][j];
+  for (int i = 0; i < 6; ++i) {
+    float yv[3];
+    vinv_apply(iv, Ys[i], yv);            // V^-1 is symmetric: (Y V^-1)_i = V^-1 Y_i
 #pragma unroll
-    for (int i = 0; i < 6; ++i)
-      Rd[(size_t)(e++) * P] = s.w[0] * s.jc[0][i] * s.r[0] + s.w[1] * s.jc[1][i] * s.r[1];
-#pragma unroll
-    for (int i = 0; i < 6; ++i)
-      Rd[(size_t)(e++) * P] = Ys[i][0] * z[0] + Ys[i][1] * z[1] + Ys[i][2] * z[2];
-#pragma unroll
-    for (int i = 0; i < 6; ++i)
-#pragma unroll
-      for (int j = i; j < 6; ++j)
-        Rd[(size_t)(e++) * P] = YV[i][0] * Ys[j][0] + YV[i][1] * Ys[j][1] + YV[i][2] * Ys[j][2];
+    for (int j = i; j < 6; ++j) acc[e++] += yv[0] * Ys[j][0] + yv[1] * Ys[j][1] + yv[2] * Ys[j][2];
   }
 }
 
-// ---------------------------------------------------------------------------
-// The per-camera segmented sum: block ca adds the N-lane rows of camera ca's
-// pairs, rows (D*N, P) with the lanes of pair d*P + p at rows d*N .. d*N+N-1
-// of column p, into out (C', N).
-// ---------------------------------------------------------------------------
+struct SetupArgs {
+  const float* cam;
+  const float* pt;
+  const float* mask;
+  const float* uv;
+  const float* scal;
+  int P, n_fixed;
+  const float* Y;
+  const float* Vinv;
+  const float* zp;
+  float* red;
+};
 
-template <int N>
-__global__ void __launch_bounds__(kSumThreads)
-camera_sum_kernel(const float* __restrict__ rows, const int* __restrict__ pairs,
-                  const int* __restrict__ offsets, int P, float* __restrict__ out) {
-  __shared__ float part[(kSumThreads / 32) * N];
-  const int ca = blockIdx.x;
-  const int lo = offsets[ca], hi = offsets[ca + 1];
-  float acc[N];
+__device__ __forceinline__ void pair_terms(const SetupArgs& g, int pair, int a, SlotTerms& s,
+                                           int& d, int& p) {
+  d = pair / g.P;
+  p = pair - d * g.P;
+  const int P = g.P;
+  const Intrinsics k = {g.scal[0], g.scal[1], g.scal[2], g.scal[3]};
+  const float X[3] = {g.pt[p], g.pt[(size_t)P + p], g.pt[(size_t)2 * P + p]};
+  const float uvd[2] = {g.uv[(size_t)(2 * d) * P + p], g.uv[(size_t)(2 * d + 1) * P + p]};
+  slot_terms(g.cam + (size_t)(a + g.n_fixed) * kCam, X, uvd, g.mask[pair], g.scal[5], k, s);
+}
+
+// The per-tile kernel: the 54 lanes of each pair from its slot's terms (the
+// Jacobians again, which costs less than storing them), the point's V^-1 and
+// z_p; reduced per camera over the tile.  Its registers are bounded for
+// kMinBlocks CTAs per SM.  The forms measured against each other: kReadY,
+// the pair's Y block read from the per-point kernel's output instead of
+// formed again; kTwoPass, U and g_c formed and summed before
+// griddepcontrol.wait (they need nothing of the per-point kernel), W V^-1 g_p
+// and W V^-1 W^T after it.  Form 0 (the C entry's `form`) is
+// <false, false, 2>.
+template <bool kTwoPass, bool kReadY, int kMinBlocks>
+__global__ void __launch_bounds__(kTileThreads, kMinBlocks)
+setup_tiles_kernel(Plan pl, SetupArgs g) {
+  __shared__ float part[kTileWarps * 64];
+  __shared__ float lanes[kRed];
+  const int P = g.P;
+  prefetch_plan(pl, blockIdx.x);
+  if constexpr (!kTwoPass) {
+    pdl_wait();
+    segment_sums<kRed>(pl, blockIdx.x, part,
+        [&](int, int pair, int a, float (&acc)[kRed]) {
+          SlotTerms s;
+          int d, p;
+          pair_terms(g, pair, a, s, d, p);
+          float Ys[6][3];
+          if constexpr (kReadY) {
+            const float* Yd = g.Y + (size_t)(d * 18) * P + p;
 #pragma unroll
-  for (int i = 0; i < N; ++i) acc[i] = 0.0f;
-  for (int e = lo + threadIdx.x; e < hi; e += kSumThreads) {
-    const int pair = pairs[e];
-    const int d = pair / P;
-    const int p = pair - d * P;
-    const float* src = rows + (size_t)(d * N) * P + p;
+            for (int i = 0; i < 6; ++i)
 #pragma unroll
-    for (int i = 0; i < N; ++i) acc[i] += src[(size_t)i * P];
+              for (int l = 0; l < 3; ++l) Ys[i][l] = __ldcg(Yd + (size_t)(i * 3 + l) * P);
+          } else {
+            coupling_block(s, Ys);
+          }
+          float iv[6], z[3];
+#pragma unroll
+          for (int e = 0; e < 6; ++e) iv[e] = __ldcg(g.Vinv + (size_t)e * P + p);
+#pragma unroll
+          for (int l = 0; l < 3; ++l) z[l] = __ldcg(g.zp + (size_t)l * P + p);
+          float lo[27], hi[27];
+#pragma unroll
+          for (int i = 0; i < 27; ++i) lo[i] = hi[i] = 0.0f;
+          u_gc_lanes(s, lo);
+          wz_do_lanes(Ys, iv, z, hi);
+#pragma unroll
+          for (int i = 0; i < 27; ++i) {
+            acc[i] += lo[i];
+            acc[27 + i] += hi[i];
+          }
+        },
+        [&](int k, int a, float v) { finish_segment<kRed>(pl, k, a, v, g.red); });
+    return;
   }
-  const float s = block_sum<N, kSumThreads>(acc, part);
-  if (threadIdx.x < N) out[(size_t)ca * N + threadIdx.x] = s;
+  segment_sums<27>(pl, blockIdx.x, part,
+      [&](int, int pair, int a, float (&acc)[27]) {
+        SlotTerms s;
+        int d, p;
+        pair_terms(g, pair, a, s, d, p);
+        u_gc_lanes(s, acc);
+      },
+      [&](int k, int, float v) {
+        if (threadIdx.x < 27) pl.carry[(size_t)k * kRed + threadIdx.x] = v;
+      });
+  pdl_wait();
+  segment_sums<27>(pl, blockIdx.x, part,
+      [&](int, int pair, int a, float (&acc)[27]) {
+        int d, p;
+        float Ys[6][3];
+        if constexpr (!kReadY) {
+          SlotTerms s;
+          pair_terms(g, pair, a, s, d, p);
+          coupling_block(s, Ys);
+        } else {
+          d = pair / P;
+          p = pair - d * P;
+          const float* Yd = g.Y + (size_t)(d * 18) * P + p;
+#pragma unroll
+          for (int i = 0; i < 6; ++i)
+#pragma unroll
+            for (int l = 0; l < 3; ++l) Ys[i][l] = __ldcg(Yd + (size_t)(i * 3 + l) * P);
+        }
+        float iv[6], z[3];
+#pragma unroll
+        for (int e = 0; e < 6; ++e) iv[e] = __ldcg(g.Vinv + (size_t)e * P + p);
+#pragma unroll
+        for (int l = 0; l < 3; ++l) z[l] = __ldcg(g.zp + (size_t)l * P + p);
+        wz_do_lanes(Ys, iv, z, acc);
+      },
+      [&](int k, int a, float v) {
+        if (threadIdx.x < 27) {                // this thread wrote lane i of pass one
+          lanes[threadIdx.x] = pl.carry[(size_t)k * kRed + threadIdx.x];
+          lanes[27 + threadIdx.x] = v;
+        }
+        __syncthreads();
+        finish_segment<kRed>(pl, k, a, threadIdx.x < kRed ? lanes[threadIdx.x] : 0.0f, g.red);
+      });
 }
 
 // ---------------------------------------------------------------------------
@@ -344,26 +604,102 @@ __device__ __forceinline__ void coupling_z(const float* __restrict__ Y,
   vinv_apply(iv, q, z);
 }
 
+// The 6 lanes Y_d z_p of one pair added to acc.  z comes from the per-point
+// kernel, which may still have been running when this CTA started: it is
+// read from L2 (as everything the tile kernels read of the per-point
+// kernel's output).
+__device__ __forceinline__ void matvec_lanes(const float (&Yd)[18], const float* z, int P, int p,
+                                             float (&acc)[6]) {
+  const float z0 = __ldcg(z + p), z1 = __ldcg(z + (size_t)P + p),
+              z2 = __ldcg(z + (size_t)2 * P + p);
+#pragma unroll
+  for (int i = 0; i < 6; ++i) acc[i] += Yd[i * 3] * z0 + Yd[i * 3 + 1] * z1 + Yd[i * 3 + 2] * z2;
+}
+
+__device__ __forceinline__ void load_y(const float* __restrict__ Y, int P, int pair, float (&Yd)[18],
+                                       int& p) {
+  const int d = pair / P;
+  p = pair - d * P;
+  const float* src = Y + (size_t)(d * 18) * P + p;
+#pragma unroll
+  for (int e = 0; e < 18; ++e) Yd[e] = src[(size_t)e * P];
+}
+
 __global__ void __launch_bounds__(kPointThreads)
 matvec_points_kernel(const float* __restrict__ Y, const float* __restrict__ Vinv,
                      const int* __restrict__ slot, const float* __restrict__ mask,
-                     const float* __restrict__ x, int C, int P, int D, int n_fixed,
-                     float* __restrict__ w2) {
+                     const float* __restrict__ x, const int* __restrict__ cam_seg, int C, int P,
+                     int D, int n_fixed, float* __restrict__ z, float* __restrict__ out) {
+  pdl_launch_dependents();
+  zero_pairless(cam_seg, C - n_fixed, 6, out);
   const int p = blockIdx.x * kPointThreads + threadIdx.x;
   if (p >= P) return;
-  float z[3];
-  coupling_z(Y, Vinv, slot, mask, x, C, P, D, n_fixed, p, z);
-  for (int d = 0; d < D; ++d) {
-    int c;
-    float m;
-    if (!slot_live(slot, mask, C, P, d, p, c, m) || c < n_fixed) continue;
-    const float* Yd = Y + (size_t)(d * 18) * P + p;
-    float* Wd = w2 + (size_t)(d * 6) * P + p;
+  float zz[3];
+  coupling_z(Y, Vinv, slot, mask, x, C, P, D, n_fixed, p, zz);
 #pragma unroll
-    for (int i = 0; i < 6; ++i)
-      Wd[(size_t)i * P] = Yd[(size_t)(i * 3) * P] * z[0] + Yd[(size_t)(i * 3 + 1) * P] * z[1] +
-                          Yd[(size_t)(i * 3 + 2) * P] * z[2];
+  for (int l = 0; l < 3; ++l) z[(size_t)l * P + p] = zz[l];
+}
+
+// Y does not change during the CG loop: with kPrefetch (form 0) each
+// thread loads the Y blocks of its first two pairs of the tile before
+// griddepcontrol.wait, beside the per-point kernel, and after it only z.
+template <bool kPrefetch>
+__global__ void __launch_bounds__(kTileThreads)
+matvec_tiles_kernel(Plan pl, const float* __restrict__ Y, const float* z, int P,
+                    float* __restrict__ out) {
+  __shared__ float part[kTileWarps * 64];
+  float y0[18], y1[18];
+  int p0 = 0, p1 = 0;
+  if constexpr (kPrefetch) {
+    prefetch_plan(pl, blockIdx.x);
+    const int t = blockIdx.x;
+    const int lo = pl.seg_start[pl.tile_seg[t]], hi = pl.seg_start[pl.tile_seg[t + 1]];
+    const int pos = lo + threadIdx.x;
+    if (pos < hi) load_y(Y, P, pl.pairs[pos], y0, p0);
+    if (pos + kTileThreads < hi) load_y(Y, P, pl.pairs[pos + kTileThreads], y1, p1);
   }
+  pdl_wait();
+  segment_sums<6>(pl, blockIdx.x, part,
+      [&](int r, int pair, int, float (&acc)[6]) {
+        if (kPrefetch && r == 0) {
+          matvec_lanes(y0, z, P, p0, acc);
+        } else if (kPrefetch && r == 1) {
+          matvec_lanes(y1, z, P, p1, acc);
+        } else {
+          float yd[18];
+          int p;
+          load_y(Y, P, pair, yd, p);
+          matvec_lanes(yd, z, P, p, acc);
+        }
+      },
+      [&](int k, int a, float v) { finish_segment<6>(pl, k, a, v, out); });
+}
+
+// Form 3: both phases in one cooperative launch, a grid-wide barrier
+// between them; each phase strides over its points or tiles.
+__global__ void __launch_bounds__(kTileThreads)
+matvec_coop_kernel(Plan pl, const float* __restrict__ Y, const float* __restrict__ Vinv,
+                   const int* __restrict__ slot, const float* __restrict__ mask,
+                   const float* __restrict__ x, const int* __restrict__ cam_seg, int C, int P,
+                   int D, int n_fixed, int n_tiles, float* z, float* __restrict__ out) {
+  __shared__ float part[kTileWarps * 64];
+  zero_pairless(cam_seg, C - n_fixed, 6, out);
+  for (int p = blockIdx.x * kTileThreads + threadIdx.x; p < P; p += gridDim.x * kTileThreads) {
+    float zz[3];
+    coupling_z(Y, Vinv, slot, mask, x, C, P, D, n_fixed, p, zz);
+#pragma unroll
+    for (int l = 0; l < 3; ++l) z[(size_t)l * P + p] = zz[l];
+  }
+  cg::this_grid().sync();
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x)
+    segment_sums<6>(pl, t, part,
+        [&](int, int pair, int, float (&acc)[6]) {
+          float yd[18];
+          int p;
+          load_y(Y, P, pair, yd, p);
+          matvec_lanes(yd, z, P, p, acc);
+        },
+        [&](int k, int a, float v) { finish_segment<6>(pl, k, a, v, out); });
 }
 
 __global__ void __launch_bounds__(kPointThreads)
@@ -438,43 +774,124 @@ inline bool bad_shape(int C, int P, int D, int n_fixed) {
 
 inline int point_blocks(int P, int threads) { return (P + threads - 1) / threads; }
 
+// Launch `kernel` on `blocks` CTAs of `threads` after the kernel launched
+// just before it on `st`; with `pdl` by programmatic dependent launch.
+template <class... Params, class... Args>
+cudaError_t launch_after(void (*kernel)(Params...), int blocks, int threads, cudaStream_t st,
+                         bool pdl, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+Plan make_plan(const void* pairs, const void* seg_start, const void* seg_cam,
+               const void* tile_seg, const void* cam_seg, void* carry, void* ticket) {
+  return Plan{(const int*)pairs, (const int*)seg_start, (const int*)seg_cam,
+              (const int*)tile_seg, (const int*)cam_seg, (float*)carry, (int*)ticket};
+}
+
 }  // namespace
 
 // Per LM iteration: Y, V^-1, z_p and the (C', 54) camera reduction `red`.
-// `rows` is scratch of D*54*P floats.
+// The plan (pairs .. cam_seg, n_tiles) and its scratch (carry of n_seg * 54
+// floats, ticket of C' zeros) come from camera_index.  `form` selects the
+// tile kernel: 0 <false, false, 2> (setup_tiles_kernel's template), 1 <false,
+// true, 1>, 2 <false, false, 1>, 3 <true, true, 2>, 4 <true, true, 3>, 5
+// <true, false, 2>, 6 as 0 without programmatic dependent launch.
 extern "C" int ba_global_setup(const void* cam, const void* pt, const void* slot,
                                const void* mask, const void* uv, const void* pmask,
-                               const void* scal, const void* pairs, const void* offsets,
-                               int C, int P, int D, int n_fixed, void* Y, void* Vinv,
-                               void* zp, void* rows, void* red, void* stream) {
-  if (bad_shape(C, P, D, n_fixed)) return (int)cudaErrorInvalidValue;
+                               const void* scal, const void* pairs, const void* seg_start,
+                               const void* seg_cam, const void* tile_seg, const void* cam_seg,
+                               void* carry, void* ticket, int C, int P, int D, int n_fixed,
+                               int n_tiles, int form, void* Y, void* Vinv, void* zp,
+                               void* red, void* stream) {
+  if (bad_shape(C, P, D, n_fixed) || n_tiles < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   setup_points_kernel<<<point_blocks(P, kPointThreads), kPointThreads, 0, st>>>(
       (const float*)cam, (const float*)pt, (const int*)slot, (const float*)mask,
-      (const float*)uv, (const float*)pmask, (const float*)scal, C, P, D, n_fixed,
-      (float*)Y, (float*)Vinv, (float*)zp, (float*)rows);
+      (const float*)uv, (const float*)pmask, (const float*)scal, (const int*)cam_seg, C, P, D,
+      n_fixed, (float*)Y, (float*)Vinv, (float*)zp, (float*)red);
   cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_tiles == 0) return (int)err;
+  const Plan pl = make_plan(pairs, seg_start, seg_cam, tile_seg, cam_seg, carry, ticket);
+  const SetupArgs g = {(const float*)cam, (const float*)pt, (const float*)mask, (const float*)uv,
+                       (const float*)scal, P, n_fixed, (const float*)Y, (const float*)Vinv,
+                       (const float*)zp, (float*)red};
+  auto* kernel = form == 1   ? setup_tiles_kernel<false, true, 1>
+                 : form == 2 ? setup_tiles_kernel<false, false, 1>
+                 : form == 3 ? setup_tiles_kernel<true, true, 2>
+                 : form == 4 ? setup_tiles_kernel<true, true, 3>
+                 : form == 5 ? setup_tiles_kernel<true, false, 2>
+                             : setup_tiles_kernel<false, false, 2>;
+  err = launch_after(kernel, n_tiles, kTileThreads, st, form != 6, pl, g);
   if (err != cudaSuccess) return (int)err;
-  camera_sum_kernel<kRed><<<C - n_fixed, kSumThreads, 0, st>>>(
-      (const float*)rows, (const int*)pairs, (const int*)offsets, P, (float*)red);
   return (int)cudaGetLastError();
 }
 
-// Per CG iteration: out (C', 6) = W V^-1 W^T x.  `w2` is scratch of D*6*P
-// floats.
+// Per CG iteration: out (C', 6) = W V^-1 W^T x.  `z` is scratch of 3*P
+// floats, `carry` of n_seg * 6, `ticket` C' zeros.  `form` 0: Y prefetched
+// before the wait; 1: not prefetched; 2: as 0 without programmatic dependent
+// launch; 3: one cooperative launch (matvec_coop_kernel), which raises when
+// its grid cannot be resident at once.
 extern "C" int ba_global_matvec(const void* Y, const void* Vinv, const void* slot,
                                 const void* mask, const void* x, const void* pairs,
-                                const void* offsets, int C, int P, int D, int n_fixed,
-                                void* w2, void* out, void* stream) {
-  if (bad_shape(C, P, D, n_fixed)) return (int)cudaErrorInvalidValue;
+                                const void* seg_start, const void* seg_cam,
+                                const void* tile_seg, const void* cam_seg, void* carry,
+                                void* ticket, int C, int P, int D, int n_fixed, int n_tiles,
+                                int form, void* z, void* out, void* stream) {
+  if (bad_shape(C, P, D, n_fixed) || n_tiles < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  if (form == 3) {
+    static int resident = 0;          // CTAs of the cooperative kernel that fit at once
+    if (resident == 0) {
+      int dev = 0, sms = 0, per_sm = 0;
+      cudaError_t e = cudaGetDevice(&dev);
+      if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, matvec_coop_kernel,
+                                                          kTileThreads, 0);
+      if (e != cudaSuccess) return (int)e;
+      resident = sms * per_sm;
+    }
+    int grid = point_blocks(P, kTileThreads);
+    if (n_tiles > grid) grid = n_tiles;
+    if (grid > resident) grid = resident;
+    const Plan pl = make_plan(pairs, seg_start, seg_cam, tile_seg, cam_seg, carry, ticket);
+    const float* Yp = (const float*)Y;
+    const float* Vp = (const float*)Vinv;
+    const int* sp = (const int*)slot;
+    const float* mp = (const float*)mask;
+    const float* xp = (const float*)x;
+    const int* cs = (const int*)cam_seg;
+    float* zq = (float*)z;
+    float* op = (float*)out;
+    void* args[] = {(void*)&pl, (void*)&Yp, (void*)&Vp, (void*)&sp, (void*)&mp, (void*)&xp,
+                    (void*)&cs, (void*)&C, (void*)&P, (void*)&D, (void*)&n_fixed,
+                    (void*)&n_tiles, (void*)&zq, (void*)&op};
+    const cudaError_t err = cudaLaunchCooperativeKernel((const void*)matvec_coop_kernel,
+                                                        dim3(grid), dim3(kTileThreads), args, 0,
+                                                        st);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+  }
   matvec_points_kernel<<<point_blocks(P, kPointThreads), kPointThreads, 0, st>>>(
       (const float*)Y, (const float*)Vinv, (const int*)slot, (const float*)mask,
-      (const float*)x, C, P, D, n_fixed, (float*)w2);
+      (const float*)x, (const int*)cam_seg, C, P, D, n_fixed, (float*)z, (float*)out);
   cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_tiles == 0) return (int)err;
+  const Plan pl = make_plan(pairs, seg_start, seg_cam, tile_seg, cam_seg, carry, ticket);
+  err = launch_after(form == 1 ? matvec_tiles_kernel<false> : matvec_tiles_kernel<true>, n_tiles,
+                     kTileThreads, st, form != 2, pl, (const float*)Y, (const float*)z, P,
+                     (float*)out);
   if (err != cudaSuccess) return (int)err;
-  camera_sum_kernel<6><<<C - n_fixed, kSumThreads, 0, st>>>(
-      (const float*)w2, (const int*)pairs, (const int*)offsets, P, (float*)out);
   return (int)cudaGetLastError();
 }
 
@@ -506,3 +923,6 @@ extern "C" int ba_global_cost(const void* camc, const void* pt, const void* slot
   cost_final_kernel<<<1, kCostThreads, 0, st>>>((const float*)partial, n_blocks, (float*)out);
   return (int)cudaGetLastError();
 }
+
+// Threads of a tile CTA: the order of the per-camera sums depends on it.
+extern "C" int ba_global_tile_threads() { return kTileThreads; }

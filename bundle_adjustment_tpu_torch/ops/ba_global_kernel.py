@@ -37,17 +37,25 @@ here.
 Per-camera sums.  The TPU kernels scatter with one-hot matmuls into an
 output that the sequential grid accumulates.  Here ``camera_index`` builds,
 once per solve, the camera-major list of live (slot, point) pairs of
-adjustable cameras (a stable sort, so the order is fixed), and a segmented
-sum kernel adds each camera's rows in that order.  No float atomics: two
-solves of one problem give the same bits.
+adjustable cameras (a stable sort, so the order is fixed) and a tile plan over
+it: tiles of ``PAIR_TILE`` pairs, cut where a camera's pairs end into
+segments of one camera each.  The kernels' per-tile pass forms each pair's
+lanes in registers and sums each segment in a fixed order; a camera that
+spans several segments has their sums added in segment order
+(``tiled_camera_sum`` is that order on tensors, for the tests).  No float
+atomics: two solves of one problem give the same bits.  The plan's scratch
+(the segments' sums, a counter per camera, the matvec's z and output) is
+allocated with it, so a CG iteration's ``matvec`` allocates nothing.
 
 The shape gate.  ``1 <= D <= 12`` is the range the slot loops are held to,
-as on the TPU; ``0 <= n_fixed < C``; and the scratch that lives between the
-passes of one LM iteration (per slot of a point: 18 floats of Y, 54 of
-reduction rows, 6 of the matvec's rows; per point 9 more) stays within
-``SCRATCH_LIMIT_BYTES`` = 4 GiB, which also keeps a pair index inside an
-int32.  The TPU gate's ``C <= 8192`` and its tile planner (``_plan``,
-``_vmem_bytes``, the live-chunk tables) answer VMEM limits and are not kept.
+as on the TPU; ``0 <= n_fixed < C``; and the memory that lives between the
+passes of one LM iteration (``scratch_bytes``: per slot of a point 18 floats
+of Y and its entry in the pair list; per point V^-1, z_p and the matvec's z,
+12 floats; 54 floats per segment of the tile plan, at most one per tile and
+one per camera) stays within ``SCRATCH_LIMIT_BYTES`` = 4 GiB, which also
+keeps a pair index inside an int32.  The TPU gate's ``C <= 8192`` and its
+tile planner (``_plan``, ``_vmem_bytes``, the live-chunk tables) answer VMEM
+limits and are not kept.
 """
 
 from __future__ import annotations
@@ -70,6 +78,16 @@ COST = "ba_global_cost"
 
 MAX_SLOTS = 12
 SCRATCH_LIMIT_BYTES = 4 << 30
+#: pairs per tile of the per-camera sums (``camera_index``)
+PAIR_TILE = 768
+#: threads of the kernels' per-tile CTA (``kTileThreads``): the order of the
+#: per-camera sums depends on it
+TILE_THREADS = 256
+# the forms measured against each other on the card (csrc/ba_global_pcg.cu,
+# the C entry points' `form`; 0 is the design kept) and the fixed-tile plan
+PACK = True
+SETUP_FORM = 0
+MATVEC_FORM = 0
 _F32, _I32 = torch.float32, torch.int32
 
 # lanes of the setup reduction, (C', 54): symmetric 6x6 blocks are packed as
@@ -110,16 +128,18 @@ def _unpack_sym6(tri):
     return tri[..., idx]
 
 
-def scratch_bytes(P: int, D: int) -> int:
-    """Bytes of Y, V^-1, z_p and the kernels' scratch rows for (P, D)."""
-    return 4 * P * (D * (18 + _RED_COLS + 6) + 9)
+def scratch_bytes(P: int, D: int, C: int = 1) -> int:
+    """Bytes of Y, the pair list, V^-1, z_p, the matvec's z and the tile
+    carries for (P, D) and C cameras (module docstring)."""
+    n_seg = -(-D * P // PAIR_TILE) + C
+    return 4 * (P * (D * (18 + 1) + 12) + _RED_COLS * n_seg)
 
 
 def eligible_shape_global(C: int, P: int, D: int, n_fixed: int = 1) -> bool:
     """Whether the kernels take a problem of this shape (module docstring)."""
     if not (1 <= D <= MAX_SLOTS and 0 <= n_fixed < C and P >= 1):
         return False
-    return scratch_bytes(P, D) <= SCRATCH_LIMIT_BYTES
+    return scratch_bytes(P, D, C) <= SCRATCH_LIMIT_BYTES
 
 
 def kernel_eligible_global(grid: BAProblemGrid, n_fixed: int = 1) -> bool:
@@ -128,22 +148,91 @@ def kernel_eligible_global(grid: BAProblemGrid, n_fixed: int = 1) -> bool:
 
 
 class CameraIndex(NamedTuple):
-    """The live (slot, point) pairs of adjustable cameras, camera-major."""
+    """The live (slot, point) pairs of adjustable cameras, camera-major, the
+    tile plan over them and the kernels' scratch for one solve."""
     pairs: torch.Tensor     # (D*P,) int32, entry d*P + p; the tail is unused
     offsets: torch.Tensor   # (C' + 1,) int32, camera a owns pairs[off[a]:off[a+1]]
+    seg_start: torch.Tensor  # (n_seg + 1,) int32, segment k is pairs[start[k]:start[k+1]]
+    seg_cam: torch.Tensor   # (n_seg,) int32, the camera of segment k
+    tile_seg: torch.Tensor  # (n_tiles + 1,) int32, tile t holds segments [ts[t], ts[t+1])
+    cam_seg: torch.Tensor   # (C' + 1,) int32, camera a owns segments [cs[a], cs[a+1])
+    carry: torch.Tensor     # (n_seg, 54) scratch: segments' sums of cameras that span several
+    ticket: torch.Tensor    # (C',) int32 counters, 0 between launches
+    z: torch.Tensor         # (3, P) scratch of ``matvec``
+    out: torch.Tensor       # (C', 6) ``matvec``'s output, overwritten by its next call
 
 
-def camera_index(slotT, maskT, C: int, n_fixed: int) -> CameraIndex:
-    """Built once per solve: cam_slot and mask do not change during one."""
+def _packed_plan(counts, tile: int):
+    """Segments and tiles for the per-camera pair counts ``counts``: a camera
+    of more than ``tile`` pairs is cut into as few near-equal segments as
+    keep each within ``tile``, each its own tile; the others are whole
+    segments, packed in camera order into tiles of at most ``tile`` pairs.
+    Returns (segment lengths, segment cameras, tile of each segment)."""
+    seg_len, seg_cam, seg_tile = [], [], []
+    t, fill = -1, tile
+    for a, n in enumerate(counts):
+        if n == 0:
+            continue
+        if n > tile:
+            m = -(-n // tile)
+            for i in range(m):
+                t += 1
+                seg_len.append(n // m + (i < n % m))
+                seg_cam.append(a)
+                seg_tile.append(t)
+            fill = tile
+            continue
+        if fill + n > tile:
+            t, fill = t + 1, 0
+        seg_len.append(n)
+        seg_cam.append(a)
+        seg_tile.append(t)
+        fill += n
+    return seg_len, seg_cam, seg_tile
+
+
+def camera_index(slotT, maskT, C: int, n_fixed: int, tile: int = PAIR_TILE,
+                 pack: bool = PACK) -> CameraIndex:
+    """Built once per solve: cam_slot and mask do not change during one.
+    The tiles hold ``tile`` pairs each (the last one fewer); with ``pack``
+    at most ``tile``, cut where a camera ends (``_packed_plan``).  One host
+    read (the cameras' pair counts)."""
+    D, P = slotT.shape
     c_adj = C - n_fixed
+    dev = slotT.device
     a = slotT.reshape(-1).long() - n_fixed
     ok = (maskT.reshape(-1) != 0) & (a >= 0) & (a < c_adj)
     key = torch.where(ok, a, torch.full_like(a, c_adj))
     order = torch.sort(key, stable=True).indices
     counts = torch.bincount(key, minlength=c_adj + 1)[:c_adj]
     offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
-    return CameraIndex(order.to(torch.int32).contiguous(),
-                       offsets.to(torch.int32).contiguous())
+    if pack:
+        seg_len, seg_cam, seg_tile = _packed_plan(counts.tolist(), tile)
+        starts = torch.cumsum(torch.tensor([0] + seg_len[:-1], dtype=torch.long), 0).to(dev)
+        n = int(sum(seg_len))
+        seg_cam = torch.tensor(seg_cam, dtype=torch.long, device=dev)
+        tile_seg = torch.searchsorted(torch.tensor(seg_tile, dtype=torch.long, device=dev),
+                                      torch.arange((seg_tile[-1] + 2) if seg_tile else 1,
+                                                   device=dev))
+    else:
+        n = int(offsets[-1])
+        # segments start at every tile start and at every camera's first pair
+        tile_starts = torch.arange(0, n, tile, device=dev)
+        starts = torch.unique(torch.cat([tile_starts, offsets[:-1][offsets[:-1] < n]]))
+        seg_cam = torch.searchsorted(offsets[1:], starts, right=True)
+        tile_seg = torch.searchsorted(starts, torch.arange(0, len(tile_starts) + 1,
+                                                           device=dev) * tile)
+    cam_seg = torch.searchsorted(seg_cam, torch.arange(c_adj + 1, device=dev))
+    i32 = dict(dtype=_I32, device=dev)
+    return CameraIndex(
+        pairs=order.to(_I32).contiguous(), offsets=offsets.to(_I32).contiguous(),
+        seg_start=torch.cat([starts, starts.new_full((1,), n)]).to(_I32).contiguous(),
+        seg_cam=seg_cam.to(_I32).contiguous(), tile_seg=tile_seg.to(_I32).contiguous(),
+        cam_seg=cam_seg.to(_I32).contiguous(),
+        carry=torch.empty((len(starts), _RED_COLS), dtype=_F32, device=dev),
+        ticket=torch.zeros(c_adj, **i32),
+        z=torch.empty((3, P), dtype=_F32, device=dev),
+        out=torch.empty((c_adj, 6), dtype=_F32, device=dev))
 
 
 class Layout(NamedTuple):
@@ -225,6 +314,43 @@ def _camera_sum(rows, slotT, live, n_fixed: int, c_adj: int):
                                 c_adj + 1)[:c_adj]
 
 
+def tiled_camera_sum(rows, index: CameraIndex):
+    """(D, P, k) rows -> (C', k) summed over the tile plan of ``index`` in the
+    kernels' order (for the tests: the kernels form the rows in registers).
+    In a segment, thread i of the tile's CTA adds the rows of the tile's
+    pairs i, i + TILE_THREADS, ... that lie in the segment, the threads of a
+    warp are summed pairwise across bit 4 of the lane index, then 3, 2, 1, 0,
+    then the warps in order; a camera adds its segments' sums in order."""
+    k = rows.shape[-1]
+    flat = rows.reshape(-1, k)
+    start, tile_seg = index.seg_start.tolist(), index.tile_seg.tolist()
+    cam_seg = index.cam_seg.tolist()
+    warps = TILE_THREADS // 32
+    seg_sums = []
+    for t in range(len(tile_seg) - 1):
+        lo = start[tile_seg[t]]
+        for s in range(tile_seg[t], tile_seg[t + 1]):
+            a, b = start[s], start[s + 1]
+            n_rounds = -(-(b - lo) // TILE_THREADS)
+            grid = flat.new_zeros((n_rounds * TILE_THREADS, k))
+            grid[a - lo:b - lo] = flat[index.pairs[a:b].long()]
+            acc = flat.new_zeros((TILE_THREADS, k))
+            for r in grid.reshape(n_rounds, TILE_THREADS, k):
+                acc = acc + r
+            w = acc.reshape(warps, 32, k)
+            for half in (16, 8, 4, 2, 1):
+                w = w[:, :half] + w[:, half:2 * half]
+            total = flat.new_zeros(k)
+            for j in range(warps):
+                total = total + w[j, 0]
+            seg_sums.append(total)
+    out = flat.new_zeros((len(cam_seg) - 1, k))
+    for c in range(len(cam_seg) - 1):
+        for s in range(cam_seg[c], cam_seg[c + 1]):
+            out[c] = out[c] + seg_sums[s]
+    return out
+
+
 def _vinv_matrix(VinvT):
     """(6, P) packed 00 01 02 11 12 22 -> (P, 3, 3)."""
     v = VinvT
@@ -245,11 +371,11 @@ def _x_slots(x, slotT, maskT, n_fixed: int):
     return _gather(table, slotT, maskT)
 
 
-def setup_plain(cam, ptT, slotT, maskT, uvT, pmask, scal, n_fixed: int, index=None):
-    """The setup pass on tensors (``index`` is the kernels' and is not
-    read).  Returns (Y (D*18, P), V^-1 (6, P), z_p (3, P), red (C', 54))."""
+def _setup_rows(cam, ptT, slotT, maskT, uvT, pmask, scal, n_fixed: int):
+    """The setup pass on tensors up to the camera sum: (Y (D*18, P), V^-1
+    (6, P), z_p (3, P), the per-slot rows of the reduction (D, P, 54), the
+    (D, P) live mask)."""
     D, P = slotT.shape
-    c_adj = cam.shape[0] - n_fixed
     g, live = _gather(cam, slotT, maskT)
     Rg = g[..., :9].reshape(D, P, 3, 3)
     dRg = g[..., 9:36].reshape(D, P, 3, 3, 3)                  # [k, i, j]
@@ -287,11 +413,17 @@ def setup_plain(cam, ptT, slotT, maskT, uvT, pmask, scal, n_fixed: int, index=No
         torch.sum(Y * z_p[None, :, None, :], dim=-1),
         torch.sum(YV[..., :, None, :] * Y[..., None, :, :], dim=-1)[..., iu, ju],
     ], dim=-1)                                                  # (D, P, 54)
-    red = _camera_sum(rows, slotT, live, n_fixed, c_adj)
     YT = Y.reshape(D, P, 18).permute(0, 2, 1).reshape(D * 18, P)
     VinvT = torch.stack([Vinv[:, 0, 0], Vinv[:, 0, 1], Vinv[:, 0, 2],
                          Vinv[:, 1, 1], Vinv[:, 1, 2], Vinv[:, 2, 2]])
-    return YT.contiguous(), VinvT, z_p.T.contiguous(), red
+    return YT.contiguous(), VinvT, z_p.T.contiguous(), rows, live
+
+
+def setup_plain(cam, ptT, slotT, maskT, uvT, pmask, scal, n_fixed: int, index=None):
+    """The setup pass on tensors (``index`` is the kernels' and is not
+    read).  Returns (Y (D*18, P), V^-1 (6, P), z_p (3, P), red (C', 54))."""
+    YT, VinvT, zpT, rows, live = _setup_rows(cam, ptT, slotT, maskT, uvT, pmask, scal, n_fixed)
+    return YT, VinvT, zpT, _camera_sum(rows, slotT, live, n_fixed, cam.shape[0] - n_fixed)
 
 
 def _coupling_z(YT, VinvT, slotT, maskT, x, n_fixed: int):
@@ -302,10 +434,15 @@ def _coupling_z(YT, VinvT, slotT, maskT, x, n_fixed: int):
     return Y, live, _mv(_vinv_matrix(VinvT), q)
 
 
+def _matvec_rows(YT, VinvT, slotT, maskT, x, n_fixed: int):
+    """The per-slot rows Y_d z (D, P, 6) of the coupling term and the live mask."""
+    Y, live, z = _coupling_z(YT, VinvT, slotT, maskT, x, n_fixed)
+    return torch.sum(Y * z[None, :, None, :], dim=-1), live
+
+
 def matvec_plain(YT, VinvT, slotT, maskT, x, n_fixed: int, index=None):
     """The coupling term W V^-1 W^T x of S x, (C', 6); ``index`` is not read."""
-    Y, live, z = _coupling_z(YT, VinvT, slotT, maskT, x, n_fixed)
-    w2 = torch.sum(Y * z[None, :, None, :], dim=-1)            # (D, P, 6)
+    w2, live = _matvec_rows(YT, VinvT, slotT, maskT, x, n_fixed)
     return _camera_sum(w2, slotT, live, n_fixed, x.shape[0])
 
 
@@ -354,11 +491,24 @@ def _check_shape(C: int, P: int, D: int, n_fixed: int):
                          "the kernels' gate (eligible_shape_global)")
 
 
-def _check_index(index: Optional[CameraIndex], D: int, P: int, c_adj: int):
+def _check_index(index: Optional[CameraIndex], D: int, P: int, c_adj: int, dev):
+    """That ``index`` is a ``camera_index`` of this problem's shape on ``dev``
+    (``camera_index`` builds all its parts together, contiguous int32 and
+    float32; this runs once per CG iteration, so it checks only what ties
+    the index to the problem)."""
     if index is None:
         raise ValueError("index: CUDA tensors need the camera_index of this problem")
-    _check(pairs=(index.pairs, (D * P,), torch.int32),
-           offsets=(index.offsets, (c_adj + 1,), torch.int32))
+    if (index.pairs.device != dev or index.pairs.shape != (D * P,)
+            or index.cam_seg.shape != (c_adj + 1,) or index.z.shape != (3, P)
+            or index.out.shape != (c_adj, 6)):
+        raise ValueError(f"index: a camera_index of D={D}, P={P}, C'={c_adj} on {dev} expected, "
+                         f"got pairs {tuple(index.pairs.shape)} on {index.pairs.device}, "
+                         f"C'={index.cam_seg.shape[0] - 1}")
+
+
+def _plan_args(index: CameraIndex):
+    return (index.pairs, index.seg_start, index.seg_cam, index.tile_seg, index.cam_seg,
+            index.carry, index.ticket)
 
 
 def _launch(name: str, dev, *args):
@@ -381,20 +531,21 @@ def setup(cam, ptT, slotT, maskT, uvT, pmask, scal, n_fixed: int,
     _check(cam=(cam, (C, _CAM_ROWS), _F32), ptT=(ptT, (3, P), _F32),
            slotT=(slotT, (D, P), _I32), maskT=(maskT, (D, P), _F32),
            uvT=(uvT, (2 * D, P), _F32), pmask=(pmask, (P,), _F32), scal=(scal, (8,), _F32))
-    _check_index(index, D, P, C - n_fixed)
     dev = cam.device
+    _check_index(index, D, P, C - n_fixed, dev)
     Y = torch.empty((D * 18, P), dtype=_F32, device=dev)
     Vinv = torch.empty((6, P), dtype=_F32, device=dev)
     zp = torch.empty((3, P), dtype=_F32, device=dev)
-    rows = torch.empty((D * _RED_COLS, P), dtype=_F32, device=dev)
     red = torch.empty((C - n_fixed, _RED_COLS), dtype=_F32, device=dev)
-    _launch(SETUP, dev, cam, ptT, slotT, maskT, uvT, pmask, scal, index.pairs,
-            index.offsets, C, P, D, n_fixed, Y, Vinv, zp, rows, red)
+    _launch(SETUP, dev, cam, ptT, slotT, maskT, uvT, pmask, scal, *_plan_args(index),
+            C, P, D, n_fixed, index.tile_seg.shape[0] - 1, SETUP_FORM, Y, Vinv, zp, red)
     return Y, Vinv, zp, red
 
 
 def matvec(YT, VinvT, slotT, maskT, x, n_fixed: int, index: Optional[CameraIndex] = None):
-    """The coupling term W V^-1 W^T x of one CG iteration, (C', 6)."""
+    """The coupling term W V^-1 W^T x of one CG iteration, (C', 6).  For CUDA
+    tensors the result is ``index.out``, which the next call overwrites; the
+    call allocates nothing."""
     if _kind(YT, VinvT, slotT, maskT, x) == "cpu":
         return matvec_plain(YT, VinvT, slotT, maskT, x, n_fixed)
     c_adj = x.shape[0]
@@ -402,13 +553,11 @@ def matvec(YT, VinvT, slotT, maskT, x, n_fixed: int, index: Optional[CameraIndex
     _check_shape(c_adj + n_fixed, P, D, n_fixed)
     _check(YT=(YT, (D * 18, P), _F32), VinvT=(VinvT, (6, P), _F32),
            slotT=(slotT, (D, P), _I32), maskT=(maskT, (D, P), _F32), x=(x, (c_adj, 6), _F32))
-    _check_index(index, D, P, c_adj)
     dev = x.device
-    w2 = torch.empty((D * 6, P), dtype=_F32, device=dev)
-    out = torch.empty((c_adj, 6), dtype=_F32, device=dev)
-    _launch(MATVEC, dev, YT, VinvT, slotT, maskT, x, index.pairs, index.offsets,
-            c_adj + n_fixed, P, D, n_fixed, w2, out)
-    return out
+    _check_index(index, D, P, c_adj, dev)
+    _launch(MATVEC, dev, YT, VinvT, slotT, maskT, x, *_plan_args(index), c_adj + n_fixed, P, D,
+            n_fixed, index.tile_seg.shape[0] - 1, MATVEC_FORM, index.z, index.out)
+    return index.out
 
 
 def backsub(YT, VinvT, zpT, slotT, maskT, x, n_fixed: int):

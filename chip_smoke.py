@@ -55,10 +55,10 @@ Phases, each of which exits non-zero when it fails:
    ``BAConfig(pcg_min_cameras=3)`` until a windowed BA completes, so that
    every windowed BA takes the PCG branch and K4, then ``finalize``.
 
-``--kernel-times [--tree DIR]`` only builds and times K1 and K3
-(``kernel_times``, K3 per LM iteration over a sweep of C' and P as well) on
-this checkout or on another commit's tree, for comparing two commits in one
-call.
+``--kernel-times [--tree DIR]`` only builds and times K1, K3 and K4's setup
+and matvec (``kernel_times``: K3 per LM iteration over a sweep of C' and P as
+well; K4a and K4b at the global path's shape) on this checkout or on another
+commit's tree, for comparing two commits in one call.
 
 The line before the last is the kernels' JSON record, the line before that
 the card's name and power limit; the last line is the ``{"ok": true, ...}``
@@ -72,6 +72,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -491,8 +492,8 @@ def check_global(torch, np, mods, seed: int, dev) -> dict:
         YT, VinvT, zpT, _ = ps
         outs = {
             "ba_global_setup": (ks, ps),
-            "ba_global_matvec": (
-                (gk.matvec(YT, VinvT, lay.slotT, lay.maskT, x, n_fixed, index),),
+            "ba_global_matvec": (     # the kernel's output is the index's scratch
+                (gk.matvec(YT, VinvT, lay.slotT, lay.maskT, x, n_fixed, index).clone(),),
                 (gk.matvec_plain(YT, VinvT, lay.slotT, lay.maskT, x, n_fixed),)),
             "ba_global_backsub": (
                 (gk.backsub(YT, VinvT, zpT, lay.slotT, lay.maskT, x, n_fixed),),
@@ -539,7 +540,8 @@ def check_global(torch, np, mods, seed: int, dev) -> dict:
         if ks[1][:, n_pts:].any() or ks[2][:, n_pts:].any():
             fail(f"K4 setup {name}: a padding point has a non-zero V^-1 or z_p")
 
-        # two launches on the same input: equal bits
+        # two launches on the same input: equal bits; every camera's ticket
+        # counter back at 0
         again = run_setup(gk.setup, index) + (
             gk.matvec(YT, VinvT, lay.slotT, lay.maskT, x, n_fixed, index),
             gk.backsub(YT, VinvT, zpT, lay.slotT, lay.maskT, x, n_fixed),
@@ -547,7 +549,7 @@ def check_global(torch, np, mods, seed: int, dev) -> dict:
         first = ks + outs["ba_global_matvec"][0] + outs["ba_global_backsub"][0] \
             + outs["ba_global_cost"][0]
         torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        if not all(torch.equal(a, b) for a, b in zip(first, again)) or index.ticket.any():
             fail(f"K4 {name}: two launches on the same input differ")
 
         # the whole solve: kernels against plain versions, and twice
@@ -606,8 +608,8 @@ def check_global(torch, np, mods, seed: int, dev) -> dict:
 
 
 K_NAMES = ("knn2_split_kernel", "knn2_merge_kernel", "gather40_kernel", "ba_window_lm_kernel",
-           "setup_points_kernel",
-           "camera_sum_kernel", "matvec_points_kernel", "backsub_points_kernel",
+           "setup_points_kernel", "setup_tiles_kernel", "matvec_points_kernel",
+           "matvec_tiles_kernel", "matvec_coop_kernel", "backsub_points_kernel",
            "cost_points_kernel", "cost_final_kernel")
 
 
@@ -669,6 +671,63 @@ def device_ms_per_launch(torch, calls, keys) -> dict:
             if e.device_type == DeviceType.CUDA and e.count and any(k in e.key for k in keys)}
 
 
+def device_spans(torch, calls, keys) -> tuple:
+    """Each of ``calls`` once under torch.profiler: the device span of each
+    call, from the start of its first kernel whose name contains one of
+    ``keys`` to the end of its last, and the ms per record of each such
+    kernel.  Kernels chained by programmatic dependent launch overlap (the
+    second starts while the first runs), so the span, not the sum of the
+    kernels' times, is the call's time on the device.  Returns (median span
+    ms or None when the records do not split evenly into the calls, spans,
+    {kernel: ms per record})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for fn in calls:
+            fn()
+        torch.cuda.synchronize()
+    ev = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                if e.device_type == DeviceType.CUDA and any(k in e.name for k in keys))
+    per_kernel = {}
+    for t0, t1, name in ev:
+        short = re.search(r"(\w+_kernel(<[^>]*>)?)", name)
+        per_kernel.setdefault(short.group(1) if short else name[:48], []).append((t1 - t0) / 1e3)
+    per_kernel = {k: statistics.mean(v) for k, v in per_kernel.items()}
+    k = len(ev) // max(len(calls), 1)
+    if k == 0 or len(ev) != k * len(calls):
+        return None, 0, per_kernel
+    spans = [(max(e[1] for e in ev[i:i + k]) - ev[i][0]) / 1e3 for i in range(0, len(ev), k)]
+    return statistics.median(spans), len(spans), per_kernel
+
+
+def queued_ms(torch, fn, n: int = 20, trials: int = 5) -> tuple:
+    """ms per call of ``fn()`` with ``n`` calls queued behind a kernel that
+    sleeps on the device, so that the device runs them back to back without
+    waiting on the host: its time per call, the gaps between its kernels
+    included.  Returns (median ms, the host's ms to queue the n calls, the
+    sleep's ms): the reading holds while the first is below the second."""
+    fn()
+    torch.cuda.synchronize()
+    times, host = [], []
+    sleep = torch.cuda.Event(enable_timing=True)
+    for _ in range(trials):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        sleep.record()
+        torch.cuda._sleep(20_000_000)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times), max(host), sleep.elapsed_time(start)
+
+
 def per_call(rec: dict) -> tuple:
     """(device ms per call, fewest records of a kernel) from
     ``device_ms_per_launch`` for calls that launch each kernel once; ms 0.0
@@ -684,6 +743,87 @@ def pooled(rec: dict) -> tuple:
     return (sum(ms * c for ms, c in rec.values()) / n if n else 0.0, n)
 
 
+def k4_times(torch, seed: int, dev) -> dict:
+    """K4a (setup) and K4b (matvec) at the global path's shape (C = 200,
+    n_fixed = 2, 30,000 points bucketed to P = 32,768, D = 4) through
+    ``camera_index``, ``setup(..., index)`` and ``matvec(..., index)``, calls
+    that every tree of the port since K4 has: CUDA-event ms per call, and
+    device ms per call under the profiler (the sum over the role's kernels
+    of ms per record) with the fewest records of one of its kernels in 20
+    calls, the device span per call (``device_spans``) and the time per call
+    queued behind a sleeping kernel (``queued_ms``).  On a tree that has
+    them, the forms and tile plans measured against each other as well
+    (``csrc/ba_global_pcg.cu``'s `form` arguments)."""
+    import numpy as np
+
+    from bundle_adjustment_tpu_torch.ops import ba_global_kernel as gk
+    from bundle_adjustment_tpu_torch.ops.ba import BAProblem
+    from bundle_adjustment_tpu_torch.ops.ba_grid import from_flat
+    from bundle_adjustment_tpu_torch.utils.synthetic import synthetic_global_problem
+
+    mods = types.SimpleNamespace(BAProblem=BAProblem, from_flat=from_flat,
+                                 synthetic_global_problem=synthetic_global_problem)
+    C, n_fixed = 200, 2
+    g = global_grid(torch, mods, seed + 3, C, 30000, 32768, 0.0, dev)
+    lay = gk.layout(g)
+    ptT = g.points.T.contiguous()
+    scal = gk.with_lambda(lay.scal, 1e-3)
+    cam = gk.camera_rows(g.rvecs, g.tvecs, True)
+    x = torch.as_tensor(np.random.default_rng(seed).normal(0, 1e-2, (C - n_fixed, 6))
+                        .astype(np.float32), device=dev)
+
+    plain = gk.setup_plain(cam, ptT, lay.slotT, lay.maskT, lay.uvT, lay.pmask, scal, n_fixed)
+    plain_mv = gk.matvec_plain(plain[0], plain[1], lay.slotT, lay.maskT, x, n_fixed)
+
+    def gap(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+    def measure(index, tag_a, tag_b):
+        def setup_call():
+            return gk.setup(cam, ptT, lay.slotT, lay.maskT, lay.uvT, lay.pmask, scal, n_fixed,
+                            index)
+
+        YT, VinvT, _, red = setup_call()
+
+        def matvec_call():
+            return gk.matvec(YT, VinvT, lay.slotT, lay.maskT, x, n_fixed, index)
+
+        # each form's widest gap to the plain version (red per scale group)
+        out = {f"k4a{tag_a}_gap": max(gap(red[:, lanes], plain[3][:, lanes])
+                                      for lanes in gk.red_lane_groups().values()),
+               f"k4b{tag_b}_gap": max(
+                   gap(gk.matvec(plain[0], plain[1], lay.slotT, lay.maskT, x, n_fixed,
+                                 index)[:, sl], plain_mv[:, sl])
+                   for sl in (slice(0, 3), slice(3, 6)))}
+        for tag, fn, keys in (("k4a" + tag_a, setup_call, ("setup", "camera_sum")),
+                              ("k4b" + tag_b, matvec_call, ("matvec", "camera_sum"))):
+            out[f"{tag}_ms"] = cuda_ms(fn)
+            out[f"{tag}_device_ms"], out[f"{tag}_device_records"] = per_call(
+                device_ms_per_launch(torch, [fn] * 20, keys))
+            out[f"{tag}_span_ms"], out[f"{tag}_spans"], out[f"{tag}_kernels_ms"] = device_spans(
+                torch, [fn] * 20, keys)
+            out[f"{tag}_queued_ms"], out[f"{tag}_queue_host_ms"], out[f"{tag}_sleep_ms"] = \
+                queued_ms(torch, fn)
+        return out
+
+    out = measure(gk.camera_index(lay.slotT, lay.maskT, C, n_fixed), "", "")
+    if hasattr(gk, "MATVEC_FORM"):
+        defaults = gk.SETUP_FORM, gk.MATVEC_FORM
+        runs = [(768, True, 0, 0), (768, True, 1, 1), (768, True, 2, 2), (768, True, 3, 3),
+                (768, True, 4, 0), (768, True, 5, 0), (768, True, 6, 0),
+                (512, True, 0, 0), (1024, True, 0, 0), (256, False, 0, 0),
+                (512, False, 0, 0), (1024, False, 0, 0)]
+        try:
+            for tile, pack, form_a, form_b in runs:
+                index = gk.camera_index(lay.slotT, lay.maskT, C, n_fixed, tile=tile, pack=pack)
+                gk.SETUP_FORM, gk.MATVEC_FORM = form_a, form_b
+                tag = f"_tile{tile}{'_packed' if pack else ''}_form"
+                out.update(measure(index, f"{tag}{form_a}", f"{tag}{form_b}"))
+        finally:
+            gk.SETUP_FORM, gk.MATVEC_FORM = defaults
+    return out
+
+
 def kernel_times(torch, seed: int, dev) -> dict:
     """K1 at 4000 x 4000 and K3 at the main path's window (C = 5, n_fixed =
     2, P = 8192, D = 5) and at the widest one the gate admits (C = 10, P =
@@ -691,8 +831,9 @@ def kernel_times(torch, seed: int, dev) -> dict:
     has: CUDA-event ms per call, device ms per launch under the profiler, ms
     per LM iteration by the marginal protocol, the last also over C' = 3, 7,
     8 (C = 5, 9, 10, n_fixed = 2) at P = 8192 and 53,430, which splits the
-    widest window's cost between its points and its cameras.
-    ``--kernel-times --tree DIR`` runs it on another commit's tree."""
+    widest window's cost between its points and its cameras; then K4a and
+    K4b (``k4_times``).  ``--kernel-times --tree DIR`` runs it on another
+    commit's tree."""
     from bundle_adjustment_tpu_torch import kernels
     from bundle_adjustment_tpu_torch.ops import ba_kernel, hamming_kernel
     from bundle_adjustment_tpu_torch.ops.ba_grid import BAProblemGrid
@@ -723,6 +864,7 @@ def kernel_times(torch, seed: int, dev) -> dict:
         out[f"{tag}_solve_iterations"] = int(ba_kernel.launch(g, 2, **opts)[3][4])
         out[f"{tag}_device_ms"], out[f"{tag}_device_records"] = per_call(device_ms_per_launch(
             torch, [lambda: ba_kernel.launch(g, 2, **opts)] * 5, ("ba_window_lm",)))
+    out.update(k4_times(torch, seed, dev))
     return out
 
 
@@ -773,8 +915,8 @@ def main() -> int:
                          "first N frames and one finalize of the global path's "
                          "map (default 0: no profile)")
     ap.add_argument("--kernel-times", action="store_true",
-                    help="only build the kernels and time K1 and K3 (kernel_times), print "
-                         "one JSON line and exit")
+                    help="only build the kernels and time K1, K3, K4a and K4b (kernel_times), "
+                         "print one JSON line and exit")
     ap.add_argument("--tree", default=None, metavar="DIR",
                     help="with --kernel-times: import the port from DIR (a git archive of "
                          "another commit) instead of this checkout")

@@ -262,10 +262,20 @@ def test_the_gate_at_its_edges(chain):
     assert gk.eligible_shape_global(20000, 131072, 12, 1)   # no C <= 8192 bound
     assert gk.eligible_shape_global(5, 8192, 12) and not gk.eligible_shape_global(5, 8192, 13)
     assert not gk.eligible_shape_global(5, 8192, 0) and not gk.eligible_shape_global(5, 0, 4)
-    per_point = 4 * (4 * 78 + 9)
+    # per point at D = 4: Y and the pair list (4 * 19 floats), V^-1, z_p and
+    # the matvec's z (12); per segment of the tile plan 54 floats, at most
+    # one per tile and one per camera
+    per_point = 4 * (4 * 19 + 12)
+
+    def scratch(P, C):
+        return P * per_point + 4 * 54 * (-(-4 * P // gk.PAIR_TILE) + C)
+
     edge = gk.SCRATCH_LIMIT_BYTES // per_point
+    while scratch(edge, 200) > gk.SCRATCH_LIMIT_BYTES:
+        edge -= 1
     assert gk.eligible_shape_global(200, edge, 4) and not gk.eligible_shape_global(200, edge + 1, 4)
-    assert gk.scratch_bytes(32768, 4) == 32768 * per_point
+    assert gk.scratch_bytes(32768, 4, 200) == scratch(32768, 200)
+    assert 4 * edge < 2 ** 31                   # a pair index d*P + p stays an int32
     with pytest.raises(ValueError, match="gate"):
         gk.solve(gt, n_fixed=12)
     with pytest.raises(ValueError, match="gate"):
@@ -276,7 +286,8 @@ def test_camera_index_lists_each_cameras_live_pairs_in_order(chain):
     _, gt = chain
     lay = gk.layout(gt)
     for n_fixed in (1, 2):
-        pairs, offsets = gk.camera_index(lay.slotT, lay.maskT, 12, n_fixed)
+        index = gk.camera_index(lay.slotT, lay.maskT, 12, n_fixed)
+        pairs, offsets = index.pairs, index.offsets
         assert offsets[0] == 0 and pairs.dtype == offsets.dtype == torch.int32
         flat_slot, flat_mask = lay.slotT.reshape(-1), lay.maskT.reshape(-1)
         for a in range(12 - n_fixed):
@@ -284,3 +295,103 @@ def test_camera_index_lists_each_cameras_live_pairs_in_order(chain):
             want = torch.nonzero((flat_slot == a + n_fixed) & (flat_mask > 0)).reshape(-1)
             assert torch.equal(mine, want)          # ascending: a stable sort
         assert int(offsets[-1]) == int(((flat_slot >= n_fixed) & (flat_mask > 0)).sum())
+
+
+def _plan_problem():
+    """The chain with padding points, dead slots, a camera in the middle whose
+    observations are all dead (6) and the last one, which no point reaches."""
+    pr = synthetic_global_problem(7, C=12, P=600, centre_sigma=0.03, point_sigma=0.03,
+                                  rot_sigma=0.01, drop=0.1, pad_to=680)
+    pr["obs_mask"][pr["cam_idx"] == 6] = 0.0
+    return _grids(pr)
+
+
+# tiles of at most 16 pairs: each camera (about 190 live pairs) spans many;
+# of 150: two each; of 4096: one tile holds every camera
+PLAN_TILES = [16, 150, 4096]
+
+
+@pytest.mark.parametrize("tile", PLAN_TILES)
+@pytest.mark.parametrize("n_fixed", [1, 2])
+def test_tile_plan_covers_each_live_pair_once_in_camera_major_order(tile, n_fixed):
+    _, gt = _plan_problem()
+    lay = gk.layout(gt)
+    index = gk.camera_index(lay.slotT, lay.maskT, 12, n_fixed, tile=tile)
+    c_adj = 12 - n_fixed
+    offsets = index.offsets.tolist()
+    n = offsets[-1]
+    start, seg_cam = index.seg_start.tolist(), index.seg_cam.tolist()
+    tile_seg, cam_seg = index.tile_seg.tolist(), index.cam_seg.tolist()
+    assert start[0] == 0 and start[-1] == n and n % tile != 0
+    assert all(a < b for a, b in zip(start, start[1:]))     # no empty segment
+    # each segment lies in one camera's run of the pair list: the pairs list
+    # every live pair of an adjustable camera once, camera-major
+    flat_slot, flat_mask = lay.slotT.reshape(-1).long(), lay.maskT.reshape(-1)
+    covered = torch.cat([index.pairs[start[k]:start[k + 1]].long() for k in range(len(seg_cam))])
+    want = torch.nonzero((flat_slot >= n_fixed) & (flat_mask > 0)).reshape(-1)
+    assert torch.equal(torch.sort(covered).values, want) and covered.numel() == n
+    for k, a in enumerate(seg_cam):
+        assert offsets[a] <= start[k] and start[k + 1] <= offsets[a + 1]
+        assert bool((flat_slot[index.pairs[start[k]:start[k + 1]].long()] == a + n_fixed).all())
+    # each camera's segments, in order; the two without live pairs have none
+    assert cam_seg[0] == 0 and cam_seg[-1] == len(seg_cam) and len(cam_seg) == c_adj + 1
+    for a in range(c_adj):
+        mine = range(cam_seg[a], cam_seg[a + 1])
+        assert all(seg_cam[k] == a for k in mine)
+        count = offsets[a + 1] - offsets[a]
+        # a camera is cut only when it has more than `tile` pairs, into as
+        # few near-equal segments as fit
+        assert len(mine) == (-(-count // tile) if count > tile else int(count > 0))
+        if len(mine) > 1:
+            sizes = [start[k + 1] - start[k] for k in mine]
+            assert max(sizes) - min(sizes) <= 1
+    assert cam_seg[6 - n_fixed] == cam_seg[7 - n_fixed] and cam_seg[-2] == cam_seg[-1]
+    # tiles of at most `tile` pairs, each made of consecutive segments; a
+    # segment of a cut camera is a tile of its own
+    assert tile_seg[0] == 0 and tile_seg[-1] == len(seg_cam)
+    for t in range(len(tile_seg) - 1):
+        k0, k1 = tile_seg[t], tile_seg[t + 1]
+        assert k0 < k1 and start[k1] - start[k0] <= tile
+        if k1 - k0 > 1:
+            assert all(cam_seg[seg_cam[k] + 1] - cam_seg[seg_cam[k]] == 1 for k in range(k0, k1))
+    spans = [b - a for a, b in zip(cam_seg, cam_seg[1:])]
+    assert {16: max(spans) > 8, 150: max(spans) == 2, 4096: len(tile_seg) == 2}[tile]
+    # the scratch of one solve
+    assert index.carry.shape == (len(seg_cam), 54) and not index.ticket.any()
+    assert index.z.shape == (3, 680) and index.out.shape == (c_adj, 6)
+
+
+@pytest.fixture(scope="module")
+def pallas_setup():
+    gj, gt = _plan_problem()
+    return gt, _setup_outputs_interp(gj, LAM, 1, pregather=False)
+
+
+@pytest.mark.parametrize("tile", PLAN_TILES)
+def test_tiled_camera_sum_matches_camera_sum_and_the_pallas_setup(pallas_setup, tile):
+    """The kernels' order of the per-camera sums, on the plain version's
+    per-slot rows: within float32 rounding of ``_camera_sum`` (norm-wise per
+    scale group; zeros exactly where a camera has no live pair), and against
+    the Pallas setup in interpret mode within the bound of
+    ``test_setup_plain_matches_the_pallas_setup_in_interpret_mode``."""
+    gt, ((_, _, _, red_j), _) = pallas_setup
+    lay = gk.layout(gt, DELTA)
+    index = gk.camera_index(lay.slotT, lay.maskT, 12, 1, tile=tile)
+    YT, VinvT, _, rows, live = gk._setup_rows(
+        gk.camera_rows(gt.rvecs, gt.tvecs, True), gt.points.T.contiguous(), lay.slotT, lay.maskT,
+        lay.uvT, lay.pmask, gk.with_lambda(lay.scal, LAM), 1)
+    tiled = gk.tiled_camera_sum(rows, index)
+    plain = gk._camera_sum(rows, lay.slotT, live, 1, 11)
+    for name, lanes in gk.red_lane_groups().items():
+        assert _rel(tiled[:, lanes].numpy(), plain[:, lanes].numpy()) <= 1e-6, name
+    for a in (5, 10):                      # cameras 6 and 11: no live pair
+        assert not tiled[a].any() and not plain[a].any()
+    for sl in (gk._RED_U, gk._RED_GC, gk._RED_WZ, gk._RED_DO):
+        assert _rel(tiled[:, sl].numpy(), np.asarray(red_j)[:, sl]) <= 1e-4
+    # the matvec's 6 lanes in the same order
+    x = torch.as_tensor(np.random.default_rng(2).normal(0, 1e-2, (11, 6)).astype(np.float32))
+    w2, _ = gk._matvec_rows(YT, VinvT, lay.slotT, lay.maskT, x, 1)
+    out = gk.tiled_camera_sum(w2, index)
+    want = gk.matvec_plain(YT, VinvT, lay.slotT, lay.maskT, x, 1)
+    assert _rel(out[:, :3].numpy(), want[:, :3].numpy()) <= 1e-6
+    assert _rel(out[:, 3:].numpy(), want[:, 3:].numpy()) <= 1e-6

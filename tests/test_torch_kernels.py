@@ -23,7 +23,9 @@ rotation and translation rows, the ten groups of
 lanes): a camera's rotation lanes are larger than its translation lanes by the
 scene's depth, and one norm over all 54 lanes of the reduction would hide an
 error as large as the small lanes.  The kernels contract to FMA and add each
-camera's rows in list order where the plain versions add by ``index_put_``.
+camera's pairs over tiles of the pair list (``ba_global_kernel.
+tiled_camera_sum`` is their order) where the plain versions add by
+``index_put_``.
 The widest gap is Y's: a pixel residual is the difference of two numbers near
 600, so it carries about 1e-3 px of rounding, and the Huber weight 1/|r| of a
 residual of a pixel or two carries that relatively.  Measured on one H100 at
@@ -454,7 +456,7 @@ def test_global_kernels_are_deterministic(card):
     for _ in range(2):
         s = gk.setup(cam, ptT, lay.slotT, lay.maskT, lay.uvT, lay.pmask, scal, n_fixed, index)
         runs.append(s + (
-            gk.matvec(s[0], s[1], lay.slotT, lay.maskT, x, n_fixed, index),
+            gk.matvec(s[0], s[1], lay.slotT, lay.maskT, x, n_fixed, index).clone(),
             gk.backsub(s[0], s[1], s[2], lay.slotT, lay.maskT, x, n_fixed),
             gk.cost(gk.camera_rows(g.rvecs, g.tvecs, False), ptT, lay.slotT, lay.maskT,
                     lay.uvT, lay.scal)))
@@ -563,3 +565,80 @@ def test_global_wrappers_check_what_the_kernels_do_not_take(card):
         gk.setup(cam.cpu(), *args[1:], index)
     with pytest.raises(ValueError, match="gate"):
         gk.setup(*args[:7], 37, index)
+
+
+# K4's tile plan at its edges: C, n_pts, P, n_fixed, a camera whose
+# observations are all dead.  With C = 4 every camera sees every point, so at
+# n_fixed = C - 1 the one adjustable camera spans all the tiles; the third has
+# a camera without pairs in the middle and the last camera, which no point
+# reaches; none has a pair count that is a multiple of the tile.
+K4_EDGES = [(4, 20000, 20480, 1, None), (4, 20000, 20480, 3, None),
+            (37, 1531, 1777, 1, 10)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", K4_EDGES,
+                         ids=[f"C{c}P{p}n_fixed{n}" for c, _, p, n, _ in K4_EDGES])
+def test_global_tile_edges_match_plain_on_the_card(card, edge):
+    C, n_pts, P, n_fixed, no_pairs = edge
+    g = _global_grid(card, 26, C, n_pts, P, drop=0.15 if P % 128 else 0.0)
+    if no_pairs is not None:
+        g = g._replace(mask=torch.where(g.cam_slot == no_pairs, torch.zeros_like(g.mask), g.mask))
+    lay = gk.layout(g)
+    index = gk.camera_index(lay.slotT, lay.maskT, C, n_fixed)
+    n_tiles = index.tile_seg.shape[0] - 1
+    assert int(index.offsets[-1]) % gk.PAIR_TILE != 0
+    if n_fixed == C - 1:
+        assert index.cam_seg.tolist() == [0, n_tiles] and n_tiles > 1
+    empty = [a for a in range(C - n_fixed) if index.cam_seg[a] == index.cam_seg[a + 1]]
+    if no_pairs is not None:
+        assert no_pairs - n_fixed in empty and C - 1 - n_fixed in empty
+    ptT = g.points.T.contiguous()
+    scal = gk.with_lambda(lay.scal, 1e-3)
+    cam = gk.camera_rows(g.rvecs, g.tvecs, True)
+    x = torch.as_tensor(np.random.default_rng(C).normal(0, 1e-2, (C - n_fixed, 6))
+                        .astype(np.float32), device=card)
+    k = gk.setup(cam, ptT, lay.slotT, lay.maskT, lay.uvT, lay.pmask, scal, n_fixed, index)
+    p = gk.setup_plain(cam, ptT, lay.slotT, lay.maskT, lay.uvT, lay.pmask, scal, n_fixed)
+    torch.cuda.synchronize()
+    D = lay.slotT.shape[0]
+    for rows in (slice(0, 3), slice(3, 6)):
+        assert _rel(k[0].reshape(D, 6, 3, -1)[:, rows],
+                    p[0].reshape(D, 6, 3, -1)[:, rows]) <= 2e-3, rows
+    assert _rel(k[1], p[1]) <= 1e-3 and _rel(k[2], p[2]) <= 1e-3
+    for name, lanes in gk.red_lane_groups().items():
+        assert _rel(k[3][:, lanes], p[3][:, lanes]) <= RED_GROUP_TOL, \
+            (name, _rel(k[3][:, lanes], p[3][:, lanes]))
+    a = gk.matvec(p[0], p[1], lay.slotT, lay.maskT, x, n_fixed, index).clone()
+    b = gk.matvec_plain(p[0], p[1], lay.slotT, lay.maskT, x, n_fixed)
+    assert _rel(a[:, :3], b[:, :3]) <= 2e-5 and _rel(a[:, 3:], b[:, 3:]) <= 2e-5
+    # a camera without pairs: exact zeros
+    for e in empty:
+        assert not k[3][e].any() and not a[e].any()
+    # repeat launches: equal bits
+    k2 = gk.setup(cam, ptT, lay.slotT, lay.maskT, lay.uvT, lay.pmask, scal, n_fixed, index)
+    a2 = gk.matvec(p[0], p[1], lay.slotT, lay.maskT, x, n_fixed, index)
+    torch.cuda.synchronize()
+    for u, v in zip(k + (a,), k2 + (a2,)):
+        assert torch.equal(u, v)
+    assert not index.ticket.any()          # every counter is back at 0
+
+
+@pytest.mark.cuda
+def test_global_matvec_is_one_call_and_allocates_nothing(card):
+    """A CG iteration's matvec: one launch counted, no allocation (the
+    result is the index's scratch), and the kernels' tile CTA is the one
+    ``tiled_camera_sum`` assumes."""
+    g, lay, index, ptT, x, n_fixed = _k4_inputs(card, K4_SHAPES[0])
+    YT, VinvT, _, _ = gk.setup(gk.camera_rows(g.rvecs, g.tvecs, True), ptT, lay.slotT, lay.maskT,
+                               lay.uvT, lay.pmask, gk.with_lambda(lay.scal, 1e-3), n_fixed, index)
+    gk.matvec(YT, VinvT, lay.slotT, lay.maskT, x, n_fixed, index)
+    torch.cuda.synchronize()
+    launches = kernels.LAUNCHES[gk.MATVEC]
+    allocated = torch.cuda.memory_stats()["allocation.all.allocated"]
+    out = gk.matvec(YT, VinvT, lay.slotT, lay.maskT, x, n_fixed, index)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == allocated
+    assert kernels.LAUNCHES[gk.MATVEC] == launches + 1
+    assert out.data_ptr() == index.out.data_ptr()
+    assert kernels.library_const(gk.SETUP, "ba_global_tile_threads") == gk.TILE_THREADS
