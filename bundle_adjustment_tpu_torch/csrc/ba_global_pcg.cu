@@ -33,9 +33,10 @@
 // (ops/ba_global_kernel.camera_index) the camera-major list of the live
 // (slot, point) pairs of adjustable cameras (`pairs`, entry d*P + p; a stable
 // sort, since cam_slot and mask do not change during a solve) and a tile plan
-// over it: the list is cut into tiles of a fixed number of pairs, and where a
-// camera's pairs end, into segments, so that each segment lies in one tile
-// and belongs to one camera (`seg_start`, `seg_cam`; `tile_seg` lists each
+// over it: segments of one camera each, in tiles of at most a fixed number of
+// pairs.  A camera with more pairs than that is cut into near-equal
+// segments, each a tile of its own; the others are whole segments, packed in
+// camera order into tiles (`seg_start`, `seg_cam`; `tile_seg` lists each
 // tile's segments, `cam_seg` each camera's).  One CTA of kTileThreads takes a
 // tile.  For each of its segments in turn, thread i forms in registers the
 // lanes of the segment's pairs i, i + kTileThreads, ... of the tile and adds
@@ -52,9 +53,10 @@
 // Each of setup and matvec is a per-point kernel and a per-tile kernel on the
 // same stream, the second launched with programmatic stream serialization
 // (Hopper's programmatic dependent launch): the first lets it launch at once
-// (griddepcontrol.launch_dependents), the second waits (griddepcontrol.wait)
-// before it reads what the first wrote, so its launch and CTA placement
-// overlap the first's tail.
+// (griddepcontrol.launch_dependents); the second loads what does not depend
+// on the first (its part of the plan; in matvec the pairs' Y blocks) and
+// waits (griddepcontrol.wait) before it reads what the first wrote, so its
+// launch and those loads overlap the first kernel.
 //
 // A slot is dead when its mask is 0 or its camera index lies outside [0, C):
 // it is skipped, adds exact zeros as the masked one-hot does, and whatever
@@ -79,11 +81,8 @@
 // tiles spread each camera's pairs over all SMs; a camera's share no longer
 // decides the time of one CTA.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -479,99 +478,38 @@ __device__ __forceinline__ void pair_terms(const SetupArgs& g, int pair, int a, 
 
 // The per-tile kernel: the 54 lanes of each pair from its slot's terms (the
 // Jacobians again, which costs less than storing them), the point's V^-1 and
-// z_p; reduced per camera over the tile.  Its registers are bounded for
-// kMinBlocks CTAs per SM.  The forms measured against each other: kReadY,
-// the pair's Y block read from the per-point kernel's output instead of
-// formed again; kTwoPass, U and g_c formed and summed before
-// griddepcontrol.wait (they need nothing of the per-point kernel), W V^-1 g_p
-// and W V^-1 W^T after it.  Form 0 (the C entry's `form`) is
-// <false, false, 2>.
-template <bool kTwoPass, bool kReadY, int kMinBlocks>
-__global__ void __launch_bounds__(kTileThreads, kMinBlocks)
+// z_p; reduced per camera over the tile.  Its registers are bounded for two
+// CTAs per SM.
+__global__ void __launch_bounds__(kTileThreads, 2)
 setup_tiles_kernel(Plan pl, SetupArgs g) {
   __shared__ float part[kTileWarps * 64];
-  __shared__ float lanes[kRed];
-  const int P = g.P;
   prefetch_plan(pl, blockIdx.x);
-  if constexpr (!kTwoPass) {
-    pdl_wait();
-    segment_sums<kRed>(pl, blockIdx.x, part,
-        [&](int, int pair, int a, float (&acc)[kRed]) {
-          SlotTerms s;
-          int d, p;
-          pair_terms(g, pair, a, s, d, p);
-          float Ys[6][3];
-          if constexpr (kReadY) {
-            const float* Yd = g.Y + (size_t)(d * 18) * P + p;
-#pragma unroll
-            for (int i = 0; i < 6; ++i)
-#pragma unroll
-              for (int l = 0; l < 3; ++l) Ys[i][l] = __ldcg(Yd + (size_t)(i * 3 + l) * P);
-          } else {
-            coupling_block(s, Ys);
-          }
-          float iv[6], z[3];
-#pragma unroll
-          for (int e = 0; e < 6; ++e) iv[e] = __ldcg(g.Vinv + (size_t)e * P + p);
-#pragma unroll
-          for (int l = 0; l < 3; ++l) z[l] = __ldcg(g.zp + (size_t)l * P + p);
-          float lo[27], hi[27];
-#pragma unroll
-          for (int i = 0; i < 27; ++i) lo[i] = hi[i] = 0.0f;
-          u_gc_lanes(s, lo);
-          wz_do_lanes(Ys, iv, z, hi);
-#pragma unroll
-          for (int i = 0; i < 27; ++i) {
-            acc[i] += lo[i];
-            acc[27 + i] += hi[i];
-          }
-        },
-        [&](int k, int a, float v) { finish_segment<kRed>(pl, k, a, v, g.red); });
-    return;
-  }
-  segment_sums<27>(pl, blockIdx.x, part,
-      [&](int, int pair, int a, float (&acc)[27]) {
+  pdl_wait();
+  const int P = g.P;
+  segment_sums<kRed>(pl, blockIdx.x, part,
+      [&](int, int pair, int a, float (&acc)[kRed]) {
         SlotTerms s;
         int d, p;
         pair_terms(g, pair, a, s, d, p);
-        u_gc_lanes(s, acc);
-      },
-      [&](int k, int, float v) {
-        if (threadIdx.x < 27) pl.carry[(size_t)k * kRed + threadIdx.x] = v;
-      });
-  pdl_wait();
-  segment_sums<27>(pl, blockIdx.x, part,
-      [&](int, int pair, int a, float (&acc)[27]) {
-        int d, p;
         float Ys[6][3];
-        if constexpr (!kReadY) {
-          SlotTerms s;
-          pair_terms(g, pair, a, s, d, p);
-          coupling_block(s, Ys);
-        } else {
-          d = pair / P;
-          p = pair - d * P;
-          const float* Yd = g.Y + (size_t)(d * 18) * P + p;
-#pragma unroll
-          for (int i = 0; i < 6; ++i)
-#pragma unroll
-            for (int l = 0; l < 3; ++l) Ys[i][l] = __ldcg(Yd + (size_t)(i * 3 + l) * P);
-        }
+        coupling_block(s, Ys);
         float iv[6], z[3];
 #pragma unroll
         for (int e = 0; e < 6; ++e) iv[e] = __ldcg(g.Vinv + (size_t)e * P + p);
 #pragma unroll
         for (int l = 0; l < 3; ++l) z[l] = __ldcg(g.zp + (size_t)l * P + p);
-        wz_do_lanes(Ys, iv, z, acc);
-      },
-      [&](int k, int a, float v) {
-        if (threadIdx.x < 27) {                // this thread wrote lane i of pass one
-          lanes[threadIdx.x] = pl.carry[(size_t)k * kRed + threadIdx.x];
-          lanes[27 + threadIdx.x] = v;
+        float lo[27], hi[27];
+#pragma unroll
+        for (int i = 0; i < 27; ++i) lo[i] = hi[i] = 0.0f;
+        u_gc_lanes(s, lo);
+        wz_do_lanes(Ys, iv, z, hi);
+#pragma unroll
+        for (int i = 0; i < 27; ++i) {
+          acc[i] += lo[i];
+          acc[27 + i] += hi[i];
         }
-        __syncthreads();
-        finish_segment<kRed>(pl, k, a, threadIdx.x < kRed ? lanes[threadIdx.x] : 0.0f, g.red);
-      });
+      },
+      [&](int k, int a, float v) { finish_segment<kRed>(pl, k, a, v, g.red); });
 }
 
 // ---------------------------------------------------------------------------
@@ -640,17 +578,16 @@ matvec_points_kernel(const float* __restrict__ Y, const float* __restrict__ Vinv
   for (int l = 0; l < 3; ++l) z[(size_t)l * P + p] = zz[l];
 }
 
-// Y does not change during the CG loop: with kPrefetch (form 0) each
-// thread loads the Y blocks of its first two pairs of the tile before
-// griddepcontrol.wait, beside the per-point kernel, and after it only z.
-template <bool kPrefetch>
+// Y does not change during the CG loop: each thread loads the Y blocks of
+// its first two pairs of the tile before griddepcontrol.wait, beside the
+// per-point kernel, and after it only z.
 __global__ void __launch_bounds__(kTileThreads)
 matvec_tiles_kernel(Plan pl, const float* __restrict__ Y, const float* z, int P,
                     float* __restrict__ out) {
   __shared__ float part[kTileWarps * 64];
   float y0[18], y1[18];
   int p0 = 0, p1 = 0;
-  if constexpr (kPrefetch) {
+  {
     prefetch_plan(pl, blockIdx.x);
     const int t = blockIdx.x;
     const int lo = pl.seg_start[pl.tile_seg[t]], hi = pl.seg_start[pl.tile_seg[t + 1]];
@@ -661,9 +598,9 @@ matvec_tiles_kernel(Plan pl, const float* __restrict__ Y, const float* z, int P,
   pdl_wait();
   segment_sums<6>(pl, blockIdx.x, part,
       [&](int r, int pair, int, float (&acc)[6]) {
-        if (kPrefetch && r == 0) {
+        if (r == 0) {
           matvec_lanes(y0, z, P, p0, acc);
-        } else if (kPrefetch && r == 1) {
+        } else if (r == 1) {
           matvec_lanes(y1, z, P, p1, acc);
         } else {
           float yd[18];
@@ -673,33 +610,6 @@ matvec_tiles_kernel(Plan pl, const float* __restrict__ Y, const float* z, int P,
         }
       },
       [&](int k, int a, float v) { finish_segment<6>(pl, k, a, v, out); });
-}
-
-// Form 3: both phases in one cooperative launch, a grid-wide barrier
-// between them; each phase strides over its points or tiles.
-__global__ void __launch_bounds__(kTileThreads)
-matvec_coop_kernel(Plan pl, const float* __restrict__ Y, const float* __restrict__ Vinv,
-                   const int* __restrict__ slot, const float* __restrict__ mask,
-                   const float* __restrict__ x, const int* __restrict__ cam_seg, int C, int P,
-                   int D, int n_fixed, int n_tiles, float* z, float* __restrict__ out) {
-  __shared__ float part[kTileWarps * 64];
-  zero_pairless(cam_seg, C - n_fixed, 6, out);
-  for (int p = blockIdx.x * kTileThreads + threadIdx.x; p < P; p += gridDim.x * kTileThreads) {
-    float zz[3];
-    coupling_z(Y, Vinv, slot, mask, x, C, P, D, n_fixed, p, zz);
-#pragma unroll
-    for (int l = 0; l < 3; ++l) z[(size_t)l * P + p] = zz[l];
-  }
-  cg::this_grid().sync();
-  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x)
-    segment_sums<6>(pl, t, part,
-        [&](int, int pair, int, float (&acc)[6]) {
-          float yd[18];
-          int p;
-          load_y(Y, P, pair, yd, p);
-          matvec_lanes(yd, z, P, p, acc);
-        },
-        [&](int k, int a, float v) { finish_segment<6>(pl, k, a, v, out); });
 }
 
 __global__ void __launch_bounds__(kPointThreads)
@@ -775,10 +685,10 @@ inline bool bad_shape(int C, int P, int D, int n_fixed) {
 inline int point_blocks(int P, int threads) { return (P + threads - 1) / threads; }
 
 // Launch `kernel` on `blocks` CTAs of `threads` after the kernel launched
-// just before it on `st`; with `pdl` by programmatic dependent launch.
+// just before it on `st`, by programmatic dependent launch.
 template <class... Params, class... Args>
 cudaError_t launch_after(void (*kernel)(Params...), int blocks, int threads, cudaStream_t st,
-                         bool pdl, Args... args) {
+                         Args... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(blocks, 1, 1);
   cfg.blockDim = dim3(threads, 1, 1);
@@ -788,7 +698,7 @@ cudaError_t launch_after(void (*kernel)(Params...), int blocks, int threads, cud
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = pdl ? 1 : 0;
+  cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
@@ -802,16 +712,13 @@ Plan make_plan(const void* pairs, const void* seg_start, const void* seg_cam,
 
 // Per LM iteration: Y, V^-1, z_p and the (C', 54) camera reduction `red`.
 // The plan (pairs .. cam_seg, n_tiles) and its scratch (carry of n_seg * 54
-// floats, ticket of C' zeros) come from camera_index.  `form` selects the
-// tile kernel: 0 <false, false, 2> (setup_tiles_kernel's template), 1 <false,
-// true, 1>, 2 <false, false, 1>, 3 <true, true, 2>, 4 <true, true, 3>, 5
-// <true, false, 2>, 6 as 0 without programmatic dependent launch.
+// floats, ticket of C' zeros) come from camera_index.
 extern "C" int ba_global_setup(const void* cam, const void* pt, const void* slot,
                                const void* mask, const void* uv, const void* pmask,
                                const void* scal, const void* pairs, const void* seg_start,
                                const void* seg_cam, const void* tile_seg, const void* cam_seg,
                                void* carry, void* ticket, int C, int P, int D, int n_fixed,
-                               int n_tiles, int form, void* Y, void* Vinv, void* zp,
+                               int n_tiles, void* Y, void* Vinv, void* zp,
                                void* red, void* stream) {
   if (bad_shape(C, P, D, n_fixed) || n_tiles < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
@@ -825,72 +732,29 @@ extern "C" int ba_global_setup(const void* cam, const void* pt, const void* slot
   const SetupArgs g = {(const float*)cam, (const float*)pt, (const float*)mask, (const float*)uv,
                        (const float*)scal, P, n_fixed, (const float*)Y, (const float*)Vinv,
                        (const float*)zp, (float*)red};
-  auto* kernel = form == 1   ? setup_tiles_kernel<false, true, 1>
-                 : form == 2 ? setup_tiles_kernel<false, false, 1>
-                 : form == 3 ? setup_tiles_kernel<true, true, 2>
-                 : form == 4 ? setup_tiles_kernel<true, true, 3>
-                 : form == 5 ? setup_tiles_kernel<true, false, 2>
-                             : setup_tiles_kernel<false, false, 2>;
-  err = launch_after(kernel, n_tiles, kTileThreads, st, form != 6, pl, g);
+  err = launch_after(setup_tiles_kernel, n_tiles, kTileThreads, st, pl, g);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 // Per CG iteration: out (C', 6) = W V^-1 W^T x.  `z` is scratch of 3*P
-// floats, `carry` of n_seg * 6, `ticket` C' zeros.  `form` 0: Y prefetched
-// before the wait; 1: not prefetched; 2: as 0 without programmatic dependent
-// launch; 3: one cooperative launch (matvec_coop_kernel), which raises when
-// its grid cannot be resident at once.
+// floats, `carry` of n_seg * 6, `ticket` C' zeros.
 extern "C" int ba_global_matvec(const void* Y, const void* Vinv, const void* slot,
                                 const void* mask, const void* x, const void* pairs,
                                 const void* seg_start, const void* seg_cam,
                                 const void* tile_seg, const void* cam_seg, void* carry,
                                 void* ticket, int C, int P, int D, int n_fixed, int n_tiles,
-                                int form, void* z, void* out, void* stream) {
+                                void* z, void* out, void* stream) {
   if (bad_shape(C, P, D, n_fixed) || n_tiles < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (form == 3) {
-    static int resident = 0;          // CTAs of the cooperative kernel that fit at once
-    if (resident == 0) {
-      int dev = 0, sms = 0, per_sm = 0;
-      cudaError_t e = cudaGetDevice(&dev);
-      if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-      if (e == cudaSuccess)
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, matvec_coop_kernel,
-                                                          kTileThreads, 0);
-      if (e != cudaSuccess) return (int)e;
-      resident = sms * per_sm;
-    }
-    int grid = point_blocks(P, kTileThreads);
-    if (n_tiles > grid) grid = n_tiles;
-    if (grid > resident) grid = resident;
-    const Plan pl = make_plan(pairs, seg_start, seg_cam, tile_seg, cam_seg, carry, ticket);
-    const float* Yp = (const float*)Y;
-    const float* Vp = (const float*)Vinv;
-    const int* sp = (const int*)slot;
-    const float* mp = (const float*)mask;
-    const float* xp = (const float*)x;
-    const int* cs = (const int*)cam_seg;
-    float* zq = (float*)z;
-    float* op = (float*)out;
-    void* args[] = {(void*)&pl, (void*)&Yp, (void*)&Vp, (void*)&sp, (void*)&mp, (void*)&xp,
-                    (void*)&cs, (void*)&C, (void*)&P, (void*)&D, (void*)&n_fixed,
-                    (void*)&n_tiles, (void*)&zq, (void*)&op};
-    const cudaError_t err = cudaLaunchCooperativeKernel((const void*)matvec_coop_kernel,
-                                                        dim3(grid), dim3(kTileThreads), args, 0,
-                                                        st);
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaGetLastError();
-  }
   matvec_points_kernel<<<point_blocks(P, kPointThreads), kPointThreads, 0, st>>>(
       (const float*)Y, (const float*)Vinv, (const int*)slot, (const float*)mask,
       (const float*)x, (const int*)cam_seg, C, P, D, n_fixed, (float*)z, (float*)out);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_tiles == 0) return (int)err;
   const Plan pl = make_plan(pairs, seg_start, seg_cam, tile_seg, cam_seg, carry, ticket);
-  err = launch_after(form == 1 ? matvec_tiles_kernel<false> : matvec_tiles_kernel<true>, n_tiles,
-                     kTileThreads, st, form != 2, pl, (const float*)Y, (const float*)z, P,
-                     (float*)out);
+  err = launch_after(matvec_tiles_kernel, n_tiles, kTileThreads, st, pl, (const float*)Y,
+                     (const float*)z, P, (float*)out);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

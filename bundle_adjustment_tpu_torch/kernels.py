@@ -41,9 +41,9 @@ KERNELS = {
     "ba_window_lm": ("ba_window_lm.cu", "ba_window_lm",
                      [_P] * 8 + [_I] * 5 + [_F] * 8 + [_P] * 6),
     "ba_global_setup": ("ba_global_pcg.cu", "ba_global_setup",
-                        [_P] * 14 + [_I] * 6 + [_P] * 5),
+                        [_P] * 14 + [_I] * 5 + [_P] * 5),
     "ba_global_matvec": ("ba_global_pcg.cu", "ba_global_matvec",
-                         [_P] * 12 + [_I] * 6 + [_P] * 3),
+                         [_P] * 12 + [_I] * 5 + [_P] * 3),
     "ba_global_backsub": ("ba_global_pcg.cu", "ba_global_backsub",
                           [_P] * 6 + [_I] * 4 + [_P] * 2),
     "ba_global_cost": ("ba_global_pcg.cu", "ba_global_cost",

@@ -38,12 +38,13 @@ Per-camera sums.  The TPU kernels scatter with one-hot matmuls into an
 output that the sequential grid accumulates.  Here ``camera_index`` builds,
 once per solve, the camera-major list of live (slot, point) pairs of
 adjustable cameras (a stable sort, so the order is fixed) and a tile plan over
-it: tiles of ``PAIR_TILE`` pairs, cut where a camera's pairs end into
-segments of one camera each.  The kernels' per-tile pass forms each pair's
-lanes in registers and sums each segment in a fixed order; a camera that
-spans several segments has their sums added in segment order
-(``tiled_camera_sum`` is that order on tensors, for the tests).  No float
-atomics: two solves of one problem give the same bits.  The plan's scratch
+it (``_packed_plan``): segments of one camera each, in tiles of at most
+``PAIR_TILE`` pairs; a camera of more pairs spans several tiles.  The
+kernels' per-tile pass forms each pair's lanes in registers and sums each
+segment in a fixed order; a camera that spans several segments has their
+sums added in segment order (``tiled_camera_sum`` is that order on tensors,
+for the tests).  No float atomics: two solves of one problem give the same
+bits.  The plan's scratch
 (the segments' sums, a counter per camera, the matvec's z and output) is
 allocated with it, so a CG iteration's ``matvec`` allocates nothing.
 
@@ -83,11 +84,6 @@ PAIR_TILE = 768
 #: threads of the kernels' per-tile CTA (``kTileThreads``): the order of the
 #: per-camera sums depends on it
 TILE_THREADS = 256
-# the forms measured against each other on the card (csrc/ba_global_pcg.cu,
-# the C entry points' `form`; 0 is the design kept) and the fixed-tile plan
-PACK = True
-SETUP_FORM = 0
-MATVEC_FORM = 0
 _F32, _I32 = torch.float32, torch.int32
 
 # lanes of the setup reduction, (C', 54): symmetric 6x6 blocks are packed as
@@ -191,12 +187,10 @@ def _packed_plan(counts, tile: int):
     return seg_len, seg_cam, seg_tile
 
 
-def camera_index(slotT, maskT, C: int, n_fixed: int, tile: int = PAIR_TILE,
-                 pack: bool = PACK) -> CameraIndex:
+def camera_index(slotT, maskT, C: int, n_fixed: int, tile: int = PAIR_TILE) -> CameraIndex:
     """Built once per solve: cam_slot and mask do not change during one.
-    The tiles hold ``tile`` pairs each (the last one fewer); with ``pack``
-    at most ``tile``, cut where a camera ends (``_packed_plan``).  One host
-    read (the cameras' pair counts)."""
+    Tiles of at most ``tile`` pairs (``_packed_plan``); one host read (the
+    cameras' pair counts)."""
     D, P = slotT.shape
     c_adj = C - n_fixed
     dev = slotT.device
@@ -206,22 +200,13 @@ def camera_index(slotT, maskT, C: int, n_fixed: int, tile: int = PAIR_TILE,
     order = torch.sort(key, stable=True).indices
     counts = torch.bincount(key, minlength=c_adj + 1)[:c_adj]
     offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
-    if pack:
-        seg_len, seg_cam, seg_tile = _packed_plan(counts.tolist(), tile)
-        starts = torch.cumsum(torch.tensor([0] + seg_len[:-1], dtype=torch.long), 0).to(dev)
-        n = int(sum(seg_len))
-        seg_cam = torch.tensor(seg_cam, dtype=torch.long, device=dev)
-        tile_seg = torch.searchsorted(torch.tensor(seg_tile, dtype=torch.long, device=dev),
-                                      torch.arange((seg_tile[-1] + 2) if seg_tile else 1,
-                                                   device=dev))
-    else:
-        n = int(offsets[-1])
-        # segments start at every tile start and at every camera's first pair
-        tile_starts = torch.arange(0, n, tile, device=dev)
-        starts = torch.unique(torch.cat([tile_starts, offsets[:-1][offsets[:-1] < n]]))
-        seg_cam = torch.searchsorted(offsets[1:], starts, right=True)
-        tile_seg = torch.searchsorted(starts, torch.arange(0, len(tile_starts) + 1,
-                                                           device=dev) * tile)
+    seg_len, seg_cam, seg_tile = _packed_plan(counts.tolist(), tile)
+    n = sum(seg_len)
+    starts = torch.cumsum(torch.tensor([0] + seg_len[:-1], dtype=torch.long), 0).to(dev)
+    seg_cam = torch.tensor(seg_cam, dtype=torch.long, device=dev)
+    n_tiles = seg_tile[-1] + 1 if seg_tile else 0
+    tile_seg = torch.searchsorted(torch.tensor(seg_tile, dtype=torch.long, device=dev),
+                                  torch.arange(n_tiles + 1, device=dev))
     cam_seg = torch.searchsorted(seg_cam, torch.arange(c_adj + 1, device=dev))
     i32 = dict(dtype=_I32, device=dev)
     return CameraIndex(
@@ -229,7 +214,7 @@ def camera_index(slotT, maskT, C: int, n_fixed: int, tile: int = PAIR_TILE,
         seg_start=torch.cat([starts, starts.new_full((1,), n)]).to(_I32).contiguous(),
         seg_cam=seg_cam.to(_I32).contiguous(), tile_seg=tile_seg.to(_I32).contiguous(),
         cam_seg=cam_seg.to(_I32).contiguous(),
-        carry=torch.empty((len(starts), _RED_COLS), dtype=_F32, device=dev),
+        carry=torch.empty((len(seg_len), _RED_COLS), dtype=_F32, device=dev),
         ticket=torch.zeros(c_adj, **i32),
         z=torch.empty((3, P), dtype=_F32, device=dev),
         out=torch.empty((c_adj, 6), dtype=_F32, device=dev))
@@ -538,7 +523,7 @@ def setup(cam, ptT, slotT, maskT, uvT, pmask, scal, n_fixed: int,
     zp = torch.empty((3, P), dtype=_F32, device=dev)
     red = torch.empty((C - n_fixed, _RED_COLS), dtype=_F32, device=dev)
     _launch(SETUP, dev, cam, ptT, slotT, maskT, uvT, pmask, scal, *_plan_args(index),
-            C, P, D, n_fixed, index.tile_seg.shape[0] - 1, SETUP_FORM, Y, Vinv, zp, red)
+            C, P, D, n_fixed, index.tile_seg.shape[0] - 1, Y, Vinv, zp, red)
     return Y, Vinv, zp, red
 
 
@@ -556,7 +541,7 @@ def matvec(YT, VinvT, slotT, maskT, x, n_fixed: int, index: Optional[CameraIndex
     dev = x.device
     _check_index(index, D, P, c_adj, dev)
     _launch(MATVEC, dev, YT, VinvT, slotT, maskT, x, *_plan_args(index), c_adj + n_fixed, P, D,
-            n_fixed, index.tile_seg.shape[0] - 1, MATVEC_FORM, index.z, index.out)
+            n_fixed, index.tile_seg.shape[0] - 1, index.z, index.out)
     return index.out
 
 

@@ -609,7 +609,7 @@ def check_global(torch, np, mods, seed: int, dev) -> dict:
 
 K_NAMES = ("knn2_split_kernel", "knn2_merge_kernel", "gather40_kernel", "ba_window_lm_kernel",
            "setup_points_kernel", "setup_tiles_kernel", "matvec_points_kernel",
-           "matvec_tiles_kernel", "matvec_coop_kernel", "backsub_points_kernel",
+           "matvec_tiles_kernel", "backsub_points_kernel",
            "cost_points_kernel", "cost_final_kernel")
 
 
@@ -751,9 +751,7 @@ def k4_times(torch, seed: int, dev) -> dict:
     device ms per call under the profiler (the sum over the role's kernels
     of ms per record) with the fewest records of one of its kernels in 20
     calls, the device span per call (``device_spans``) and the time per call
-    queued behind a sleeping kernel (``queued_ms``).  On a tree that has
-    them, the forms and tile plans measured against each other as well
-    (``csrc/ba_global_pcg.cu``'s `form` arguments)."""
+    queued behind a sleeping kernel (``queued_ms``)."""
     import numpy as np
 
     from bundle_adjustment_tpu_torch.ops import ba_global_kernel as gk
@@ -807,20 +805,6 @@ def k4_times(torch, seed: int, dev) -> dict:
         return out
 
     out = measure(gk.camera_index(lay.slotT, lay.maskT, C, n_fixed), "", "")
-    if hasattr(gk, "MATVEC_FORM"):
-        defaults = gk.SETUP_FORM, gk.MATVEC_FORM
-        runs = [(768, True, 0, 0), (768, True, 1, 1), (768, True, 2, 2), (768, True, 3, 3),
-                (768, True, 4, 0), (768, True, 5, 0), (768, True, 6, 0),
-                (512, True, 0, 0), (1024, True, 0, 0), (256, False, 0, 0),
-                (512, False, 0, 0), (1024, False, 0, 0)]
-        try:
-            for tile, pack, form_a, form_b in runs:
-                index = gk.camera_index(lay.slotT, lay.maskT, C, n_fixed, tile=tile, pack=pack)
-                gk.SETUP_FORM, gk.MATVEC_FORM = form_a, form_b
-                tag = f"_tile{tile}{'_packed' if pack else ''}_form"
-                out.update(measure(index, f"{tag}{form_a}", f"{tag}{form_b}"))
-        finally:
-            gk.SETUP_FORM, gk.MATVEC_FORM = defaults
     return out
 
 
