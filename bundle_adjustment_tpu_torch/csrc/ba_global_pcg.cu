@@ -77,9 +77,9 @@
 // pair's 54 lanes again from the point's V^-1 and z_p (the slot's Jacobians
 // are recomputed, not stored), so its scratch is the tiles' carries, a few
 // hundred KB, where one row of 54 lanes per slot would be 28 MB out and back.
-// Matvec's tile kernel reads Y again for the pairs (9.4 MB, from L2).  The
-// tiles spread each camera's pairs over all SMs; a camera's share no longer
-// decides the time of one CTA.
+// Matvec's tile kernel reads Y again for the pairs (9.4 MB, from L2), before
+// it waits.  A camera of many pairs spreads over several CTAs, so no one
+// camera's share decides the time of the pass.
 
 #include <cuda_runtime.h>
 #include <math.h>

@@ -44,9 +44,9 @@ kernels' per-tile pass forms each pair's lanes in registers and sums each
 segment in a fixed order; a camera that spans several segments has their
 sums added in segment order (``tiled_camera_sum`` is that order on tensors,
 for the tests).  No float atomics: two solves of one problem give the same
-bits.  The plan's scratch
-(the segments' sums, a counter per camera, the matvec's z and output) is
-allocated with it, so a CG iteration's ``matvec`` allocates nothing.
+bits.  The plan's scratch (the segments' sums, a counter per camera, the
+matvec's z and output) is allocated with it, so a CG iteration's ``matvec``
+allocates nothing.
 
 The shape gate.  ``1 <= D <= 12`` is the range the slot loops are held to,
 as on the TPU; ``0 <= n_fixed < C``; and the memory that lives between the
@@ -201,21 +201,17 @@ def camera_index(slotT, maskT, C: int, n_fixed: int, tile: int = PAIR_TILE) -> C
     counts = torch.bincount(key, minlength=c_adj + 1)[:c_adj]
     offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
     seg_len, seg_cam, seg_tile = _packed_plan(counts.tolist(), tile)
-    n = sum(seg_len)
-    starts = torch.cumsum(torch.tensor([0] + seg_len[:-1], dtype=torch.long), 0).to(dev)
-    seg_cam = torch.tensor(seg_cam, dtype=torch.long, device=dev)
     n_tiles = seg_tile[-1] + 1 if seg_tile else 0
-    tile_seg = torch.searchsorted(torch.tensor(seg_tile, dtype=torch.long, device=dev),
-                                  torch.arange(n_tiles + 1, device=dev))
-    cam_seg = torch.searchsorted(seg_cam, torch.arange(c_adj + 1, device=dev))
-    i32 = dict(dtype=_I32, device=dev)
+    seg_cam = torch.tensor(seg_cam, dtype=torch.long)
+    plan = dict(seg_start=torch.cumsum(torch.tensor([0] + seg_len), 0), seg_cam=seg_cam,
+                tile_seg=torch.searchsorted(torch.tensor(seg_tile, dtype=torch.long),
+                                            torch.arange(n_tiles + 1)),
+                cam_seg=torch.searchsorted(seg_cam, torch.arange(c_adj + 1)))
     return CameraIndex(
         pairs=order.to(_I32).contiguous(), offsets=offsets.to(_I32).contiguous(),
-        seg_start=torch.cat([starts, starts.new_full((1,), n)]).to(_I32).contiguous(),
-        seg_cam=seg_cam.to(_I32).contiguous(), tile_seg=tile_seg.to(_I32).contiguous(),
-        cam_seg=cam_seg.to(_I32).contiguous(),
+        **{k: v.to(device=dev, dtype=_I32).contiguous() for k, v in plan.items()},
         carry=torch.empty((len(seg_len), _RED_COLS), dtype=_F32, device=dev),
-        ticket=torch.zeros(c_adj, **i32),
+        ticket=torch.zeros(c_adj, dtype=_I32, device=dev),
         z=torch.empty((3, P), dtype=_F32, device=dev),
         out=torch.empty((c_adj, 6), dtype=_F32, device=dev))
 

@@ -786,7 +786,7 @@ def k4_times(torch, seed: int, dev) -> dict:
         def matvec_call():
             return gk.matvec(YT, VinvT, lay.slotT, lay.maskT, x, n_fixed, index)
 
-        # each form's widest gap to the plain version (red per scale group)
+        # the widest gap to the plain version (red per scale group)
         out = {f"k4a{tag_a}_gap": max(gap(red[:, lanes], plain[3][:, lanes])
                                       for lanes in gk.red_lane_groups().values()),
                f"k4b{tag_b}_gap": max(
