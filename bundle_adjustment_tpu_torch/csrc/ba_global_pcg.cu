@@ -53,10 +53,9 @@
 // Each of setup and matvec is a per-point kernel and a per-tile kernel on the
 // same stream, the second launched with programmatic stream serialization
 // (Hopper's programmatic dependent launch): the first lets it launch at once
-// (griddepcontrol.launch_dependents); the second loads what does not depend
-// on the first (its part of the plan; in matvec the pairs' Y blocks) and
-// waits (griddepcontrol.wait) before it reads what the first wrote, so its
-// launch and those loads overlap the first kernel.
+// (griddepcontrol.launch_dependents), the second waits (griddepcontrol.wait)
+// before it reads anything, so its launch and CTA placement overlap the
+// first's tail.
 //
 // A slot is dead when its mask is 0 or its camera index lies outside [0, C):
 // it is skipped, adds exact zeros as the masked one-hot does, and whatever
@@ -77,9 +76,9 @@
 // pair's 54 lanes again from the point's V^-1 and z_p (the slot's Jacobians
 // are recomputed, not stored), so its scratch is the tiles' carries, a few
 // hundred KB, where one row of 54 lanes per slot would be 28 MB out and back.
-// Matvec's tile kernel reads Y again for the pairs (9.4 MB, from L2), before
-// it waits.  A camera of many pairs spreads over several CTAs, so no one
-// camera's share decides the time of the pass.
+// Matvec's tile kernel reads Y again for the pairs (9.4 MB, from L2).  A
+// camera of many pairs spreads over several CTAs, so no one camera's share
+// decides the time of the pass.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -180,23 +179,21 @@ __device__ float block_sum_scatter(const float (&v)[N], float* part) {
 }
 
 // For each segment k of tile t in turn: each thread adds, through
-// `lanes(r, pair, a, acc)`, the N lanes of its pairs of the segment (`r` is
-// the pair's round in the tile: the thread's pairs are tile pairs
-// threadIdx.x + r * kTileThreads), the CTA sums the threads, and
-// `done(k, a, s)` takes thread i's sum of lane i.  `part` is shared memory
-// of kTileWarps * 64 floats.
+// `lanes(pair, a, acc)`, the N lanes of its pairs of the segment (tile pairs
+// threadIdx.x, threadIdx.x + kTileThreads, ...), the CTA sums the threads,
+// and `done(k, a, s)` takes thread i's sum of lane i.  `part` is shared
+// memory of kTileWarps * 64 floats.
 template <int N, class Lanes, class Done>
 __device__ void segment_sums(const Plan& pl, int t, float* part, Lanes lanes, Done done) {
   const int k0 = pl.tile_seg[t], k1 = pl.tile_seg[t + 1];
   int pos = pl.seg_start[k0] + threadIdx.x;
-  int r = 0;
   for (int k = k0; k < k1; ++k) {
     const int hi = pl.seg_start[k + 1];
     const int a = pl.seg_cam[k];
     float acc[N];
 #pragma unroll
     for (int i = 0; i < N; ++i) acc[i] = 0.0f;
-    for (; pos < hi; pos += kTileThreads, ++r) lanes(r, pl.pairs[pos], a, acc);
+    for (; pos < hi; pos += kTileThreads) lanes(pl.pairs[pos], a, acc);
     __syncthreads();                      // the last segment's shared memory is read
     float s;
     if constexpr (N > 8)
@@ -234,18 +231,6 @@ __device__ void finish_segment(const Plan& pl, int k, int a, float v, float* __r
       out[(size_t)a * N + threadIdx.x] = sum;
     }
     if (threadIdx.x == 0) pl.ticket[a] = 0;
-  }
-}
-
-// Before griddepcontrol.wait: bring tile t's part of the plan into L1, so
-// that the per-segment lookups after it do not wait on L2.
-__device__ __forceinline__ void prefetch_plan(const Plan& pl, int t) {
-  const int k0 = pl.tile_seg[t], k1 = pl.tile_seg[t + 1];
-  for (int k = k0 + (int)threadIdx.x; k < k1; k += kTileThreads) {
-    asm volatile("prefetch.global.L1 [%0];" ::"l"(pl.seg_start + k + 1));
-    const int a = pl.seg_cam[k];
-    asm volatile("prefetch.global.L1 [%0];" ::"l"(pl.cam_seg + a));
-    asm volatile("prefetch.global.L1 [%0];" ::"l"(pl.cam_seg + a + 1));
   }
 }
 
@@ -483,11 +468,10 @@ __device__ __forceinline__ void pair_terms(const SetupArgs& g, int pair, int a, 
 __global__ void __launch_bounds__(kTileThreads, 2)
 setup_tiles_kernel(Plan pl, SetupArgs g) {
   __shared__ float part[kTileWarps * 64];
-  prefetch_plan(pl, blockIdx.x);
   pdl_wait();
   const int P = g.P;
   segment_sums<kRed>(pl, blockIdx.x, part,
-      [&](int, int pair, int a, float (&acc)[kRed]) {
+      [&](int pair, int a, float (&acc)[kRed]) {
         SlotTerms s;
         int d, p;
         pair_terms(g, pair, a, s, d, p);
@@ -578,36 +562,17 @@ matvec_points_kernel(const float* __restrict__ Y, const float* __restrict__ Vinv
   for (int l = 0; l < 3; ++l) z[(size_t)l * P + p] = zz[l];
 }
 
-// Y does not change during the CG loop: each thread loads the Y blocks of
-// its first two pairs of the tile before griddepcontrol.wait, beside the
-// per-point kernel, and after it only z.
 __global__ void __launch_bounds__(kTileThreads)
 matvec_tiles_kernel(Plan pl, const float* __restrict__ Y, const float* z, int P,
                     float* __restrict__ out) {
   __shared__ float part[kTileWarps * 64];
-  float y0[18], y1[18];
-  int p0 = 0, p1 = 0;
-  {
-    prefetch_plan(pl, blockIdx.x);
-    const int t = blockIdx.x;
-    const int lo = pl.seg_start[pl.tile_seg[t]], hi = pl.seg_start[pl.tile_seg[t + 1]];
-    const int pos = lo + threadIdx.x;
-    if (pos < hi) load_y(Y, P, pl.pairs[pos], y0, p0);
-    if (pos + kTileThreads < hi) load_y(Y, P, pl.pairs[pos + kTileThreads], y1, p1);
-  }
   pdl_wait();
   segment_sums<6>(pl, blockIdx.x, part,
-      [&](int r, int pair, int, float (&acc)[6]) {
-        if (r == 0) {
-          matvec_lanes(y0, z, P, p0, acc);
-        } else if (r == 1) {
-          matvec_lanes(y1, z, P, p1, acc);
-        } else {
-          float yd[18];
-          int p;
-          load_y(Y, P, pair, yd, p);
-          matvec_lanes(yd, z, P, p, acc);
-        }
+      [&](int pair, int, float (&acc)[6]) {
+        float yd[18];
+        int p;
+        load_y(Y, P, pair, yd, p);
+        matvec_lanes(yd, z, P, p, acc);
       },
       [&](int k, int a, float v) { finish_segment<6>(pl, k, a, v, out); });
 }
