@@ -11,7 +11,8 @@
 //   ba_global_matvec   _matvec_kernel_gather, _matvec_kernel_pre_skip
 //                      (body _coupling_body)
 //   ba_global_backsub  _backsub_kernel_gather, _backsub_kernel_skipg
-//   ba_global_cost     _cost_kernel_gather, _cost_kernel_skipg (_cost_body)
+//   ba_global_cost     _cost_kernel_gather, _cost_kernel_skipg (_cost_body):
+//                      one launch, a last-CTA ticket for the cross-CTA sum
 //
 // The LM control, the PCG recurrences, Rodrigues and the (C', 6)-sized camera
 // algebra stay outside, in ops/ba_global_kernel.py, as they stay outside the
@@ -89,6 +90,7 @@ constexpr int kPointThreads = 128;   // per-point passes
 constexpr int kTileThreads = 256;    // per-tile pass
 constexpr int kTileWarps = kTileThreads / 32;
 constexpr int kCostThreads = 256;
+constexpr int kCostPairs = 2;        // (slot, point) pairs per thread of the cost
 constexpr int kCam = 39;             // R 9, dR 27, t 3
 constexpr int kCamC = 12;            // R 9, t 3
 constexpr int kRed = 54;
@@ -591,54 +593,87 @@ backsub_points_kernel(const float* __restrict__ Y, const float* __restrict__ Vin
 }
 
 // ---------------------------------------------------------------------------
-// cost: per-block partial sums of rho and r^2 in a fixed order, then one
-// block adds the blocks' partials in block order.
+// cost: one launch.  Thread i of the grid takes the pairs i and i + (grid
+// threads) of the (slot, point) list, entry d*P + p, so a warp reads a run of
+// one slot row; it issues every load of its pairs (slot, mask, uv, point)
+// before any arithmetic, then reads each live pair's camera row through the
+// read-only path (a warp's pairs see a few cameras, whose rows stay in L1;
+// staging the (C, 12) table in shared memory in every CTA measured 10 %
+// slower on one H100 at C = 200).  Each CTA sums its threads' rho and r^2 in a fixed tree
+// (block_sum), writes its two partials and takes a ticket; the CTA that takes
+// the last ticket adds the partials in block order, writes out and sets the
+// ticket back to 0.  No float atomics: two launches on one input give the
+// same bits.
 // ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(kCostThreads)
-cost_points_kernel(const float* __restrict__ camc, const float* __restrict__ pt,
-                   const int* __restrict__ slot, const float* __restrict__ mask,
-                   const float* __restrict__ uv, const float* __restrict__ scal, int C, int P,
-                   int D, float* __restrict__ partial) {
+cost_kernel(const float* __restrict__ camc, const float* __restrict__ pt,
+            const int* __restrict__ slot, const float* __restrict__ mask,
+            const float* __restrict__ uv, const float* __restrict__ scal, int C, int P, int D,
+            float* __restrict__ partial, int* __restrict__ ticket, float* __restrict__ out) {
   __shared__ float part[(kCostThreads / 32) * 2];
-  const int p = blockIdx.x * kCostThreads + threadIdx.x;
-  float acc[2] = {0.0f, 0.0f};
-  if (p < P) {
-    const Intrinsics k = {scal[0], scal[1], scal[2], scal[3]};
-    const float delta = scal[5];
-    const float X[3] = {pt[p], pt[(size_t)P + p], pt[(size_t)2 * P + p]};
-    for (int d = 0; d < D; ++d) {
-      int c;
-      float m;
-      if (!slot_live(slot, mask, C, P, d, p, c, m)) continue;
-      const float* cr = camc + (size_t)c * kCamC;
-      const float uvd[2] = {uv[(size_t)(2 * d) * P + p], uv[(size_t)(2 * d + 1) * P + p]};
-      float Xc[3], inv_z, r[2];
-      slot_residual(cr, cr + 9, X, uvd, m, k, Xc, inv_z, r);
+  __shared__ int s_last;
+  const int n = D * P;
+  const int stride = gridDim.x * kCostThreads;
+  const int first = blockIdx.x * kCostThreads + threadIdx.x;
+  int c[kCostPairs];
+  float m[kCostPairs], uvd[kCostPairs][2] = {}, X[kCostPairs][3] = {};
 #pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const float av = fabsf(r[q]);
-        const float quad = r[q] * r[q];
-        acc[0] += av <= delta ? quad : 2.0f * delta * av - delta * delta;
-        acc[1] += quad;
-      }
+  for (int k = 0; k < kCostPairs; ++k) {
+    const int i = first + k * stride;
+    m[k] = 0.0f;
+    c[k] = 0;
+    if (i < n) {
+      const int d = i / P, p = i - d * P;
+      m[k] = mask[i];
+      c[k] = slot[i];
+      uvd[k][0] = uv[i + (size_t)d * P];
+      uvd[k][1] = uv[i + (size_t)(d + 1) * P];
+      X[k][0] = pt[p];
+      X[k][1] = pt[(size_t)P + p];
+      X[k][2] = pt[(size_t)2 * P + p];
+    }
+  }
+  const Intrinsics kk = {scal[0], scal[1], scal[2], scal[3]};
+  const float delta = scal[5];
+  float acc[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int k = 0; k < kCostPairs; ++k) {
+    if (!(m[k] != 0.0f && (unsigned)c[k] < (unsigned)C)) continue;
+    float cr[kCamC];
+#pragma unroll
+    for (int e = 0; e < kCamC; ++e) cr[e] = __ldg(camc + (size_t)c[k] * kCamC + e);
+    float Xc[3], inv_z, r[2];
+    slot_residual(cr, cr + 9, X[k], uvd[k], m[k], kk, Xc, inv_z, r);
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const float av = fabsf(r[q]);
+      const float quad = r[q] * r[q];
+      acc[0] += av <= delta ? quad : 2.0f * delta * av - delta * delta;
+      acc[1] += quad;
     }
   }
   const float s = block_sum<2, kCostThreads>(acc, part);
-  if (threadIdx.x < 2) partial[(size_t)blockIdx.x * 2 + threadIdx.x] = s;
-}
-
-__global__ void __launch_bounds__(kCostThreads)
-cost_final_kernel(const float* __restrict__ partial, int n_blocks, float* __restrict__ out) {
-  __shared__ float part[(kCostThreads / 32) * 2];
-  float acc[2] = {0.0f, 0.0f};
-  for (int b = threadIdx.x; b < n_blocks; b += kCostThreads) {
-    acc[0] += partial[(size_t)b * 2];
-    acc[1] += partial[(size_t)b * 2 + 1];
+  if (threadIdx.x < 2) {
+    partial[(size_t)blockIdx.x * 2 + threadIdx.x] = s;
+    __threadfence();
   }
-  const float s = block_sum<2, kCostThreads>(acc, part);
-  if (threadIdx.x == 0) out[0] = 0.5f * s;
-  if (threadIdx.x == 1) out[1] = s;
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(ticket, 1) == (int)gridDim.x - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();                        // every CTA's partials are in memory
+  float tot[2] = {0.0f, 0.0f};
+  for (int b = threadIdx.x; b < (int)gridDim.x; b += kCostThreads) {
+    tot[0] += __ldcg(partial + (size_t)b * 2);
+    tot[1] += __ldcg(partial + (size_t)b * 2 + 1);
+  }
+  const float t = block_sum<2, kCostThreads>(tot, part);
+  if (threadIdx.x == 0) {
+    out[0] = 0.5f * t;
+    *ticket = 0;
+  }
+  if (threadIdx.x == 1) out[1] = t;
 }
 
 inline bool bad_shape(int C, int P, int D, int n_fixed) {
@@ -736,22 +771,25 @@ extern "C" int ba_global_backsub(const void* Y, const void* Vinv, const void* zp
   return (int)cudaGetLastError();
 }
 
-// out (2,) = 0.5 * sum rho(r), sum r^2.  `partial` is scratch of
-// 2 * ceil(P / 256) floats.
+// out (2,) = 0.5 * sum rho(r), sum r^2, in one launch.  `partial` is scratch
+// of 2 * n_partial floats, at least 2 per CTA (ba_global_cost_pairs_per_block
+// pairs each); `ticket` one int, 0 between launches.
 extern "C" int ba_global_cost(const void* camc, const void* pt, const void* slot,
                               const void* mask, const void* uv, const void* scal, int C,
-                              int P, int D, void* partial, void* out, void* stream) {
+                              int P, int D, int n_partial, void* partial, void* ticket,
+                              void* out, void* stream) {
   if (bad_shape(C, P, D, 0)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int n_blocks = point_blocks(P, kCostThreads);
-  cost_points_kernel<<<n_blocks, kCostThreads, 0, st>>>(
+  const int n_blocks = point_blocks(D * P, kCostThreads * kCostPairs);
+  if (n_blocks > n_partial) return (int)cudaErrorInvalidValue;
+  cost_kernel<<<n_blocks, kCostThreads, 0, (cudaStream_t)stream>>>(
       (const float*)camc, (const float*)pt, (const int*)slot, (const float*)mask,
-      (const float*)uv, (const float*)scal, C, P, D, (float*)partial);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  cost_final_kernel<<<1, kCostThreads, 0, st>>>((const float*)partial, n_blocks, (float*)out);
+      (const float*)uv, (const float*)scal, C, P, D, (float*)partial, (int*)ticket,
+      (float*)out);
   return (int)cudaGetLastError();
 }
+
+// (Slot, point) pairs of one CTA of the cost: the size of its partials.
+extern "C" int ba_global_cost_pairs_per_block() { return kCostThreads * kCostPairs; }
 
 // Threads of a tile CTA: the order of the per-camera sums depends on it.
 extern "C" int ba_global_tile_threads() { return kTileThreads; }

@@ -13,7 +13,10 @@ returns a CUDA error.
 
 ``LAUNCHES`` counts launches per kernel: a wrapper adds one where it
 launches, and nowhere else, so a run can show that it went through the
-kernels.
+kernels.  A wrapper called while its stream is captured into a CUDA graph
+launches nothing then; the graph's replays launch its kernels, and the code
+that replays it adds the captured launches at each replay
+(``ops/ba_global_kernel``).
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ KERNELS = {
     "ba_global_backsub": ("ba_global_pcg.cu", "ba_global_backsub",
                           [_P] * 6 + [_I] * 4 + [_P] * 2),
     "ba_global_cost": ("ba_global_pcg.cu", "ba_global_cost",
-                       [_P] * 6 + [_I] * 3 + [_P] * 3),
+                       [_P] * 6 + [_I] * 4 + [_P] * 4),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}

@@ -3,11 +3,12 @@ Levenberg-Marquardt (port of ``bundle_adjustment_tpu.ops.ba``).
 
 Same problem layout (BAProblem), Huber IRLS weights, Marquardt damping,
 closed-form 3x3 point elimination, dense reduced camera system, LM
-accept/reject with ftol/xtol.  ``segment_sum`` becomes an accumulating
-``index_put_`` (a fixed order of summation on the card).  The
-LM loop is a Python loop that reads its stop flag once per iteration; the
-matrix-free PCG camera solve (``_pcg_blocked``, ``cg_iters > 0``) is a Python
-loop that reads its stop flag once per CG iteration.
+accept/reject with ftol/xtol.  ``segment_sum`` becomes a sum in a fixed
+order on either device (``_segment_sum``).  The LM loop is a Python loop that
+reads its stop flag once per iteration; the matrix-free PCG camera solve
+(``_pcg_blocked``, ``cg_iters > 0``) runs to its iteration cap with its
+updates masked once the residual test holds, as the reference's
+``while_loop`` stops, and reads nothing on the host.
 
 Not ported: the ``axis_name`` hook of the sharded solver, which raises
 ``NotImplementedError``.
@@ -47,11 +48,17 @@ class BAStats(NamedTuple):
 
 
 def _segment_sum(x, idx, n):
-    """Sum the rows of x by segment id.  ``index_put_`` with ``accumulate``
-    adds the rows of one segment in table order on the card (it sorts by
-    index, stably); ``index_add_`` there uses float atomics, whose order, and
-    so the sum's last bits, changes from run to run."""
+    """Sum the rows of x by segment id, in table order on either device.  On
+    the card ``index_put_`` with ``accumulate`` does that (it sorts by index,
+    stably), where ``index_add_`` uses float atomics, whose order, and so the
+    sum's last bits, changes from run to run.  On the CPU it is the other way
+    round: ``index_put_`` splits the rows over the torch threads and adds in
+    another order on each run, where ``index_add_`` adds the rows in table
+    order whatever the thread count (and is the faster of the two, and of a
+    stable sort with ``segment_reduce``, at the tests' sizes)."""
     out = torch.zeros((n,) + x.shape[1:], dtype=x.dtype, device=x.device)
+    if x.device.type == "cpu":
+        return out.index_add_(0, idx.long(), x)
     return out.index_put_((idx.long(),), x, accumulate=True)
 
 
@@ -153,14 +160,18 @@ def _damp(M, lam):
     return M + lam * (torch.diag_embed(diag) + 1e-6 * eye)
 
 
-def _pcg_blocked(matvec, b, Minv, iters, tol):
+def _pcg_blocked(matvec, b, Minv, iters, tol, live=None):
     """Preconditioned conjugate gradient on the reduced camera system,
     matrix-free.  ``b`` and the state are (C_adj, 6) block vectors; ``Minv``
     is the (C_adj, 6, 6) block-Jacobi preconditioner or a callable
-    r -> M^-1 r (grouped preconditioners, ``ops/ba_grid``).  Runs to
+    r -> M^-1 r (grouped preconditioners, ``ops/ba_grid``).  Stops at
     ``iters`` or a relative residual ``tol`` (a float or a 0-d tensor),
-    whichever comes first.  The stop flag is read on the host once per CG
-    iteration."""
+    whichever comes first, as the reference's ``while_loop`` does, done from
+    the start when b = 0.  The stop is a device flag: the loop always runs
+    ``iters`` iterations and keeps the state of the last live one, so ``x``
+    has the bits of a loop that leaves at the stop, and nothing is read on
+    the host.  ``live``, a 0-d integer tensor, has the number of live
+    iterations added to it."""
     if callable(Minv):
         apply_precond = Minv
     else:
@@ -171,22 +182,26 @@ def _pcg_blocked(matvec, b, Minv, iters, tol):
     r = b
     p = apply_precond(r)
     rz = torch.sum(r * p)
-    # b = 0 needs no branch: the first iteration then leaves x at 0 and stops
     floor = torch.full_like(rz, 1e-30)
     stop = tol * torch.clamp(bnorm, min=1e-30)
-    for it in range(iters):
+    done = bnorm <= 0.0
+    for _ in range(iters):
+        if live is not None:
+            live += (~done).to(live.dtype)
         Ap = matvec(p)
         pAp = torch.sum(p * Ap)
         alpha = rz / torch.where(torch.abs(pAp) < 1e-30, floor, pAp)
-        x = x + alpha * p
-        r = r - alpha * Ap
-        z = apply_precond(r)
-        rz_new = torch.sum(r * z)
+        x_new = x + alpha * p
+        r_new = r - alpha * Ap
+        z = apply_precond(r_new)
+        rz_new = torch.sum(r_new * z)
         beta = rz_new / torch.where(torch.abs(rz) < 1e-30, floor, rz)
-        p = z + beta * p
-        rz = rz_new
-        if it + 1 < iters and bool(torch.sqrt(torch.sum(r * r)) <= stop):
-            break
+        p_new = z + beta * p
+        x = torch.where(done, x, x_new)
+        r = torch.where(done, r, r_new)
+        p = torch.where(done, p, p_new)
+        rz = torch.where(done, rz, rz_new)
+        done = done | (torch.sqrt(torch.sum(r * r)) <= stop)
     return x
 
 
@@ -279,9 +294,10 @@ def _solve_normal_equations(rvecs, tvecs, points, p: BAProblem, lam, delta, n_fi
 def lm_loop(step, cost_at, sq_at, rv, tv, pt, *, max_iterations, lambda_init,
             lambda_up, lambda_down, lambda_min, lambda_max, ftol, xtol,
             cg_tol=None, cg_forcing: bool = False):
-    """The LM accept/reject loop shared by the flat, grid and global-kernel
-    solvers.  ``step(rv, tv, pt, lam) -> (d_r, d_t, d_p)``.  Returns
-    (rv, tv, pt, BAStats).
+    """The LM accept/reject loop shared by the flat and grid solvers (the
+    global-BA kernels' solve runs the same iteration as a device body,
+    ``ba_global_kernel.GlobalLM``).  ``step(rv, tv, pt, lam) -> (d_r, d_t,
+    d_p)``.  Returns (rv, tv, pt, BAStats).
 
     With ``cg_tol`` set the step solves its camera system by PCG and the loop
     hands it the tolerance: ``step(rv, tv, pt, lam, tol) -> (d_r, d_t, d_p,

@@ -17,8 +17,19 @@ point of ``csrc/ba_global_pcg.cu``:
 Around them, in plain PyTorch as in the JAX package: Rodrigues and its
 derivative per camera, the (C', 6)-sized camera algebra (damping, the 6x6
 block inverses, the CG recurrences of ``ba._pcg_blocked``), and the LM
-accept/reject loop with Eisenstat-Walker forcing (``ba.lm_loop``).  Same LM
-semantics as ``ba_grid.ba_solve_grid_impl`` with ``cg_iters > 0``.
+accept/reject step with Eisenstat-Walker forcing.  Same LM semantics as
+``ba_grid.ba_solve_grid_impl`` with ``cg_iters > 0`` (``ba.lm_loop``).
+
+The loops on the device.  As the reference runs LM and CG as
+``while_loop``s in one dispatch, ``GlobalLM.body`` is one whole LM iteration
+on tensors that it updates in place (CG to its cap with its updates masked
+after the stop, ``ba._pcg_blocked``), with no host read and, on the card, no
+allocation by the kernels.  On the card ``solve`` runs the first iteration
+eagerly (it loads every kernel), captures the body once as a CUDA graph and
+replays it; the host reads the stop flag once per LM iteration.  Elsewhere,
+and with the plain roles, the same body runs eagerly.  On the card a solve
+reads the host ``iterations + 1`` times (``HOST_READS_OUTSIDE_LOOP``: the
+pair counts of ``camera_index``); each solve leaves a record in ``SOLVES``.
 
 Every wrapper launches its kernel for CUDA tensors and runs its plain
 version (``setup_plain``, ``matvec_plain``, ``backsub_plain``,
@@ -44,24 +55,29 @@ kernels' per-tile pass forms each pair's lanes in registers and sums each
 segment in a fixed order; a camera that spans several segments has their
 sums added in segment order (``tiled_camera_sum`` is that order on tensors,
 for the tests).  No float atomics: two solves of one problem give the same
-bits.  The plan's scratch (the segments' sums, a counter per camera, the
-matvec's z and output) is allocated with it, so a CG iteration's ``matvec``
-allocates nothing.
+bits.  The kernels' outputs and scratch (the segments' sums, a counter per
+camera, setup's Y, V^-1, z_p and reduction, the matvec's z and output,
+backsub's dp, the cost's per-CTA partials, counter and output) are
+allocated with it, so no role allocates on the card: each returns the
+index's buffers, which its next call overwrites.
 
 The shape gate.  ``1 <= D <= 12`` is the range the slot loops are held to,
 as on the TPU; ``0 <= n_fixed < C``; and the memory that lives between the
 passes of one LM iteration (``scratch_bytes``: per slot of a point 18 floats
-of Y and its entry in the pair list; per point V^-1, z_p and the matvec's z,
-12 floats; 54 floats per segment of the tile plan, at most one per tile and
-one per camera) stays within ``SCRATCH_LIMIT_BYTES`` = 4 GiB, which also
-keeps a pair index inside an int32.  The TPU gate's ``C <= 8192`` and its
+of Y and its entry in the pair list; per point V^-1, z_p, the matvec's z and
+dp, 15 floats; 54 floats per segment of the tile plan, at most one per tile
+and one per camera; 2 floats per CTA of the cost) stays within
+``SCRATCH_LIMIT_BYTES`` = 4 GiB, which also keeps a pair index inside an
+int32.  The TPU gate's ``C <= 8192`` and its
 tile planner (``_plan``, ``_vmem_bytes``, the live-chunk tables) answer VMEM
 limits and are not kept.
 """
 
 from __future__ import annotations
 
+import collections
 import functools
+import time
 from typing import NamedTuple, Optional
 
 import torch
@@ -84,6 +100,10 @@ PAIR_TILE = 768
 #: threads of the kernels' per-tile CTA (``kTileThreads``): the order of the
 #: per-camera sums depends on it
 TILE_THREADS = 256
+#: (slot, point) pairs of one CTA of the cost kernel: one partial pair each
+COST_PAIRS_PER_BLOCK = 512
+#: host reads of a solve besides one per LM iteration: ``camera_index``'s
+HOST_READS_OUTSIDE_LOOP = 1
 _F32, _I32 = torch.float32, torch.int32
 
 # lanes of the setup reduction, (C', 54): symmetric 6x6 blocks are packed as
@@ -117,18 +137,29 @@ def red_lane_groups() -> dict:
     return groups
 
 
+@functools.lru_cache(maxsize=None)
+def _sym6_index(device):
+    """The gather index of ``_unpack_sym6`` on ``device``, made once: a CUDA
+    graph's capture cannot copy it from the host."""
+    return torch.tensor([[_TRI6_IDX[(min(i, j), max(i, j))] for j in range(6)]
+                         for i in range(6)], device=device)
+
+
 def _unpack_sym6(tri):
     """(..., 21) packed upper triangle -> (..., 6, 6) symmetric blocks."""
-    idx = torch.tensor([[_TRI6_IDX[(min(i, j), max(i, j))] for j in range(6)]
-                        for i in range(6)], device=tri.device)
-    return tri[..., idx]
+    return tri[..., _sym6_index(tri.device)]
+
+
+def _cost_blocks(P: int, D: int) -> int:
+    return -(-D * P // COST_PAIRS_PER_BLOCK)
 
 
 def scratch_bytes(P: int, D: int, C: int = 1) -> int:
-    """Bytes of Y, the pair list, V^-1, z_p, the matvec's z and the tile
-    carries for (P, D) and C cameras (module docstring)."""
+    """Bytes of Y, the pair list, V^-1, z_p, the matvec's z, dp, the tile
+    carries and the cost's partials for (P, D) and C cameras (module
+    docstring)."""
     n_seg = -(-D * P // PAIR_TILE) + C
-    return 4 * (P * (D * (18 + 1) + 12) + _RED_COLS * n_seg)
+    return 4 * (P * (D * (18 + 1) + 15) + _RED_COLS * n_seg + 2 * _cost_blocks(P, D))
 
 
 def eligible_shape_global(C: int, P: int, D: int, n_fixed: int = 1) -> bool:
@@ -145,7 +176,7 @@ def kernel_eligible_global(grid: BAProblemGrid, n_fixed: int = 1) -> bool:
 
 class CameraIndex(NamedTuple):
     """The live (slot, point) pairs of adjustable cameras, camera-major, the
-    tile plan over them and the kernels' scratch for one solve."""
+    tile plan over them, and the kernels' outputs and scratch for one solve."""
     pairs: torch.Tensor     # (D*P,) int32, entry d*P + p; the tail is unused
     offsets: torch.Tensor   # (C' + 1,) int32, camera a owns pairs[off[a]:off[a+1]]
     seg_start: torch.Tensor  # (n_seg + 1,) int32, segment k is pairs[start[k]:start[k+1]]
@@ -156,6 +187,14 @@ class CameraIndex(NamedTuple):
     ticket: torch.Tensor    # (C',) int32 counters, 0 between launches
     z: torch.Tensor         # (3, P) scratch of ``matvec``
     out: torch.Tensor       # (C', 6) ``matvec``'s output, overwritten by its next call
+    Y: torch.Tensor         # (D*18, P) ``setup``'s outputs, Y ...
+    Vinv: torch.Tensor      # (6, P) ... V^-1 ...
+    zp: torch.Tensor        # (3, P) ... z_p ...
+    red: torch.Tensor       # (C', 54) ... and the camera reduction
+    dp: torch.Tensor        # (3, P) ``backsub``'s output
+    cost_partial: torch.Tensor  # (n_cost_blocks, 2) scratch of ``cost``
+    cost_ticket: torch.Tensor   # (1,) int32 counter, 0 between launches
+    cost_out: torch.Tensor  # (2,) ``cost``'s output
 
 
 def _packed_plan(counts, tile: int):
@@ -190,7 +229,7 @@ def _packed_plan(counts, tile: int):
 def camera_index(slotT, maskT, C: int, n_fixed: int, tile: int = PAIR_TILE) -> CameraIndex:
     """Built once per solve: cam_slot and mask do not change during one.
     Tiles of at most ``tile`` pairs (``_packed_plan``); one host read (the
-    cameras' pair counts)."""
+    cameras' pair counts, counted in ``COUNTERS``)."""
     D, P = slotT.shape
     c_adj = C - n_fixed
     dev = slotT.device
@@ -200,7 +239,7 @@ def camera_index(slotT, maskT, C: int, n_fixed: int, tile: int = PAIR_TILE) -> C
     order = torch.sort(key, stable=True).indices
     counts = torch.bincount(key, minlength=c_adj + 1)[:c_adj]
     offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
-    seg_len, seg_cam, seg_tile = _packed_plan(counts.tolist(), tile)
+    seg_len, seg_cam, seg_tile = _packed_plan(_host_list(counts), tile)
     n_tiles = seg_tile[-1] + 1 if seg_tile else 0
     seg_cam = torch.tensor(seg_cam, dtype=torch.long)
     plan = dict(seg_start=torch.cumsum(torch.tensor([0] + seg_len), 0), seg_cam=seg_cam,
@@ -213,7 +252,15 @@ def camera_index(slotT, maskT, C: int, n_fixed: int, tile: int = PAIR_TILE) -> C
         carry=torch.empty((len(seg_len), _RED_COLS), dtype=_F32, device=dev),
         ticket=torch.zeros(c_adj, dtype=_I32, device=dev),
         z=torch.empty((3, P), dtype=_F32, device=dev),
-        out=torch.empty((c_adj, 6), dtype=_F32, device=dev))
+        out=torch.empty((c_adj, 6), dtype=_F32, device=dev),
+        Y=torch.empty((D * 18, P), dtype=_F32, device=dev),
+        Vinv=torch.empty((6, P), dtype=_F32, device=dev),
+        zp=torch.empty((3, P), dtype=_F32, device=dev),
+        red=torch.empty((c_adj, _RED_COLS), dtype=_F32, device=dev),
+        dp=torch.empty((3, P), dtype=_F32, device=dev),
+        cost_partial=torch.empty((_cost_blocks(P, D), 2), dtype=_F32, device=dev),
+        cost_ticket=torch.zeros(1, dtype=_I32, device=dev),
+        cost_out=torch.empty(2, dtype=_F32, device=dev))
 
 
 class Layout(NamedTuple):
@@ -427,14 +474,15 @@ def matvec_plain(YT, VinvT, slotT, maskT, x, n_fixed: int, index=None):
     return _camera_sum(w2, slotT, live, n_fixed, x.shape[0])
 
 
-def backsub_plain(YT, VinvT, zpT, slotT, maskT, x, n_fixed: int):
-    """dp (3, P) = -(z_p + V^-1 W^T x)."""
+def backsub_plain(YT, VinvT, zpT, slotT, maskT, x, n_fixed: int, index=None):
+    """dp (3, P) = -(z_p + V^-1 W^T x); ``index`` is not read."""
     _, _, z = _coupling_z(YT, VinvT, slotT, maskT, x, n_fixed)
     return -(zpT + z.T)
 
 
-def cost_plain(camc, ptT, slotT, maskT, uvT, scal):
-    """(2,): 0.5 * sum rho(r) with Huber rho, and sum r^2."""
+def cost_plain(camc, ptT, slotT, maskT, uvT, scal, index=None):
+    """(2,): 0.5 * sum rho(r) with Huber rho, and sum r^2; ``index`` is not
+    read."""
     D, P = slotT.shape
     g, live = _gather(camc, slotT, maskT)
     _, _, _, r = _frame(g[..., :9].reshape(D, P, 3, 3), g[..., 9:], ptT, maskT, live,
@@ -492,18 +540,55 @@ def _plan_args(index: CameraIndex):
             index.carry, index.ticket)
 
 
+#: host reads made by this module (``camera_index`` and the LM loop's stop
+#: flag); ``SOLVES`` takes each solve's share
+COUNTERS = {"host_reads": 0}
+#: launches recorded while a CUDA graph is captured, per kernel (``_launch``)
+_CAPTURED = collections.Counter()
+#: one record per solve, newest last: LM iterations, host reads, graph
+#: replays, the live CG iterations as a device tensor (reading it is the
+#: caller's host read), and host seconds of the first iteration, the
+#: capture and the replays, each up to its read of the stop flag
+SOLVES = collections.deque(maxlen=64)
+
+
+@functools.lru_cache(maxsize=None)
+def _side_stream(device):
+    """The one stream per device on which solves warm up and capture their
+    LM body (a new stream per solve would give cuBLAS a new workspace each
+    time)."""
+    return torch.cuda.Stream(device)
+
+
+def _host_list(t):
+    COUNTERS["host_reads"] += 1
+    return t.tolist()
+
+
+def _host_bool(t) -> bool:
+    COUNTERS["host_reads"] += 1
+    return bool(t)
+
+
 def _launch(name: str, dev, *args):
+    """Launch kernel ``name`` on the current stream and count it: in
+    ``kernels.LAUNCHES``, or in ``_CAPTURED`` while the stream is captured
+    into a CUDA graph (nothing runs then; each replay adds the count)."""
     fn = kernels.library_fn(name)
     err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else int(a) for a in args),
              torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(name, err)
-    kernels.LAUNCHES[name] += 1
+    if torch.cuda.is_current_stream_capturing():
+        _CAPTURED[name] += 1
+    else:
+        kernels.LAUNCHES[name] += 1
 
 
 def setup(cam, ptT, slotT, maskT, uvT, pmask, scal, n_fixed: int,
           index: Optional[CameraIndex] = None):
     """The setup pass of one LM iteration.  Returns (Y (D*18, P), V^-1 (6, P),
-    z_p (3, P), red (C', 54))."""
+    z_p (3, P), red (C', 54)); for CUDA tensors the index's buffers, which
+    the next call overwrites."""
     if _kind(cam, ptT, slotT, maskT, uvT, pmask, scal) == "cpu":
         return setup_plain(cam, ptT, slotT, maskT, uvT, pmask, scal, n_fixed)
     C = cam.shape[0]
@@ -514,13 +599,10 @@ def setup(cam, ptT, slotT, maskT, uvT, pmask, scal, n_fixed: int,
            uvT=(uvT, (2 * D, P), _F32), pmask=(pmask, (P,), _F32), scal=(scal, (8,), _F32))
     dev = cam.device
     _check_index(index, D, P, C - n_fixed, dev)
-    Y = torch.empty((D * 18, P), dtype=_F32, device=dev)
-    Vinv = torch.empty((6, P), dtype=_F32, device=dev)
-    zp = torch.empty((3, P), dtype=_F32, device=dev)
-    red = torch.empty((C - n_fixed, _RED_COLS), dtype=_F32, device=dev)
     _launch(SETUP, dev, cam, ptT, slotT, maskT, uvT, pmask, scal, *_plan_args(index),
-            C, P, D, n_fixed, index.tile_seg.shape[0] - 1, Y, Vinv, zp, red)
-    return Y, Vinv, zp, red
+            C, P, D, n_fixed, index.tile_seg.shape[0] - 1, index.Y, index.Vinv, index.zp,
+            index.red)
+    return index.Y, index.Vinv, index.zp, index.red
 
 
 def matvec(YT, VinvT, slotT, maskT, x, n_fixed: int, index: Optional[CameraIndex] = None):
@@ -541,8 +623,10 @@ def matvec(YT, VinvT, slotT, maskT, x, n_fixed: int, index: Optional[CameraIndex
     return index.out
 
 
-def backsub(YT, VinvT, zpT, slotT, maskT, x, n_fixed: int):
-    """Point back-substitution dp (3, P) = -(z_p + V^-1 W^T x)."""
+def backsub(YT, VinvT, zpT, slotT, maskT, x, n_fixed: int,
+            index: Optional[CameraIndex] = None):
+    """Point back-substitution dp (3, P) = -(z_p + V^-1 W^T x); for CUDA
+    tensors ``index.dp``, which the next call overwrites."""
     if _kind(YT, VinvT, zpT, slotT, maskT, x) == "cpu":
         return backsub_plain(YT, VinvT, zpT, slotT, maskT, x, n_fixed)
     c_adj = x.shape[0]
@@ -551,13 +635,15 @@ def backsub(YT, VinvT, zpT, slotT, maskT, x, n_fixed: int):
     _check(YT=(YT, (D * 18, P), _F32), VinvT=(VinvT, (6, P), _F32), zpT=(zpT, (3, P), _F32),
            slotT=(slotT, (D, P), _I32), maskT=(maskT, (D, P), _F32), x=(x, (c_adj, 6), _F32))
     dev = x.device
-    dp = torch.empty((3, P), dtype=_F32, device=dev)
-    _launch(BACKSUB, dev, YT, VinvT, zpT, slotT, maskT, x, c_adj + n_fixed, P, D, n_fixed, dp)
-    return dp
+    _check_index(index, D, P, c_adj, dev)
+    _launch(BACKSUB, dev, YT, VinvT, zpT, slotT, maskT, x, c_adj + n_fixed, P, D, n_fixed,
+            index.dp)
+    return index.dp
 
 
-def cost(camc, ptT, slotT, maskT, uvT, scal):
-    """(2,): the Huber cost (times 0.5) and the raw squared cost."""
+def cost(camc, ptT, slotT, maskT, uvT, scal, index: Optional[CameraIndex] = None):
+    """(2,): the Huber cost (times 0.5) and the raw squared cost; for CUDA
+    tensors ``index.cost_out``, which the next call overwrites."""
     if _kind(camc, ptT, slotT, maskT, uvT, scal) == "cpu":
         return cost_plain(camc, ptT, slotT, maskT, uvT, scal)
     C = camc.shape[0]
@@ -567,10 +653,13 @@ def cost(camc, ptT, slotT, maskT, uvT, scal):
            slotT=(slotT, (D, P), _I32), maskT=(maskT, (D, P), _F32),
            uvT=(uvT, (2 * D, P), _F32), scal=(scal, (8,), _F32))
     dev = camc.device
-    partial = torch.empty((-(-P // 256), 2), dtype=_F32, device=dev)
-    out = torch.empty(2, dtype=_F32, device=dev)
-    _launch(COST, dev, camc, ptT, slotT, maskT, uvT, scal, C, P, D, partial, out)
-    return out
+    if index is None or index.cost_partial.device != dev \
+            or index.cost_partial.shape != (_cost_blocks(P, D), 2):
+        raise ValueError(f"index: CUDA tensors need the camera_index of a problem of D={D}, "
+                         f"P={P} on {dev}")
+    _launch(COST, dev, camc, ptT, slotT, maskT, uvT, scal, C, P, D,
+            index.cost_partial.shape[0], index.cost_partial, index.cost_ticket, index.cost_out)
+    return index.cost_out
 
 
 # ---------------------------------------------------------------------------
@@ -589,77 +678,197 @@ _KERNELS = _Roles(setup, matvec, backsub, cost)
 _PLAIN = _Roles(setup_plain, matvec_plain, backsub_plain, cost_plain)
 
 
-def solve(
-    grid: BAProblemGrid,
-    n_fixed: int = 1,
-    max_iterations: int = 50,
-    huber_delta: float = 1.0,
-    lambda_init: float = 1e-3,
-    lambda_up: float = 4.0,
-    lambda_down: float = 0.5,
-    lambda_min: float = 1e-10,
-    lambda_max: float = 1e8,
-    ftol: float = 1e-5,
-    xtol: float = 1e-5,
-    cg_iters: int = 8,
-    cg_tol: float = 1e-6,
-    cg_forcing: bool = True,
-    roles: _Roles = _KERNELS,
-):
-    """Global BA of ``grid`` through the four kernels: CUDA tensors launch
-    them, CPU tensors take their plain versions, any other device raises.
-    Returns (rvecs, tvecs, points, BAStats), as
-    ``ba_grid.ba_solve_grid_impl`` with ``cg_iters > 0``."""
-    _kind(*grid)
-    C = grid.rvecs.shape[0]
-    P, D = grid.cam_slot.shape
-    if not eligible_shape_global(C, P, D, n_fixed) or cg_iters < 1:
-        raise ValueError(f"problem of C={C}, P={P}, D={D}, n_fixed={n_fixed}, "
-                         f"cg_iters={cg_iters} is outside the kernels' gate "
-                         "(eligible_shape_global)")
-    dev = grid.rvecs.device
-    rv0, tv0 = grid.rvecs.to(_F32), grid.tvecs.to(_F32)
-    ptT0 = grid.points.to(_F32).T.contiguous()
-    slotT, maskT, uvT, pmask, scal0 = layout(grid, huber_delta)
-    index = camera_index(slotT, maskT, C, n_fixed) if dev.type == "cuda" else None
-    eye6 = torch.eye(6, dtype=_F32, device=dev)
+class GlobalLM:
+    """One global solve: its layout, ``camera_index`` (on the card), the LM
+    state as tensors (``state``: rv, tv, ptT, lambda, cost, b0, blast, done,
+    the live CG iterations) and ``body``, one LM iteration that updates the
+    state in place and reads nothing on the host.  ``run`` loops; ``solve``
+    is ``GlobalLM(...).run()``."""
 
-    def solve_step(rv, tv, ptT, lam, tol):
-        YT, VinvT, zpT, red = roles.setup(camera_rows(rv, tv, True), ptT, slotT, maskT, uvT,
-                                          pmask, with_lambda(scal0, lam), n_fixed, index)
+    def __init__(self, grid: BAProblemGrid, n_fixed: int = 1, max_iterations: int = 50,
+                 huber_delta: float = 1.0, lambda_init: float = 1e-3, lambda_up: float = 4.0,
+                 lambda_down: float = 0.5, lambda_min: float = 1e-10, lambda_max: float = 1e8,
+                 ftol: float = 1e-5, xtol: float = 1e-5, cg_iters: int = 8,
+                 cg_tol: float = 1e-6, cg_forcing: bool = True, roles: _Roles = _KERNELS):
+        _kind(*grid)
+        C = grid.rvecs.shape[0]
+        P, D = grid.cam_slot.shape
+        if not eligible_shape_global(C, P, D, n_fixed) or cg_iters < 1:
+            raise ValueError(f"problem of C={C}, P={P}, D={D}, n_fixed={n_fixed}, "
+                             f"cg_iters={cg_iters} is outside the kernels' gate "
+                             "(eligible_shape_global)")
+        self.opts = dict(max_iterations=max_iterations, lambda_up=lambda_up,
+                         lambda_down=lambda_down, lambda_min=lambda_min,
+                         lambda_max=lambda_max, ftol=ftol, xtol=xtol, cg_iters=cg_iters,
+                         cg_tol=cg_tol, cg_forcing=cg_forcing)
+        self.n_fixed, self.roles = n_fixed, roles
+        self.dev = dev = grid.rvecs.device
+        reads = COUNTERS["host_reads"]
+        self.lay = layout(grid, huber_delta)
+        self.index = camera_index(self.lay.slotT, self.lay.maskT, C, n_fixed) \
+            if dev.type == "cuda" else None
+        self.eye6 = torch.eye(6, dtype=_F32, device=dev)
+        # the state is updated in place: copies, never views of the caller's
+        rv = grid.rvecs.to(_F32).clone()
+        tv = grid.tvecs.to(_F32).clone()
+        ptT = grid.points.to(_F32).T.clone(memory_format=torch.contiguous_format)
+        init = self._cost(rv, tv, ptT)
+        self.initial = (init[0].clone(), init[1].clone())
+        self.state = dict(
+            rv=rv, tv=tv, ptT=ptT, lam=torch.full((), lambda_init, dtype=_F32, device=dev),
+            cost=init[0].clone(), b0=torch.full((), -1.0, dtype=_F32, device=dev),
+            blast=torch.full((), -1.0, dtype=_F32, device=dev),
+            done=torch.zeros((), dtype=torch.bool, device=dev),
+            cg_live=torch.zeros((), dtype=_I32, device=dev))
+        self.reads_before = reads
+
+    def _cost(self, rv, tv, ptT):
+        lay = self.lay
+        return self.roles.cost(camera_rows(rv, tv, False), ptT, lay.slotT, lay.maskT, lay.uvT,
+                               lay.scal, self.index)
+
+    def body(self):
+        """One LM iteration, ``ba.lm_loop``'s, on the state in place: the
+        forcing tolerance, setup, the camera algebra, masked CG, backsub,
+        the trial cost, accept/reject, lambda, b0/blast and the stop flag."""
+        s, o, lay, roles, n_fixed, index = (self.state, self.opts, self.lay, self.roles,
+                                            self.n_fixed, self.index)
+        rv, tv, ptT, lam, cost_, b0, blast = (s[k] for k in ("rv", "tv", "ptT", "lam", "cost",
+                                                               "b0", "blast"))
+        if o["cg_forcing"]:
+            tol = torch.where(
+                b0 > 0.0,
+                torch.clamp(torch.sqrt(blast / torch.clamp(b0, min=1e-30)),
+                            min=o["cg_tol"], max=0.1),
+                torch.full_like(b0, 0.1))
+        else:
+            tol = torch.full_like(b0, o["cg_tol"])
+        YT, VinvT, zpT, red = roles.setup(camera_rows(rv, tv, True), ptT, lay.slotT, lay.maskT,
+                                          lay.uvT, lay.pmask, with_lambda(lay.scal, lam),
+                                          n_fixed, index)
         U = ba_flat._damp(_unpack_sym6(red[:, _RED_U]), lam)
         b = -red[:, _RED_GC] + red[:, _RED_WZ]
-        Minv = _inv6(U - _unpack_sym6(red[:, _RED_DO]) + 1e-8 * eye6)
+        Minv = _inv6(U - _unpack_sym6(red[:, _RED_DO]) + 1e-8 * self.eye6)
 
         def camera_matvec(x):
-            return _mv(U, x) - roles.matvec(YT, VinvT, slotT, maskT, x.contiguous(),
+            return _mv(U, x) - roles.matvec(YT, VinvT, lay.slotT, lay.maskT, x.contiguous(),
                                             n_fixed, index)
 
-        dc = ba_flat._pcg_blocked(camera_matvec, b, Minv, cg_iters, tol)
-        dpT = roles.backsub(YT, VinvT, zpT, slotT, maskT, dc.contiguous(), n_fixed)
+        dc = ba_flat._pcg_blocked(camera_matvec, b, Minv, o["cg_iters"], tol, live=s["cg_live"])
+        dpT = roles.backsub(YT, VinvT, zpT, lay.slotT, lay.maskT, dc.contiguous(), n_fixed,
+                            index)
         d_r = torch.zeros_like(rv)
         d_t = torch.zeros_like(tv)
         d_r[n_fixed:] = dc[:, :3]
         d_t[n_fixed:] = dc[:, 3:]
-        return d_r, d_t, dpT, torch.sqrt(torch.sum(b * b))
+        bnorm = torch.sqrt(torch.sum(b * b))
+        b0.copy_(torch.where(b0 > 0.0, b0, bnorm))
+        blast.copy_(bnorm)
+        rv2, tv2, pt2 = rv + d_r, tv + d_t, ptT + dpT
+        new_cost = self._cost(rv2, tv2, pt2)[0]
+        accept = new_cost < cost_
+        step_norm = torch.sqrt(torch.sum(d_r * d_r) + torch.sum(d_t * d_t)
+                               + torch.sum(dpT * dpT))
+        param_norm = torch.sqrt(torch.sum(rv * rv) + torch.sum(tv * tv)
+                                + torch.sum(ptT * ptT))
+        converged = accept & (
+            ((cost_ - new_cost) <= o["ftol"] * torch.clamp(cost_, min=1e-12))
+            | (step_norm <= o["xtol"] * (param_norm + o["xtol"])))
+        rv.copy_(torch.where(accept, rv2, rv))
+        tv.copy_(torch.where(accept, tv2, tv))
+        ptT.copy_(torch.where(accept, pt2, ptT))
+        cost_.copy_(torch.where(accept, new_cost, cost_))
+        lam.copy_(torch.where(accept, torch.clamp(lam * o["lambda_down"], min=o["lambda_min"]),
+                              torch.clamp(lam * o["lambda_up"], max=o["lambda_max"])))
+        stuck = (~accept) & (lam >= o["lambda_max"])
+        s["done"].copy_(converged | stuck)
 
-    last = []       # the last state costed and its two costs: the loop asks
-                    # for the Huber and the squared cost of one state in turn
+    def _on_side_stream(self, fn):
+        main = torch.cuda.current_stream(self.dev)
+        side = _side_stream(self.dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            out = fn()
+        main.wait_stream(side)
+        return out
 
-    def costs(rv, tv, ptT):
-        if not (last and last[0] is rv and last[1] is tv and last[2] is ptT):
-            last[:] = [rv, tv, ptT, roles.cost(camera_rows(rv, tv, False), ptT.contiguous(),
-                                               slotT, maskT, uvT, scal0)]
-        return last[3]
+    def warm_up(self):
+        """The body once, eagerly, on the stream that captures it, as a
+        capture wants the first call of each operation on its stream to have
+        been made (it loads every kernel and gives cuBLAS its workspace)."""
+        self._on_side_stream(self.body)
 
-    rv, tv, ptT, stats = ba_flat.lm_loop(
-        solve_step, lambda *s: costs(*s)[0], lambda *s: costs(*s)[1], rv0, tv0, ptT0,
-        max_iterations=max_iterations, lambda_init=lambda_init, lambda_up=lambda_up,
-        lambda_down=lambda_down, lambda_min=lambda_min, lambda_max=lambda_max,
-        ftol=ftol, xtol=xtol, cg_tol=cg_tol, cg_forcing=cg_forcing)
-    return rv, tv, ptT.T.contiguous(), stats
+    def capture(self):
+        """The body captured as a CUDA graph (nothing runs) and the launches
+        of each kernel that one replay makes.  ``capture_begin`` and
+        ``capture_end`` directly: ``torch.cuda.graph`` would also collect
+        Python's garbage and empty the allocator's cache, once per solve."""
+        graph = torch.cuda.CUDAGraph()
+        _CAPTURED.clear()
+
+        def record():
+            graph.capture_begin()
+            try:
+                self.body()
+            finally:
+                graph.capture_end()
+
+        self._on_side_stream(record)
+        per_replay = dict(_CAPTURED)
+        _CAPTURED.clear()
+        return graph, per_replay
+
+    def run(self):
+        """LM iterations until the stop flag or ``max_iterations``; one host
+        read per iteration.  Kernel roles on the card: the first iteration
+        eagerly on a side stream, then replays of the captured body.
+        Returns (rvecs, tvecs, points, BAStats)."""
+        graphed = self.dev.type == "cuda" and self.roles is _KERNELS
+        graph, per_replay, replays, n = None, {}, 0, 0
+        seconds = dict(first_s=0.0, capture_s=0.0, replay_s=0.0)
+        t0 = time.perf_counter()
+        while n < self.opts["max_iterations"]:
+            if graph is not None:
+                graph.replay()
+                replays += 1
+                for name, k in per_replay.items():
+                    kernels.LAUNCHES[name] += k
+            elif graphed:
+                self.warm_up()
+            else:
+                self.body()
+            n += 1
+            stop = _host_bool(self.state["done"])
+            t1 = time.perf_counter()
+            seconds["replay_s" if graph is not None else "first_s"] += t1 - t0
+            t0 = t1
+            if stop:
+                break
+            if graphed and graph is None and n < self.opts["max_iterations"]:
+                graph, per_replay = self.capture()
+                t0 = time.perf_counter()
+                seconds["capture_s"] = t0 - t1
+        s = self.state
+        final_sq = self._cost(s["rv"], s["tv"], s["ptT"])[1].clone()
+        SOLVES.append(dict(lm_iterations=n, graph_replays=replays,
+                           host_reads=COUNTERS["host_reads"] - self.reads_before,
+                           cg_iterations=s["cg_live"], **seconds))
+        stats = ba_flat.BAStats(
+            initial_cost=self.initial[0], final_cost=s["cost"], initial_sq=self.initial[1],
+            final_sq=final_sq, iterations=torch.tensor(n, dtype=torch.int32),
+            accepted=s["cost"] < self.initial[0])
+        return s["rv"], s["tv"], s["ptT"].T.contiguous(), stats
+
+
+def solve(grid: BAProblemGrid, n_fixed: int = 1, **opts):
+    """Global BA of ``grid`` through the four kernels: CUDA tensors launch
+    them (one CUDA graph per LM iteration), CPU tensors take their plain
+    versions, any other device raises.  ``opts`` are ``GlobalLM``'s (the LM
+    and CG settings, ``roles``).  Returns (rvecs, tvecs, points, BAStats),
+    as ``ba_grid.ba_solve_grid_impl`` with ``cg_iters > 0``."""
+    return GlobalLM(grid, n_fixed, **opts).run()
 
 
 #: ``solve`` with every role's plain version, on whatever device the tensors
-#: lie: what the kernels are held against.
+#: lie, eagerly: what the kernels are held against.
 solve_plain = functools.partial(solve, roles=_PLAIN)

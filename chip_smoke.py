@@ -48,17 +48,21 @@ Phases, each of which exits non-zero when it fails:
 9. the global path at full width: a map of 200 keyframes, 30,000 points and
    120,000 observations (``synthetic_global_map``) in a
    ``VisualOdometryPipeline(preset_video(cam))``, then ``finalize``: global BA
-   over 199 cameras and full BA over 200 through the K4 kernels, with the
-   launch counters set to 0 just before and read just after; a second fresh
-   run must give bit-equal poses;
+   over 199 cameras and full BA over 200 through the K4 kernels, each LM
+   iteration after the first a replay of one CUDA graph, with the launch
+   counters set to 0 just before and read just after; squared costs within
+   1 % of the earlier runs'; per solve its host reads (at most one per LM
+   iteration and ``camera_index``'s), graph replays and live CG iterations;
+   a second fresh run must give bit-equal poses and the same records;
 10. the same path through a real VO run: the rendered frames with
    ``BAConfig(pcg_min_cameras=3)`` until a windowed BA completes, so that
-   every windowed BA takes the PCG branch and K4, then ``finalize``.
+   every windowed BA takes the PCG branch, K4 and its graph, then
+   ``finalize``.
 
-``--kernel-times [--tree DIR]`` only builds and times K1, K3 and K4's setup
-and matvec (``kernel_times``: K3 per LM iteration over a sweep of C' and P as
-well; K4a and K4b at the global path's shape) on this checkout or on another
-commit's tree, for comparing two commits in one call.
+``--kernel-times [--tree DIR]`` only builds and times K1, K3 and K4's setup,
+matvec and cost (``kernel_times``: K3 per LM iteration over a sweep of C' and
+P as well; K4a, K4b and K4d at the global path's shape) on this checkout or
+on another commit's tree, for comparing two commits in one call.
 
 The line before the last is the kernels' JSON record, the line before that
 the card's name and power limit; the last line is the ``{"ok": true, ...}``
@@ -487,7 +491,9 @@ def check_global(torch, np, mods, seed: int, dev) -> dict:
         def run_setup(fn, *extra):
             return fn(cam, ptT, lay.slotT, lay.maskT, lay.uvT, lay.pmask, scal, n_fixed, *extra)
 
-        ks = run_setup(gk.setup, index)
+        # every role's output on the card is the index's, which its next
+        # call overwrites: clone what is kept
+        ks = tuple(t.clone() for t in run_setup(gk.setup, index))
         ps = run_setup(gk.setup_plain)
         YT, VinvT, zpT, _ = ps
         outs = {
@@ -496,10 +502,10 @@ def check_global(torch, np, mods, seed: int, dev) -> dict:
                 (gk.matvec(YT, VinvT, lay.slotT, lay.maskT, x, n_fixed, index).clone(),),
                 (gk.matvec_plain(YT, VinvT, lay.slotT, lay.maskT, x, n_fixed),)),
             "ba_global_backsub": (
-                (gk.backsub(YT, VinvT, zpT, lay.slotT, lay.maskT, x, n_fixed),),
+                (gk.backsub(YT, VinvT, zpT, lay.slotT, lay.maskT, x, n_fixed, index).clone(),),
                 (gk.backsub_plain(YT, VinvT, zpT, lay.slotT, lay.maskT, x, n_fixed),)),
             "ba_global_cost": (
-                (gk.cost(camc, ptT, lay.slotT, lay.maskT, lay.uvT, lay.scal),),
+                (gk.cost(camc, ptT, lay.slotT, lay.maskT, lay.uvT, lay.scal, index).clone(),),
                 (gk.cost_plain(camc, ptT, lay.slotT, lay.maskT, lay.uvT, lay.scal),)),
         }
         torch.cuda.synchronize()
@@ -540,16 +546,16 @@ def check_global(torch, np, mods, seed: int, dev) -> dict:
         if ks[1][:, n_pts:].any() or ks[2][:, n_pts:].any():
             fail(f"K4 setup {name}: a padding point has a non-zero V^-1 or z_p")
 
-        # two launches on the same input: equal bits; every camera's ticket
-        # counter back at 0
+        # two launches on the same input: equal bits; every counter back at 0
         again = run_setup(gk.setup, index) + (
             gk.matvec(YT, VinvT, lay.slotT, lay.maskT, x, n_fixed, index),
-            gk.backsub(YT, VinvT, zpT, lay.slotT, lay.maskT, x, n_fixed),
-            gk.cost(camc, ptT, lay.slotT, lay.maskT, lay.uvT, lay.scal))
+            gk.backsub(YT, VinvT, zpT, lay.slotT, lay.maskT, x, n_fixed, index),
+            gk.cost(camc, ptT, lay.slotT, lay.maskT, lay.uvT, lay.scal, index))
         first = ks + outs["ba_global_matvec"][0] + outs["ba_global_backsub"][0] \
             + outs["ba_global_cost"][0]
         torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(first, again)) or index.ticket.any():
+        if not all(torch.equal(a, b) for a, b in zip(first, again)) or index.ticket.any() \
+                or index.cost_ticket.any():
             fail(f"K4 {name}: two launches on the same input differ")
 
         # the whole solve: kernels against plain versions, and twice
@@ -580,10 +586,10 @@ def check_global(torch, np, mods, seed: int, dev) -> dict:
                 lambda: gk.matvec(YT, VinvT, lay.slotT, lay.maskT, x, n_fixed, index),
                 lambda: gk.matvec_plain(YT, VinvT, lay.slotT, lay.maskT, x, n_fixed)),
             "ba_global_backsub": (
-                lambda: gk.backsub(YT, VinvT, zpT, lay.slotT, lay.maskT, x, n_fixed),
+                lambda: gk.backsub(YT, VinvT, zpT, lay.slotT, lay.maskT, x, n_fixed, index),
                 lambda: gk.backsub_plain(YT, VinvT, zpT, lay.slotT, lay.maskT, x, n_fixed)),
             "ba_global_cost": (
-                lambda: gk.cost(camc, ptT, lay.slotT, lay.maskT, lay.uvT, lay.scal),
+                lambda: gk.cost(camc, ptT, lay.slotT, lay.maskT, lay.uvT, lay.scal, index),
                 lambda: gk.cost_plain(camc, ptT, lay.slotT, lay.maskT, lay.uvT, lay.scal)),
         }
         work = global_work(g, n_fixed)
@@ -609,8 +615,7 @@ def check_global(torch, np, mods, seed: int, dev) -> dict:
 
 K_NAMES = ("knn2_split_kernel", "knn2_merge_kernel", "gather40_kernel", "ba_window_lm_kernel",
            "setup_points_kernel", "setup_tiles_kernel", "matvec_points_kernel",
-           "matvec_tiles_kernel", "backsub_points_kernel",
-           "cost_points_kernel", "cost_final_kernel")
+           "matvec_tiles_kernel", "backsub_points_kernel", "cost_kernel")
 
 
 def profile_call(torch, label: str, fn) -> None:
@@ -744,14 +749,17 @@ def pooled(rec: dict) -> tuple:
 
 
 def k4_times(torch, seed: int, dev) -> dict:
-    """K4a (setup) and K4b (matvec) at the global path's shape (C = 200,
-    n_fixed = 2, 30,000 points bucketed to P = 32,768, D = 4) through
-    ``camera_index``, ``setup(..., index)`` and ``matvec(..., index)``, calls
-    that every tree of the port since K4 has: CUDA-event ms per call, and
-    device ms per call under the profiler (the sum over the role's kernels
-    of ms per record) with the fewest records of one of its kernels in 20
-    calls, the device span per call (``device_spans``) and the time per call
-    queued behind a sleeping kernel (``queued_ms``)."""
+    """K4a (setup), K4b (matvec) and K4d (cost) at the global path's shape
+    (C = 200, n_fixed = 2, 30,000 points bucketed to P = 32,768, D = 4)
+    through ``camera_index``, ``setup(..., index)``, ``matvec(..., index)``
+    and ``cost``, calls that every tree of the port since K4 has (the cost
+    takes the index where the tree's ``cost`` has that parameter): CUDA-event
+    ms per call, and device ms per call under the profiler (the sum over the
+    role's kernels of ms per record) with the fewest records of one of its
+    kernels in 20 calls, the device span per call (``device_spans``) and the
+    time per call queued behind a sleeping kernel (``queued_ms``)."""
+    import inspect
+
     import numpy as np
 
     from bundle_adjustment_tpu_torch.ops import ba_global_kernel as gk
@@ -770,8 +778,10 @@ def k4_times(torch, seed: int, dev) -> dict:
     x = torch.as_tensor(np.random.default_rng(seed).normal(0, 1e-2, (C - n_fixed, 6))
                         .astype(np.float32), device=dev)
 
+    camc = gk.camera_rows(g.rvecs, g.tvecs, False)
     plain = gk.setup_plain(cam, ptT, lay.slotT, lay.maskT, lay.uvT, lay.pmask, scal, n_fixed)
     plain_mv = gk.matvec_plain(plain[0], plain[1], lay.slotT, lay.maskT, x, n_fixed)
+    plain_cost = gk.cost_plain(camc, ptT, lay.slotT, lay.maskT, lay.uvT, lay.scal)
 
     def gap(a, b):
         return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
@@ -786,15 +796,23 @@ def k4_times(torch, seed: int, dev) -> dict:
         def matvec_call():
             return gk.matvec(YT, VinvT, lay.slotT, lay.maskT, x, n_fixed, index)
 
+        takes_index = "index" in inspect.signature(gk.cost).parameters
+
+        def cost_call():
+            return gk.cost(camc, ptT, lay.slotT, lay.maskT, lay.uvT, lay.scal,
+                           *((index,) if takes_index else ()))
+
         # the widest gap to the plain version (red per scale group)
         out = {f"k4a{tag_a}_gap": max(gap(red[:, lanes], plain[3][:, lanes])
                                       for lanes in gk.red_lane_groups().values()),
                f"k4b{tag_b}_gap": max(
                    gap(gk.matvec(plain[0], plain[1], lay.slotT, lay.maskT, x, n_fixed,
                                  index)[:, sl], plain_mv[:, sl])
-                   for sl in (slice(0, 3), slice(3, 6)))}
+                   for sl in (slice(0, 3), slice(3, 6))),
+               "k4d_gap": max(gap(cost_call()[i:i + 1], plain_cost[i:i + 1]) for i in (0, 1))}
         for tag, fn, keys in (("k4a" + tag_a, setup_call, ("setup", "camera_sum")),
-                              ("k4b" + tag_b, matvec_call, ("matvec", "camera_sum"))):
+                              ("k4b" + tag_b, matvec_call, ("matvec", "camera_sum")),
+                              ("k4d", cost_call, ("cost_",))):
             out[f"{tag}_ms"] = cuda_ms(fn)
             out[f"{tag}_device_ms"], out[f"{tag}_device_records"] = per_call(
                 device_ms_per_launch(torch, [fn] * 20, keys))
@@ -815,8 +833,8 @@ def kernel_times(torch, seed: int, dev) -> dict:
     has: CUDA-event ms per call, device ms per launch under the profiler, ms
     per LM iteration by the marginal protocol, the last also over C' = 3, 7,
     8 (C = 5, 9, 10, n_fixed = 2) at P = 8192 and 53,430, which splits the
-    widest window's cost between its points and its cameras; then K4a and
-    K4b (``k4_times``).  ``--kernel-times --tree DIR`` runs it on another
+    widest window's cost between its points and its cameras; then K4a, K4b
+    and K4d (``k4_times``).  ``--kernel-times --tree DIR`` runs it on another
     commit's tree."""
     from bundle_adjustment_tpu_torch import kernels
     from bundle_adjustment_tpu_torch.ops import ba_kernel, hamming_kernel
@@ -899,8 +917,8 @@ def main() -> int:
                          "first N frames and one finalize of the global path's "
                          "map (default 0: no profile)")
     ap.add_argument("--kernel-times", action="store_true",
-                    help="only build the kernels and time K1, K3, K4a and K4b (kernel_times), "
-                         "print one JSON line and exit")
+                    help="only build the kernels and time K1, K3, K4a, K4b and K4d "
+                         "(kernel_times), print one JSON line and exit")
     ap.add_argument("--tree", default=None, metavar="DIR",
                     help="with --kernel-times: import the port from DIR (a git archive of "
                          "another commit) instead of this checkout")
@@ -1180,11 +1198,14 @@ def main() -> int:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
+        ba_global_kernel.SOLVES.clear()
         t0 = time.perf_counter()
         gsummary = gpipe.finalize(gout)
         torch.cuda.synchronize()
         return dict(pipe=gpipe, seconds=time.perf_counter() - t0, out=gout, summary=gsummary,
                     launches=dict(kernels.LAUNCHES), peak=torch.cuda.max_memory_allocated(),
+                    solves=[dict(r, cg_iterations=int(r["cg_iterations"]))
+                            for r in ba_global_kernel.SOLVES],
                     events=[e for e in glog.events
                             if e["event"] in ("ba_complete", "ba_diverged")])
 
@@ -1196,11 +1217,32 @@ def main() -> int:
         fail(f"the global map is not {N_KF} keyframes, {N_PT} points: {g1['summary']}")
     if len(g1["events"]) != 2 or any(e["event"] != "ba_complete" for e in g1["events"]):
         fail(f"global path: expected two completed BA solves, got {g1['events']}")
-    for e, what in zip(g1["events"], ("global BA, 199 cameras", "full BA, 200 cameras")):
+    if len(g1["solves"]) != 2:
+        fail(f"global path: expected two records of K4 solves, got {g1['solves']}")
+    # the squared costs the two solves reached at seed 0 on one NVIDIA H100
+    # with the host-driven LM loop; the kernels' sum order moves the last
+    # bits, which may move an LM stop, so they are held within 1 %
+    reference_sq = (38041.8, 38040.2) if args.seed == 0 else (None, None)
+    for e, rec, ref, what in zip(g1["events"], g1["solves"], reference_sq,
+                                 ("global BA, 199 cameras", "full BA, 200 cameras")):
         if not (math.isfinite(e["final_cost"]) and e["final_cost"] < e["initial_cost"]):
             fail(f"global path, {what}: cost not finite and reduced: {e}")
+        its = e["iterations"]
         print(f"global path, {what}: squared cost {e['initial_cost']:.1f} -> "
-              f"{e['final_cost']:.1f} in {e['iterations']} LM iterations, {e['elapsed_s']:.3f} s")
+              f"{e['final_cost']:.1f} in {its} LM iterations, {e['elapsed_s']:.3f} s; "
+              f"{1e3 * rec['replay_s'] / max(rec['graph_replays'], 1):.3f} ms per replayed LM "
+              f"iteration (host clock, its read of the stop flag included), the first "
+              f"iteration {1e3 * rec['first_s']:.1f} ms, the capture {1e3 * rec['capture_s']:.1f} "
+              f"ms; host reads {rec['host_reads']}, graph replays {rec['graph_replays']}, live "
+              f"CG iterations {rec['cg_iterations']}")
+        if ref is not None and abs(e["final_cost"] - ref) > 1e-2 * ref:
+            fail(f"global path, {what}: squared cost {e['final_cost']} not within 1 % of {ref}")
+        # the code's bound: one read of the stop flag per LM iteration, and
+        # camera_index's read of the pair counts
+        if rec["lm_iterations"] != its \
+                or rec["host_reads"] > its + ba_global_kernel.HOST_READS_OUTSIDE_LOOP \
+                or rec["graph_replays"] != its - 1:
+            fail(f"global path, {what}: {its} LM iterations but the solve's record {rec}")
     for name in K4_ROLES:
         if g_launches[name] <= 0:
             fail(f"kernel {name} was not launched on the global path")
@@ -1223,10 +1265,17 @@ def main() -> int:
             or not np.array_equal(g1["pipe"].map.points(), g2["pipe"].map.points()) \
             or g1["launches"] != g2["launches"]:
         fail("global path: a second fresh run gives other poses, points or launch counts")
+    counts = ("lm_iterations", "graph_replays", "host_reads", "cg_iterations")
+    if [[r[k] for k in counts] for r in g1["solves"]] \
+            != [[r[k] for k in counts] for r in g2["solves"]]:
+        fail(f"global path: the second fresh run's solves differ: {g2['solves']}")
     print(f"global path: {N_KF} keyframes, {N_PT} points, "
           f"{g1['summary']['num_observations']} observations; finalize {g1['seconds']:.2f} s and "
-          f"{g2['seconds']:.2f} s; {lm_its} LM iterations, {g_launches[K4_ROLES[1]]} CG "
-          f"iterations; launches {({k: g_launches[k] for k in K4_ROLES})}; peak device memory "
+          f"{g2['seconds']:.2f} s; {lm_its} LM iterations, "
+          f"{sum(r['cg_iterations'] for r in g1['solves'])} live CG iterations, host reads "
+          f"{sum(r['host_reads'] for r in g1['solves'])}, graph replays "
+          f"{sum(r['graph_replays'] for r in g1['solves'])}; launches "
+          f"{({k: g_launches[k] for k in K4_ROLES})}; peak device memory "
           f"{g1['peak'] / 2 ** 20:.1f} MiB; a second fresh run: poses and points bit-equal "
           f"(phase {time.perf_counter() - t0:.1f} s)")
 
@@ -1235,6 +1284,7 @@ def main() -> int:
     log_pcg = EventLog(echo=False)
     pipe_pcg = VisualOdometryPipeline(cfg_pcg, log=log_pcg, device="cuda")
     kernels.reset_launches()
+    ba_global_kernel.SOLVES.clear()
     st_pcg = []
     for f in frames:
         st_pcg.append(pipe_pcg.process_frame(f)["status"])
@@ -1258,7 +1308,10 @@ def main() -> int:
           f"{windowed[0]['initial_cost']:.1f} -> {windowed[0]['final_cost']:.1f} in "
           f"{windowed[0]['iterations']} LM iterations, {windowed[0]['elapsed_s'] * 1e3:.0f} ms; "
           f"{pipe_pcg.map.num_keyframes} keyframes, trajectory finite; launches "
-          f"{({k: kernels.LAUNCHES[k] for k in K4_ROLES})}")
+          f"{({k: kernels.LAUNCHES[k] for k in K4_ROLES})}; {len(ba_global_kernel.SOLVES)} K4 "
+          f"solves, graph replays {[r['graph_replays'] for r in ba_global_kernel.SOLVES]}")
+    if not any(r["graph_replays"] > 0 for r in ba_global_kernel.SOLVES):
+        fail("pcg_min_cameras=3: no K4 solve replayed its LM graph")
     if "jax" in sys.modules:
         fail("the port imported jax")
 

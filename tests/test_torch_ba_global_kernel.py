@@ -27,6 +27,7 @@ from bundle_adjustment_tpu.ops import ba as jba
 from bundle_adjustment_tpu.ops import ba_global_pallas as jgp
 from bundle_adjustment_tpu.ops import ba_grid as jbg
 from bundle_adjustment_tpu_torch import convert, kernels
+from bundle_adjustment_tpu_torch.ops import ba as tba
 from bundle_adjustment_tpu_torch.ops import ba_global_kernel as gk
 from bundle_adjustment_tpu_torch.ops import ba_grid as tbg
 from bundle_adjustment_tpu_torch.ops.lie import so3_exp_np
@@ -262,13 +263,14 @@ def test_the_gate_at_its_edges(chain):
     assert gk.eligible_shape_global(20000, 131072, 12, 1)   # no C <= 8192 bound
     assert gk.eligible_shape_global(5, 8192, 12) and not gk.eligible_shape_global(5, 8192, 13)
     assert not gk.eligible_shape_global(5, 8192, 0) and not gk.eligible_shape_global(5, 0, 4)
-    # per point at D = 4: Y and the pair list (4 * 19 floats), V^-1, z_p and
-    # the matvec's z (12); per segment of the tile plan 54 floats, at most
-    # one per tile and one per camera
-    per_point = 4 * (4 * 19 + 12)
+    # per point at D = 4: Y and the pair list (4 * 19 floats), V^-1, z_p,
+    # the matvec's z and dp (15); per segment of the tile plan 54 floats, at
+    # most one per tile and one per camera; 2 floats per CTA of the cost
+    per_point = 4 * (4 * 19 + 15)
 
     def scratch(P, C):
-        return P * per_point + 4 * 54 * (-(-4 * P // gk.PAIR_TILE) + C)
+        return (P * per_point + 4 * 54 * (-(-4 * P // gk.PAIR_TILE) + C)
+                + 4 * 2 * -(-4 * P // gk.COST_PAIRS_PER_BLOCK))
 
     edge = gk.SCRATCH_LIMIT_BYTES // per_point
     while scratch(edge, 200) > gk.SCRATCH_LIMIT_BYTES:
@@ -395,3 +397,100 @@ def test_tiled_camera_sum_matches_camera_sum_and_the_pallas_setup(pallas_setup, 
     want = gk.matvec_plain(YT, VinvT, lay.slotT, lay.maskT, x, 1)
     assert _rel(out[:, :3].numpy(), want[:, :3].numpy()) <= 1e-6
     assert _rel(out[:, 3:].numpy(), want[:, 3:].numpy()) <= 1e-6
+
+
+def _solve_by_lm_loop(grid, n_fixed=1, max_iterations=50, huber_delta=1.0, lambda_init=1e-3,
+                      lambda_up=4.0, lambda_down=0.5, lambda_min=1e-10, lambda_max=1e8,
+                      ftol=1e-5, xtol=1e-5, cg_iters=8, cg_tol=1e-6, cg_forcing=True):
+    """``ba_global_kernel.solve_plain`` as it was before its LM iteration
+    became a device body: the roles' plain versions driven by the host loop
+    ``ba.lm_loop``, the camera solve by the early-break PCG loop."""
+    from test_torch_ba_pcg import _pcg_early_break
+
+    f32 = torch.float32
+    rv0, tv0 = grid.rvecs.to(f32), grid.tvecs.to(f32)
+    ptT0 = grid.points.to(f32).T.contiguous()
+    lay = gk.layout(grid, huber_delta)
+    eye6 = torch.eye(6)
+
+    def step(rv, tv, ptT, lam, tol):
+        YT, VinvT, zpT, red = gk.setup_plain(gk.camera_rows(rv, tv, True), ptT, lay.slotT,
+                                             lay.maskT, lay.uvT, lay.pmask,
+                                             gk.with_lambda(lay.scal, lam), n_fixed)
+        U = tba._damp(gk._unpack_sym6(red[:, gk._RED_U]), lam)
+        b = -red[:, gk._RED_GC] + red[:, gk._RED_WZ]
+        Minv = tbg._inv6(U - gk._unpack_sym6(red[:, gk._RED_DO]) + 1e-8 * eye6)
+
+        def camera_matvec(x):
+            return tbg._mv(U, x) - gk.matvec_plain(YT, VinvT, lay.slotT, lay.maskT,
+                                                   x.contiguous(), n_fixed)
+
+        dc, _ = _pcg_early_break(camera_matvec, b, Minv, cg_iters, tol)
+        dpT = gk.backsub_plain(YT, VinvT, zpT, lay.slotT, lay.maskT, dc.contiguous(), n_fixed)
+        d_r, d_t = torch.zeros_like(rv), torch.zeros_like(tv)
+        d_r[n_fixed:] = dc[:, :3]
+        d_t[n_fixed:] = dc[:, 3:]
+        return d_r, d_t, dpT, torch.sqrt(torch.sum(b * b))
+
+    def costs(rv, tv, ptT):
+        return gk.cost_plain(gk.camera_rows(rv, tv, False), ptT.contiguous(), lay.slotT,
+                             lay.maskT, lay.uvT, lay.scal)
+
+    rv, tv, ptT, stats = tba.lm_loop(
+        step, lambda *s: costs(*s)[0], lambda *s: costs(*s)[1], rv0, tv0, ptT0,
+        max_iterations=max_iterations, lambda_init=lambda_init, lambda_up=lambda_up,
+        lambda_down=lambda_down, lambda_min=lambda_min, lambda_max=lambda_max, ftol=ftol,
+        xtol=xtol, cg_tol=cg_tol, cg_forcing=cg_forcing)
+    return rv, tv, ptT.T.contiguous(), stats
+
+
+@pytest.mark.parametrize("which,n_fixed,opts", [
+    ("chain", 1, dict(max_iterations=10)),
+    ("chain", 2, dict(FREE)),
+    ("full_chain", 1, dict(FREE, cg_forcing=False)),
+    ("full_chain", 2, dict()),
+], ids=["dead-slots", "free-n_fixed2", "fixed-tolerance", "default-stop"])
+def test_device_body_equals_the_host_lm_loop_bit_for_bit(request, which, n_fixed, opts):
+    """The LM iteration as one device body (``GlobalLM.body``, masked CG),
+    driven eagerly on the CPU: the same iterations, costs and state, bit for
+    bit, as ``ba.lm_loop`` around the early-break CG."""
+    _, gt = request.getfixturevalue(which)
+    a = gk.solve_plain(gt, n_fixed=n_fixed, **opts)
+    b = _solve_by_lm_loop(gt, n_fixed=n_fixed, **opts)
+    assert int(a[3].iterations) == int(b[3].iterations) > 1
+    for x, y in zip(a[:3] + tuple(a[3]), b[:3] + tuple(b[3])):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    assert not torch.equal(a[0], gt.rvecs)           # the solve moved the cameras
+
+
+def test_solve_counts_its_host_reads_and_live_cg_iterations(chain):
+    """One host read per LM iteration and ``HOST_READS_OUTSIDE_LOOP`` on the
+    card (``camera_index``; on the CPU none is built); the live CG iterations
+    are between one and ``cg_iters`` per LM iteration."""
+    _, gt = chain
+    gk.SOLVES.clear()
+    out = gk.solve_plain(gt, n_fixed=1, max_iterations=7)
+    rec = gk.SOLVES[-1]
+    its = int(out[3].iterations)
+    assert rec["lm_iterations"] == its and rec["host_reads"] == its
+    assert rec["graph_replays"] == 0
+    assert its <= int(rec["cg_iterations"]) <= 8 * its
+    lay = gk.layout(gt)
+    before = gk.COUNTERS["host_reads"]
+    gk.camera_index(lay.slotT, lay.maskT, 12, 1)
+    assert gk.COUNTERS["host_reads"] - before == gk.HOST_READS_OUTSIDE_LOOP
+
+
+def test_plain_global_solves_are_deterministic_at_four_threads(chain):
+    """``solve_plain`` sums per camera through ``ba._segment_sum``: two solves
+    with four torch threads give equal bits, and the same bits as with one."""
+    _, gt = chain
+    one = gk.solve_plain(gt, n_fixed=2, max_iterations=6)
+    torch.set_num_threads(4)
+    try:
+        runs = [gk.solve_plain(gt, n_fixed=2, max_iterations=6) for _ in range(3)]
+    finally:
+        torch.set_num_threads(1)
+    for run in runs:
+        for x, y in zip(one[:3] + tuple(one[3]), run[:3] + tuple(run[3])):
+            assert torch.equal(x, y)

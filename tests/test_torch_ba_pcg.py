@@ -60,8 +60,9 @@ def _spd_blocks(seed, n_blocks):
 @pytest.mark.parametrize("precond", ["blocks", "callable"])
 def test_pcg_blocked_matches_jax_and_stops_on_the_same_iteration(precond):
     """x after every iteration cap agrees (1e-5 of its scale: both run the
-    same float32 recurrences, sums in another order), and the loop leaves on
-    the relative residual at the same iteration."""
+    same float32 recurrences, sums in another order), and the loop stops on
+    the relative residual at the same iteration (the port's live iterations,
+    counted on the device)."""
     A, b, Minv = _spd_blocks(0, 7)
     tol = 1e-4
     Aj, At = jnp.asarray(A), torch.as_tensor(A)
@@ -71,21 +72,19 @@ def test_pcg_blocked_matches_jax_and_stops_on_the_same_iteration(precond):
         Mt_arg = lambda r: torch.einsum("cij,cj->ci", Mt, r)     # noqa: E731
     else:
         Mj_arg, Mt_arg = Mj, Mt
-    calls = []
 
     def mv_t(x):
-        calls.append(1)
         return (At @ x.reshape(-1)).reshape(x.shape)
 
     xs_j, n_t = [], []
     for cap in range(1, 21):
         xj = np.asarray(jba._pcg_blocked(lambda x: (Aj @ x.reshape(-1)).reshape(x.shape),
                                          jnp.asarray(b), Mj_arg, cap, tol))
-        calls.clear()
-        xt = tba._pcg_blocked(mv_t, torch.as_tensor(b), Mt_arg, cap, tol).numpy()
+        live = torch.zeros((), dtype=torch.int32)
+        xt = tba._pcg_blocked(mv_t, torch.as_tensor(b), Mt_arg, cap, tol, live=live).numpy()
         np.testing.assert_allclose(xt, xj, rtol=0, atol=1e-5 * np.abs(xj).max())
         xs_j.append(xj)
-        n_t.append(len(calls))
+        n_t.append(int(live))
     stop_j = next(k for k in range(1, 20) if np.array_equal(xs_j[k - 1], xs_j[k]))
     assert n_t[-1] == stop_j < 20, (n_t[-1], stop_j)
     assert n_t[: stop_j] == list(range(1, stop_j + 1))
@@ -95,9 +94,84 @@ def test_pcg_blocked_matches_jax_and_stops_on_the_same_iteration(precond):
 
 def test_pcg_blocked_of_a_zero_right_hand_side_is_zero():
     A, _, Minv = _spd_blocks(1, 3)
+    live = torch.zeros((), dtype=torch.int32)
     x = tba._pcg_blocked(lambda v: (torch.as_tensor(A) @ v.reshape(-1)).reshape(v.shape),
-                         torch.zeros(3, 6), torch.as_tensor(Minv), 8, 1e-6)
-    assert torch.equal(x, torch.zeros(3, 6))
+                         torch.zeros(3, 6), torch.as_tensor(Minv), 8, 1e-6, live=live)
+    assert torch.equal(x, torch.zeros(3, 6)) and int(live) == 0
+    xj = jba._pcg_blocked(lambda v: (jnp.asarray(A) @ v.reshape(-1)).reshape(v.shape),
+                          jnp.zeros((3, 6)), jnp.asarray(Minv), 8, 1e-6)
+    np.testing.assert_array_equal(x.numpy(), np.asarray(xj))
+
+
+def _pcg_early_break(matvec, b, Minv, iters, tol):
+    """``ops.ba._pcg_blocked`` as it was before its stop became a device
+    flag: the loop leaves once the residual test holds, read on the host."""
+    if callable(Minv):
+        apply_precond = Minv
+    else:
+        def apply_precond(r):
+            return torch.sum(Minv * r[:, None, :], dim=-1)
+    bnorm = torch.sqrt(torch.sum(b * b))
+    x = torch.zeros_like(b)
+    r = b
+    p = apply_precond(r)
+    rz = torch.sum(r * p)
+    floor = torch.full_like(rz, 1e-30)
+    stop = tol * torch.clamp(bnorm, min=1e-30)
+    for it in range(iters):
+        Ap = matvec(p)
+        pAp = torch.sum(p * Ap)
+        alpha = rz / torch.where(torch.abs(pAp) < 1e-30, floor, pAp)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = apply_precond(r)
+        rz_new = torch.sum(r * z)
+        beta = rz_new / torch.where(torch.abs(rz) < 1e-30, floor, rz)
+        p = z + beta * p
+        rz = rz_new
+        if it + 1 < iters and bool(torch.sqrt(torch.sum(r * r)) <= stop):
+            break
+    return x, it + 1
+
+
+@pytest.mark.parametrize("precond", ["blocks", "callable"])
+@pytest.mark.parametrize("tol", [1e-2, 1e-4, 1e-7])
+def test_masked_pcg_equals_the_early_break_loop_bit_for_bit(precond, tol):
+    """Every iteration cap, a right-hand side of zeros and one of a tiny
+    scale: the same x, bit for bit, and as many live iterations as the
+    early-break loop ran (it runs one on b = 0, where the masked loop is
+    done from the start)."""
+    A, b, Minv = _spd_blocks(3, 9)
+    At, Mt = torch.as_tensor(A), torch.as_tensor(Minv)
+    Mt_arg = (lambda r: torch.einsum("cij,cj->ci", Mt, r)) if precond == "callable" else Mt
+
+    def mv(x):
+        return (At @ x.reshape(-1)).reshape(x.shape)
+
+    for rhs in (torch.as_tensor(b), torch.zeros_like(torch.as_tensor(b)),
+                torch.as_tensor(b) * 1e-20):
+        for cap in range(1, 26):
+            live = torch.zeros((), dtype=torch.int32)
+            x = tba._pcg_blocked(mv, rhs, Mt_arg, cap, tol, live=live)
+            want, ran = _pcg_early_break(mv, rhs, Mt_arg, cap, tol)
+            assert torch.equal(x, want), (cap, float((x - want).abs().max()))
+            assert int(live) == (0 if not rhs.any() else ran), (cap, int(live), ran)
+
+
+def test_pcg_solves_on_the_cpu_are_deterministic_at_four_threads(chain):
+    """The flat solver's PCG branch sums through ``_segment_sum``: two solves
+    with four torch threads give equal bits, and the same bits as with one."""
+    _, pt, _, _ = chain
+    kw = dict(FREE, n_fixed=2, cg_iters=8, cg_tol=1e-6, max_iterations=6)
+    one = tba.ba_solve_impl(pt, **kw)
+    torch.set_num_threads(4)
+    try:
+        runs = [tba.ba_solve_impl(pt, **kw) for _ in range(3)]
+    finally:
+        torch.set_num_threads(1)
+    for run in runs:
+        for x, y in zip(one[:3] + tuple(one[3]), run[:3] + tuple(run[3])):
+            assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("n_fixed", [1, 2])
