@@ -8,6 +8,8 @@ tests do.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -29,3 +31,13 @@ def set_float32_numerics() -> None:
     coordinates.  Both flags are process-wide PyTorch settings."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+@functools.lru_cache(maxsize=None)
+def constant(values: tuple, dtype: torch.dtype, device) -> torch.Tensor:
+    """The tensor of ``values`` (nested tuples), made once per (values, dtype,
+    device) and shared: a copy from pageable host memory cannot be captured
+    into a CUDA graph, so code that a graph replays takes its small
+    constants from here, made on the eager warm-up call.  Callers must not
+    write to it."""
+    return torch.tensor(values, dtype=dtype, device=device)

@@ -12,21 +12,29 @@ pointers and PyTorch's current stream, and raise when a C entry point
 returns a CUDA error.
 
 ``LAUNCHES`` counts launches per kernel: a wrapper adds one where it
-launches, and nowhere else, so a run can show that it went through the
-kernels.  A wrapper called while its stream is captured into a CUDA graph
-launches nothing then; the graph's replays launch its kernels, and the code
-that replays it adds the captured launches at each replay
-(``ops/ba_global_kernel``).
+launches (``count_launch``), and nowhere else, so a run can show that it went
+through the kernels.  A wrapper called while its stream is captured into a
+CUDA graph launches nothing then: ``count_launch`` tallies the launch in
+``CAPTURED`` instead, ``capture`` hands each graph the tally of what one of
+its replays launches, and ``replay`` adds that tally to ``LAUNCHES`` at each
+replay.  The graphs of the port (the global solve's LM iteration,
+``ops/ba_global_kernel``; the tracked-frame step, ``models/frontend``) are
+captured on one side stream per device (``side_stream``) after an eager
+warm-up call on it.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent
 SOURCE_DIR = _PKG / "csrc"
@@ -54,6 +62,8 @@ KERNELS = {
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
+#: launches recorded while a CUDA graph is being captured, per kernel
+CAPTURED = collections.Counter()
 
 _loaded: dict = {}
 
@@ -150,3 +160,64 @@ def check(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {err}")
+
+
+def count_launch(name: str) -> None:
+    """Count one launch of kernel ``name``: in ``LAUNCHES``, or in
+    ``CAPTURED`` while the current stream is being captured into a CUDA
+    graph (nothing runs then; each replay adds the count)."""
+    if torch.cuda.is_current_stream_capturing():
+        CAPTURED[name] += 1
+    else:
+        LAUNCHES[name] += 1
+
+
+@functools.lru_cache(maxsize=None)
+def side_stream(device) -> "torch.cuda.Stream":
+    """The one stream per device on which the port warms up and captures its
+    CUDA graphs (a new stream per capture would give cuBLAS a new workspace
+    each time)."""
+    return torch.cuda.Stream(device)
+
+
+def on_side_stream(device, fn):
+    """``fn()`` on ``side_stream(device)``, ordered after the work already on
+    the current stream and before the work issued on it afterwards."""
+    main = torch.cuda.current_stream(device)
+    side = side_stream(device)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        out = fn()
+    main.wait_stream(side)
+    return out
+
+
+def capture(device, fn):
+    """``fn()`` captured as a CUDA graph on the side stream (nothing runs).
+    Returns (graph, what ``fn`` returned: tensors the replays write, the
+    launches of each kernel that one replay makes).  ``capture_begin`` and
+    ``capture_end`` directly: ``torch.cuda.graph`` would also collect
+    Python's garbage and empty the allocator's cache at every capture.  A
+    capture that fails raises; nothing stands in for it."""
+    graph = torch.cuda.CUDAGraph()
+    CAPTURED.clear()
+
+    def record():
+        graph.capture_begin()
+        try:
+            return fn()
+        finally:
+            graph.capture_end()
+
+    out = on_side_stream(device, record)
+    per_replay = dict(CAPTURED)
+    CAPTURED.clear()
+    return graph, out, per_replay
+
+
+def replay(graph, per_replay: dict) -> None:
+    """Replay ``graph`` on the current stream and count its kernels'
+    launches."""
+    graph.replay()
+    for name, k in per_replay.items():
+        LAUNCHES[name] += k

@@ -11,18 +11,25 @@ matrix as the JAX package, so the host reads one small vector per tracked
 frame and one matrix per keyframe.  The PnP sample uniforms ``u`` are an
 input (see ``ops/ransac.py``).
 
+``TrackStep`` runs it behind static input buffers, as the JAX package runs
+it as one jitted dispatch: on the card the step is captured once per shape
+key as a CUDA graph and each tracked frame is one replay; on the CPU the
+same step runs eagerly on the same buffers.
+
 Medians follow ``jnp.nanmedian``: the midpoint of the two middle values of
 the sorted valid subset (``torch.nanmedian`` would return the lower one).
 """
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from bundle_adjustment_tpu_torch import device as device_mod
+from bundle_adjustment_tpu_torch import kernels
 from bundle_adjustment_tpu_torch.ops import hamming, orb, ransac, triangulation
 from bundle_adjustment_tpu_torch.ops.lie import rotation_angle, so3_exp, so3_hat, so3_log_np
 from bundle_adjustment_tpu_torch.ops.projection import epipolar_errors_px
@@ -135,7 +142,8 @@ def _masked_median(values, mask):
     hi = s.shape[0] - 1
     low = torch.clamp(torch.minimum(torch.floor(q), n - 1), min=0).long().clamp(max=hi)
     high = torch.clamp(torch.minimum(torch.ceil(q), n - 1), min=0).long().clamp(max=hi)
-    return (s[low] + s[high]) * 0.5
+    # index_select: indexing with a 0-d tensor would read it on the host
+    return (s.index_select(0, low.reshape(1))[0] + s.index_select(0, high.reshape(1))[0]) * 0.5
 
 
 def track_step(
@@ -233,6 +241,92 @@ def track_step(
         match_idx=idx, match_mask=mask, match_dist=dist, inliers=inl,
         insert_packed=insert_packed,
     )
+
+
+class TrackStep:
+    """``track_step`` behind static input buffers: the gray image, the
+    ``FrontendState`` tensors, ``K`` and the PnP uniforms ``u``.
+
+    The caller copies a keyframe's state in with ``load_state`` when it
+    changes (a new keyframe, or the map moved under BA), draws each frame's
+    ``u`` into ``u_buffer(shape)`` and calls ``run``, which copies the image
+    and ``K`` in and runs the step.  On the card the step is a CUDA graph,
+    one per shape key (the image's H and W, the state's capacity, the shape
+    of ``u`` and ``track_step``'s static arguments): the first ``run`` of a
+    key warms the step up eagerly on the side stream and captures it
+    (``kernels.capture``); every ``run`` replays it and adds the replay's K1
+    and K2 launches to ``kernels.LAUNCHES``.  A capture that fails raises:
+    no eager step stands behind it.  A replay writes its outputs into the
+    graph's own buffers, which the next replay overwrites, so ``run``
+    returns copies of its own, issued before any later replay: no tensor the
+    caller keeps aliases the graph.  On the CPU ``run`` calls ``track_step``
+    eagerly on the same buffers.
+
+    ``captures`` lists each capture (key, seconds of warm-up and capture,
+    launches per replay); ``replays`` counts the replays."""
+
+    def __init__(self, device="cuda"):
+        self.device = device_mod.resolve(device)
+        self.state: FrontendState | None = None
+        self._states: dict = {}      # capacity N -> static FrontendState
+        self._images: dict = {}      # (H, W) -> static uint8 image
+        self._u: dict = {}           # shape -> static uniforms
+        self._K = torch.zeros((3, 3), dtype=torch.float32, device=self.device)
+        self._graphs: dict = {}      # key -> (graph, outputs, launches per replay)
+        self.captures: list = []
+        self.replays = 0
+
+    def load_state(self, state: FrontendState) -> FrontendState:
+        """Copy ``state`` into the static state of its capacity; returns it."""
+        n = state.desc.shape[0]
+        if n not in self._states:
+            self._states[n] = FrontendState(*(torch.empty_like(t, device=self.device)
+                                              for t in state))
+        self.state = self._states[n]
+        for dst, src in zip(self.state, state):
+            dst.copy_(src)
+        return self.state
+
+    def u_buffer(self, shape) -> torch.Tensor:
+        """The static PnP uniforms of ``shape``, for the caller to draw into."""
+        shape = tuple(shape)
+        if shape not in self._u:
+            self._u[shape] = torch.zeros(shape, dtype=torch.float32, device=self.device)
+        return self._u[shape]
+
+    def run(self, image_u8, K: torch.Tensor, u: torch.Tensor, **static) -> TrackResult:
+        """``track_step(image_u8, state, K, u, **static)`` on the static
+        buffers and the state loaded last.  ``image_u8``: (H, W) uint8,
+        numpy or tensor; ``u``: ``u_buffer``'s tensor, drawn."""
+        if self.state is None:
+            raise RuntimeError("TrackStep.run before load_state")
+        if u is not self._u.get(tuple(u.shape)):
+            raise ValueError("u: draw into u_buffer(shape), the step's static uniforms")
+        hw = tuple(image_u8.shape)
+        if hw not in self._images:
+            self._images[hw] = torch.zeros(hw, dtype=torch.uint8, device=self.device)
+        image = self._images[hw]
+        image.copy_(torch.as_tensor(image_u8))
+        self._K.copy_(K)
+        args = (image, self.state, self._K, u)
+        if self.device.type != "cuda":
+            return track_step(*args, **static)
+        key = (hw, self.state.desc.shape[0], tuple(u.shape), tuple(sorted(static.items())))
+        entry = self._graphs.get(key)
+        if entry is None:
+            t0 = time.perf_counter()
+            kernels.on_side_stream(self.device, lambda: track_step(*args, **static))
+            entry = self._graphs[key] = kernels.capture(
+                self.device, lambda: track_step(*args, **static))
+            self.captures.append(dict(key=key, seconds=time.perf_counter() - t0,
+                                      launches_per_replay=entry[2]))
+            print(f"TrackStep: captured the tracked-frame step for a {hw[1]}x{hw[0]} image, "
+                  f"{key[1]} features (capture {len(self.captures)}, "
+                  f"{self.captures[-1]['seconds']:.2f} s with its warm-up)", flush=True)
+        graph, out, per_replay = entry
+        kernels.replay(graph, per_replay)
+        self.replays += 1
+        return TrackResult(*(t.clone() for t in out))
 
 
 def covis_step(

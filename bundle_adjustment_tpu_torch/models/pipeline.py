@@ -3,10 +3,15 @@
 
 Per frame: grayscale -> (first frame: initialize the map) -> the fused
 tracked-frame step on the device (ORB extract, Hamming 2-NN, PnP, Sampson
-inliers, keyframe metrics) -> host gates and keyframe decision -> keyframe
-insertion with covisibility re-observation -> windowed local BA with the
-newest keyframe's motion-only refine.  ``finalize`` runs the global and full
-BA and writes the outputs.
+inliers, keyframe metrics; on the card one replay of its CUDA graph,
+``frontend.TrackStep``) -> one host read of its packed scalars -> host
+gates and keyframe decision -> keyframe insertion with covisibility
+re-observation -> windowed local BA with the newest keyframe's motion-only
+refine (its LM loop on the device).  ``finalize`` runs the global and full
+BA and writes the outputs.  ``process_stream`` issues frame N+1's step
+before frame N's read, so the device works on one frame while the host
+finishes the last; ``host_reads`` counts every read of a device tensor made
+here.
 
 The port runs the branches the default configuration reaches, plus the
 staged (unfused) path.  A window of at most ``pcg_min_cameras`` cameras: with
@@ -75,10 +80,12 @@ class Draws:
     def next(self, shape) -> torch.Tensor:
         return torch.rand(shape, generator=self._gen, device=self.device)
 
-    def for_frame(self, frame_idx: int, shape) -> torch.Tensor:
+    def for_frame(self, frame_idx: int, shape, out=None) -> torch.Tensor:
+        """The frame's draw, into ``out`` when given (the tracked-frame
+        step's static uniforms)."""
         g = torch.Generator(device=self.device)
         g.manual_seed((self.seed + 1) * 1_000_003 + int(frame_idx))
-        return torch.rand(shape, generator=g, device=self.device)
+        return torch.rand(shape, generator=g, device=self.device, out=out)
 
 
 def _unported(cfg: PipelineConfig, dev: torch.device) -> Optional[str]:
@@ -128,11 +135,12 @@ def _build_lba_refine_fn(use_kernel: bool, n_fixed: int, opts: tuple,
             rp = maybe_refine[0]
             rp = rp._replace(point_mask=torch.zeros_like(rp.point_mask))
             rrv, rtv, _, rstats = ba.ba_solve_impl(
-                rp, n_fixed=0, max_iterations=refine_iters, huber_delta=refine_huber)
+                rp, n_fixed=0, max_iterations=refine_iters, huber_delta=refine_huber,
+                masked=True)
             refine_v = torch.cat([
                 rrv[0].to(f32), rtv[0].to(f32),
                 vec(rstats.initial_sq, rstats.final_sq, rstats.iterations,
-                    rstats.accepted, 0.0, 0.0)])
+                    rstats.accepted), torch.zeros(2, dtype=f32, device=dev)])
         else:
             refine_v = torch.zeros(12, dtype=f32, device=dev)
         if prune_thr > 0:
@@ -164,9 +172,12 @@ class VisualOdometryPipeline:
         self.K_t = torch.as_tensor(self.K, dtype=torch.float32, device=self.device)
         self.draws = draws if draws is not None else Draws(0, self.device)
         self._lost_frames = 0
+        self.track = frontend.TrackStep(self.device)
         self._front_state = None
         self._front_state_kf = -1
         self._front_dirty = False
+        #: reads of device tensors on the host made by this object
+        self.host_reads = 0
 
     # -- pipeline ----------------------------------------------------------
 
@@ -181,13 +192,22 @@ class VisualOdometryPipeline:
             width=gray.shape[1],
         )
 
-    def process_frame(self, frame_bgr: np.ndarray) -> dict:
-        """Process one BGR frame; returns a dict with the decision chain."""
+    def _host(self, t: torch.Tensor) -> np.ndarray:
+        """``t`` on the host as numpy: one host read, counted."""
+        self.host_reads += 1
+        return t.detach().cpu().numpy()
+
+    def process_frame(self, frame_bgr: np.ndarray, gray=None, res=None) -> dict:
+        """Process one BGR frame; returns a dict with the decision chain.
+        ``gray``, ``res``: the frame's gray image and the tracked-frame
+        step that ``process_stream`` issued for it ahead of time."""
         t_start = time.perf_counter()
-        result = self._process_frame_inner(frame_bgr)
+        reads = self.host_reads
+        result = self._process_frame_inner(frame_bgr, gray, res)
         self.log.emit("frame_timing", None, frame_idx=self.frame_idx,
-                      status=result.get("status"),
-                      total_ms=round((time.perf_counter() - t_start) * 1e3, 2))
+                      status=result.get("status"), pose=result.get("pose"),
+                      total_ms=round((time.perf_counter() - t_start) * 1e3, 2),
+                      host_reads=self.host_reads - reads)
         return result
 
     def _fusable(self) -> bool:
@@ -195,36 +215,41 @@ class VisualOdometryPipeline:
                 and self.cfg.pnp_scale and self.map.num_keyframes > 0)
 
     def _ensure_front_state(self) -> int:
-        """Refresh the device mirror of the last keyframe if stale."""
+        """Refresh the device mirror of the last keyframe if stale: copied
+        into the tracked-frame step's static state."""
         last_id = self.map.sorted_kf_ids()[-1]
         if (self._front_state is None or self._front_state_kf != last_id
                 or self._front_dirty):
-            self._front_state = frontend.make_state(
+            self._front_state = self.track.load_state(frontend.make_state(
                 self.map.keyframes[last_id], self.map.points(),
-                self.cfg.num_features, device=self.device)
+                self.cfg.num_features, device=self.device))
             self._front_state_kf = last_id
             self._front_dirty = False
         return last_id
 
     def _fused_dispatch(self, gray: np.ndarray, frame_idx: int = None):
-        """The fused tracked-frame step against the current front state."""
+        """Issue the fused tracked-frame step against the current front
+        state (nothing is read back here).  The PnP draw comes from the
+        target frame's index, so a speculative dispatch from
+        ``process_stream`` and a sequential one for the same frame are
+        bit-equal."""
         if frame_idx is None:
             frame_idx = self.frame_idx
         self._ensure_front_state()
-        u = self.draws.for_frame(frame_idx, ransac.pnp_draw_shape(self.cfg.pnp_iters))
-        return frontend.track_step(
-            torch.as_tensor(gray, device=self.device), self._front_state,
-            self.K_t, u,
+        u = self.track.u_buffer(ransac.pnp_draw_shape(self.cfg.pnp_iters))
+        self.draws.for_frame(frame_idx, u.shape, out=u)
+        return self.track.run(gray, self.K_t, u, **self.track_args(*gray.shape))
+
+    def track_args(self, height: int, width: int) -> dict:
+        """``frontend.track_step``'s static arguments for frames of this size."""
+        return dict(
             num_features=self.cfg.num_features, levels=self.cfg.pyramid_levels,
             pyramid_scale=self.cfg.pyramid_scale,
-            fast_threshold=float(self.cfg.fast_threshold),
-            height=gray.shape[0], width=gray.shape[1],
+            fast_threshold=float(self.cfg.fast_threshold), height=height, width=width,
             ratio=self.cfg.ratio_test, cross_check=self.cfg.cross_check,
-            pnp_iters=self.cfg.pnp_iters,
-            pnp_reproj_px=self.cfg.pnp_reproj_err_px,
+            pnp_iters=self.cfg.pnp_iters, pnp_reproj_px=self.cfg.pnp_reproj_err_px,
             sampson_thr_px=self.cfg.ransac_threshold_px,
-            consistent=self.cfg.consistent_convention,
-        )
+            consistent=self.cfg.consistent_convention)
 
     def _essential(self, uv1, uv2, match_mask, quality):
         u = self.draws.next(ransac.essential_draw_shape(self.cfg.ransac_iters))
@@ -239,13 +264,42 @@ class VisualOdometryPipeline:
             quality=quality,
         )
 
-    def _process_frame_inner(self, frame_bgr: np.ndarray) -> dict:
+    def process_stream(self, frames):
+        """Generator over the per-frame results of ``frames``, in frame
+        order and with ``process_frame``'s results, with the frames
+        overlapped: frame N+1's tracked-frame step is issued before frame
+        N's host read, so the device runs N+1 while the host finishes N.
+        The speculation is against the current last-keyframe state; when
+        frame N moves it (a keyframe, or BA moved the map) the speculative
+        step is dropped and frame N+1 issues its own."""
+        pending = None  # (frame_bgr, gray, speculative TrackResult or None)
+        for frame_bgr in frames:
+            if pending is None:
+                pending = (frame_bgr, None, None)
+                continue
+            spec = gray = token = None
+            if self._fusable():
+                gray = bgr_to_gray(frame_bgr)
+                # pending is frame_idx + 1; this frame is frame_idx + 2
+                spec = self._fused_dispatch(gray, self.frame_idx + 2)
+                token = (self._front_state_kf, self.map.num_keyframes)
+            yield self.process_frame(*pending)
+            if spec is not None and (
+                    self._front_dirty
+                    or (self._front_state_kf, self.map.num_keyframes) != token):
+                spec = None  # the map or the last keyframe moved: reissue
+            pending = (frame_bgr, gray, spec)
+        if pending is not None:
+            yield self.process_frame(*pending)
+
+    def _process_frame_inner(self, frame_bgr: np.ndarray, gray=None, res=None) -> dict:
         self.frame_idx += 1
         self.log.frame(self.frame_idx)
-        gray = bgr_to_gray(frame_bgr)
+        if gray is None:
+            gray = bgr_to_gray(frame_bgr)
 
         if self._fusable():
-            return self._process_frame_fused(gray, frame_bgr)
+            return self._process_frame_fused(gray, frame_bgr, res=res)
 
         kp = self._extract(gray)
         if self.map.num_keyframes == 0:
@@ -259,14 +313,14 @@ class VisualOdometryPipeline:
             last_kf.desc, kp.desc,
             torch.as_tensor(last_kf.kp_valid, device=self.device), kp.valid,
             ratio=self.cfg.ratio_test, cross_check=self.cfg.cross_check)
-        match_idx = idx.cpu().numpy().astype(np.int64)
-        match_mask = mask.cpu().numpy()
+        match_idx = self._host(idx).astype(np.int64)
+        match_mask = self._host(mask)
         n_matches = int(match_mask.sum())
         if n_matches < self.cfg.min_tracked_features:
             self.log.frame_discarded(self.frame_idx, "Not enough matches to track.")
             return self._tracking_lost("matches")
 
-        kp_xy = kp.xy.cpu().numpy()
+        kp_xy = self._host(kp.xy)
         uv1 = last_kf.xy
         uv2 = kp_xy[match_idx]
 
@@ -286,13 +340,13 @@ class VisualOdometryPipeline:
 
         if R_rel is None:
             pose = self._essential(uv1, uv2, match_mask, quality=dist)
-            if not bool(pose.ok):
+            if not self._host(pose.ok):
                 self.log.pose(self.frame_idx, 0, n_matches, 0.0)
                 self.log.frame_discarded(self.frame_idx, "Could not estimate pose.")
                 return self._tracking_lost("pose")
-            R_rel = pose.R.cpu().numpy().astype(np.float64)
-            t_rel = pose.t.cpu().numpy().astype(np.float64)
-            inl = pose.inliers.cpu().numpy()
+            R_rel = self._host(pose.R).astype(np.float64)
+            t_rel = self._host(pose.t).astype(np.float64)
+            inl = self._host(pose.inliers)
             if self.cfg.pnp_scale and tracked_n >= self.cfg.pnp_scale_min_tracked:
                 pnp = self._pnp_pose(last_kf, kp_xy, match_idx, match_mask)
                 if pnp is not None:
@@ -327,7 +381,7 @@ class VisualOdometryPipeline:
         self.log.keyframe_trigger(self.frame_idx, kf_id, decision.reason,
                                   decision.metrics)
         kp_host = types.SimpleNamespace(xy=kp_xy, desc=kp.desc,
-                                        valid=kp.valid.cpu().numpy())
+                                        valid=self._host(kp.valid))
         self._add_new_keyframe(frame_bgr, kp_host, last_kf, match_idx, inl,
                                R_rel, t_rel, world_pose=world_pose_override)
         ba_result = self.run_local_ba(
@@ -359,15 +413,18 @@ class VisualOdometryPipeline:
             num_last_features=int(last_kf.kp_valid.sum()),
         )
 
-    def _process_frame_fused(self, gray: np.ndarray, frame_bgr: np.ndarray) -> dict:
+    def _process_frame_fused(self, gray: np.ndarray, frame_bgr: np.ndarray,
+                             res=None) -> dict:
         """Tracked frame as one fused device step plus one scalar readback;
         big arrays cross to the host only on keyframe insertion or the
-        essential-RANSAC fallback."""
+        essential-RANSAC fallback.  ``res``: the step ``process_stream``
+        already issued for this frame."""
         last_id = self._ensure_front_state()
         last_kf = self.map.keyframes[last_id]
-        res = self._fused_dispatch(gray)
+        if res is None:
+            res = self._fused_dispatch(gray)
 
-        sc = frontend.unpack_scalars(res.packed)
+        sc = frontend.unpack_scalars(self._host(res.packed))
         n_matches = sc.n_matches
         num_inliers = sc.num_inliers
         kp = types.SimpleNamespace(xy=res.kp_xy, desc=res.kp_desc, valid=res.kp_valid)
@@ -388,17 +445,17 @@ class VisualOdometryPipeline:
             metrics_from_device = True
         else:
             # essential-RANSAC fallback (initialization chains, thin maps)
-            match_idx = res.match_idx.cpu().numpy().astype(np.int64)
-            kp_xy = res.kp_xy.cpu().numpy()
+            match_idx = self._host(res.match_idx).astype(np.int64)
+            kp_xy = self._host(res.kp_xy)
             pose = self._essential(last_kf.xy, kp_xy[match_idx], res.match_mask,
                                    quality=res.match_dist)
-            if not bool(pose.ok):
+            if not self._host(pose.ok):
                 self.log.pose(self.frame_idx, 0, n_matches, 0.0)
                 self.log.frame_discarded(self.frame_idx, "Could not estimate pose.")
                 return self._tracking_lost("pose")
-            R_rel = pose.R.cpu().numpy().astype(np.float64)
-            t_rel = pose.t.cpu().numpy().astype(np.float64)
-            inl = pose.inliers.cpu().numpy()
+            R_rel = self._host(pose.R).astype(np.float64)
+            t_rel = self._host(pose.t).astype(np.float64)
+            inl = self._host(pose.inliers)
             num_inliers = int(inl.sum())
             metrics_from_device = False
 
@@ -422,20 +479,21 @@ class VisualOdometryPipeline:
                 num_last_features=int(last_kf.kp_valid.sum()),
             )
         else:
-            match_idx = res.match_idx.cpu().numpy().astype(np.int64)
-            kp_xy = res.kp_xy.cpu().numpy()
             decision = self._host_decision(
                 last_kf, inl, R_rel, t_rel, last_kf.xy[inl],
                 kp_xy[match_idx[inl]], sc.rot_mag, num_inliers)
 
+        # which model gave the pose: the fused step's PnP (the one host read
+        # of the packed scalars), or the eager essential-RANSAC fallback
+        pose_from = "pnp" if metrics_from_device else "essential"
         if not decision.is_keyframe:
             return {"status": "tracked", "inliers": num_inliers,
-                    "inlier_ratio": inlier_ratio}
+                    "inlier_ratio": inlier_ratio, "pose": pose_from}
 
         kf_id = self.map.new_keyframe_id()
         self.log.keyframe_trigger(self.frame_idx, kf_id, decision.reason,
                                   decision.metrics)
-        ins = frontend.unpack_insert(res.insert_packed)
+        ins = frontend.unpack_insert(self._host(res.insert_packed))
         if inl is None:
             inl = ins.inliers
         kp_host = types.SimpleNamespace(xy=ins.kp_xy, desc=res.kp_desc,
@@ -449,7 +507,7 @@ class VisualOdometryPipeline:
             refine_kf_id=kf_id if self.cfg.pose_refine else None)
         return {"status": "keyframe", "kf_id": kf_id, "reason": decision.reason,
                 "inliers": num_inliers, "inlier_ratio": inlier_ratio,
-                "ba": ba_result, "loop": None}
+                "ba": ba_result, "loop": None, "pose": pose_from}
 
     def _epipolar_inliers(self, R_rel, t_rel, uv1, uv2, match_mask):
         """Sampson inlier classification against a known relative model."""
@@ -457,9 +515,9 @@ class VisualOdometryPipeline:
         t = t_rel / max(np.linalg.norm(t_rel), 1e-12)
         E = (so3_hat(torch.as_tensor(t, dtype=f32))
              @ torch.as_tensor(R_rel, dtype=f32)).to(self.device)
-        errs = epipolar_errors_px(
+        errs = self._host(epipolar_errors_px(
             E, self.K_t, torch.as_tensor(uv1, dtype=f32, device=self.device),
-            torch.as_tensor(uv2, dtype=f32, device=self.device)).cpu().numpy()
+            torch.as_tensor(uv2, dtype=f32, device=self.device)))
         return (errs < self.cfg.ransac_threshold_px ** 2) & match_mask
 
     def _pnp_pose(self, last_kf: Keyframe, kp_xy, match_idx, match_mask):
@@ -485,10 +543,11 @@ class VisualOdometryPipeline:
             reproj_threshold_px=self.cfg.pnp_reproj_err_px,
             num_hyp=self.cfg.pnp_iters,
         )
-        if not bool(res.ok) or int(res.num_inliers) < self.cfg.pnp_scale_min_tracked:
+        ok = self._host(torch.stack([res.ok.to(torch.int32), res.num_inliers]))
+        if not ok[0] or int(ok[1]) < self.cfg.pnp_scale_min_tracked:
             return None
-        R_pnp = res.R.cpu().numpy().astype(np.float64)
-        t_pnp = res.t.cpu().numpy().astype(np.float64)
+        R_pnp = self._host(res.R).astype(np.float64)
+        t_pnp = self._host(res.t).astype(np.float64)
         if not (np.isfinite(R_pnp).all() and np.isfinite(t_pnp).all()):
             return None
         return R_pnp, t_pnp
@@ -501,8 +560,8 @@ class VisualOdometryPipeline:
         self.log.emit("init", "Initializing with first keyframe...", frame_idx=self.frame_idx)
         kf = Keyframe(
             kf_id=self.map.new_keyframe_id(), R=np.eye(3), t=np.zeros(3),
-            xy=kp.xy.cpu().numpy().astype(np.float64), desc=kp.desc,
-            kp_valid=kp.valid.cpu().numpy(), frame_idx=self.frame_idx,
+            xy=self._host(kp.xy).astype(np.float64), desc=kp.desc,
+            kp_valid=self._host(kp.valid), frame_idx=self.frame_idx,
         )
         self.map.add_keyframe(kf)
         self.log.keyframe_trigger(self.frame_idx, kf.kf_id, "Initialization", {})
@@ -560,8 +619,8 @@ class VisualOdometryPipeline:
                     torch.as_tensor(last_kf.xy[n_slots], dtype=f32, device=self.device),
                     torch.as_tensor(kp_xy[match_idx[n_slots]], dtype=f32,
                                     device=self.device))
-                X_rel = X_rel.cpu().numpy().astype(np.float64)
-                valid = valid.cpu().numpy()
+                X_rel = self._host(X_rel).astype(np.float64)
+                valid = self._host(valid)
             self.log.triangulated(self.frame_idx, int(valid.sum()), len(n_slots))
             if valid.any():
                 keep = n_slots[valid]
@@ -608,7 +667,7 @@ class VisualOdometryPipeline:
 
         dev = self.device
         f32 = torch.float32
-        out = frontend.covis_step(
+        out = self._host(frontend.covis_step(
             torch.stack([self.map.keyframes[k].desc for k in recent]),
             torch.as_tensor(bank_valid, device=dev),
             torch.as_tensor(bank_pts, device=dev),
@@ -619,7 +678,7 @@ class VisualOdometryPipeline:
             torch.as_tensor(new_kf.t, dtype=f32, device=dev),
             self.K_t, ratio=self.cfg.ratio_test, cross_check=self.cfg.cross_check,
             reproj_px=float(self.cfg.covis_reproj_px),
-        ).cpu().numpy()
+        ))
 
         for b, kf_id in enumerate(recent):
             kf = self.map.keyframes[kf_id]
@@ -659,11 +718,14 @@ class VisualOdometryPipeline:
             return
         problem = problem._replace(point_mask=torch.zeros_like(problem.point_mask))
         rv, tv, _, stats = ba.ba_solve(problem, n_fixed=0, max_iterations=10,
-                                       huber_delta=self.cfg.ba.huber_delta)
-        if bool(stats.accepted) and float(stats.final_sq) < float(stats.initial_sq):
+                                       huber_delta=self.cfg.ba.huber_delta, masked=True)
+        # the pose and whether to take it in one read
+        take = stats.accepted & (stats.final_sq < stats.initial_sq)
+        v = self._host(torch.cat([rv[0], tv[0], take[None].to(rv.dtype)])).astype(np.float64)
+        if v[6] > 0.5:
             kf = self.map.keyframes[kf_id]
-            kf.R = so3_exp_np(rv[0].cpu().numpy().astype(np.float64))
-            kf.t = tv[0].cpu().numpy().astype(np.float64)
+            kf.R = so3_exp_np(v[0:3])
+            kf.t = v[3:6].copy()
 
     # -- bundle adjustment glue -------------------------------------------
 
@@ -751,7 +813,7 @@ class VisualOdometryPipeline:
                                       float(self.cfg.prune_obs_reproj_px))
             call_args = (grid, problem) + (
                 (refine_problem,) if refine_problem is not None else ())
-            flat = fn(*call_args).cpu().numpy().astype(np.float64)
+            flat = self._host(fn(*call_args)).astype(np.float64)
             C_w = len(window)
             O_w = problem.uv.shape[0]
             rv = flat[: 3 * C_w].reshape(C_w, 3)
@@ -855,13 +917,11 @@ class VisualOdometryPipeline:
                                             > self.cfg.prune_obs_reproj_px)
         else:
             bad = torch.zeros(problem.uv.shape[0], dtype=torch.bool, device=rv.device)
-        stats = ba.BAStats(*(float(x) for x in stats[:4]), int(stats.iterations),
-                           bool(stats.accepted))
-
-        def host(x):
-            return x.cpu().numpy().astype(np.float64)
-
-        return host(rv), host(tv), host(pts), stats, bad.cpu().numpy()
+        sv = self._host(torch.stack([torch.as_tensor(x, device=rv.device).to(torch.float64)
+                                     for x in stats])).astype(np.float64)
+        stats = ba.BAStats(*sv[:4], int(sv[4]), bool(sv[5]))
+        return (self._host(rv).astype(np.float64), self._host(tv).astype(np.float64),
+                self._host(pts).astype(np.float64), stats, self._host(bad))
 
     def run_global_ba(self) -> Optional[dict]:
         """Final global BA: window = every keyframe but the newest."""

@@ -5,7 +5,9 @@ Same problem layout (BAProblem), Huber IRLS weights, Marquardt damping,
 closed-form 3x3 point elimination, dense reduced camera system, LM
 accept/reject with ftol/xtol.  ``segment_sum`` becomes a sum in a fixed
 order on either device (``_segment_sum``).  The LM loop is a Python loop that
-reads its stop flag once per iteration; the matrix-free PCG camera solve
+reads its stop flag once per iteration, or, with ``masked`` (the pose
+refine), runs to its cap with its updates masked after the stop and reads
+nothing on the host; the matrix-free PCG camera solve
 (``_pcg_blocked``, ``cg_iters > 0``) runs to its iteration cap with its
 updates masked once the residual test holds, as the reference's
 ``while_loop`` stops, and reads nothing on the host.
@@ -291,9 +293,49 @@ def _solve_normal_equations(rvecs, tvecs, points, p: BAProblem, lam, delta, n_fi
     return d_r, d_t, dp
 
 
+def _lm_iteration(step, cost_at, rv, tv, pt, lam, cost, b0, blast, *, lambda_up,
+                  lambda_down, lambda_min, lambda_max, ftol, xtol, cg_tol, cg_forcing):
+    """One LM iteration of ``lm_loop``: the step, the trial cost,
+    accept/reject, lambda and the stop flag.  Returns the new (rv, tv, pt,
+    lam, cost, b0, blast) and ``stop`` (converged or stuck), all tensors."""
+    if cg_tol is None:
+        d_r, d_t, d_p = step(rv, tv, pt, lam)
+    else:
+        if cg_forcing:
+            loose = torch.full_like(b0, 0.1)
+            tol = torch.where(
+                b0 > 0.0,
+                torch.clamp(torch.sqrt(blast / torch.clamp(b0, min=1e-30)),
+                            min=cg_tol, max=0.1),
+                loose)
+        else:
+            tol = torch.full_like(b0, cg_tol)
+        d_r, d_t, d_p, bnorm = step(rv, tv, pt, lam, tol)
+        b0 = torch.where(b0 > 0.0, b0, bnorm)
+        blast = bnorm
+    rv2, tv2, pt2 = rv + d_r, tv + d_t, pt + d_p
+    new_cost = cost_at(rv2, tv2, pt2)
+    accept = new_cost < cost
+    step_norm = torch.sqrt(torch.sum(d_r * d_r) + torch.sum(d_t * d_t)
+                           + torch.sum(d_p * d_p))
+    param_norm = torch.sqrt(torch.sum(rv * rv) + torch.sum(tv * tv)
+                            + torch.sum(pt * pt))
+    converged = accept & (
+        ((cost - new_cost) <= ftol * torch.clamp(cost, min=1e-12))
+        | (step_norm <= xtol * (param_norm + xtol)))
+    rv = torch.where(accept, rv2, rv)
+    tv = torch.where(accept, tv2, tv)
+    pt = torch.where(accept, pt2, pt)
+    cost = torch.where(accept, new_cost, cost)
+    lam = torch.where(accept, torch.clamp(lam * lambda_down, min=lambda_min),
+                      torch.clamp(lam * lambda_up, max=lambda_max))
+    stuck = (~accept) & (lam >= lambda_max)
+    return (rv, tv, pt, lam, cost, b0, blast), converged | stuck
+
+
 def lm_loop(step, cost_at, sq_at, rv, tv, pt, *, max_iterations, lambda_init,
             lambda_up, lambda_down, lambda_min, lambda_max, ftol, xtol,
-            cg_tol=None, cg_forcing: bool = False):
+            cg_tol=None, cg_forcing: bool = False, masked: bool = False):
     """The LM accept/reject loop shared by the flat and grid solvers (the
     global-BA kernels' solve runs the same iteration as a device body,
     ``ba_global_kernel.GlobalLM``).  ``step(rv, tv, pt, lam) -> (d_r, d_t,
@@ -306,53 +348,43 @@ def lm_loop(step, cost_at, sq_at, rv, tv, pt, *, max_iterations, lambda_init,
     tol_k = clip(sqrt(|b_k-1| / |b_0|), cg_tol, 0.1), and 0.1 in the first
     iteration: early LM iterations solve loosely, later ones tighter, and
     accept/reject guards the inexact steps.  Without it every step gets
-    ``cg_tol``."""
+    ``cg_tol``.
+
+    The loop leaves at the stop flag (converged or stuck), which it reads on
+    the host once per iteration.  With ``masked`` it reads nothing on the
+    host, as the reference's ``while_loop`` on the device: it runs
+    ``max_iterations`` iterations and keeps the state of the last live one
+    (each later iteration's updates are masked by the device flag), so the
+    result has the bits of the loop that leaves, and ``iterations`` (a
+    device tensor then) counts the live iterations alone."""
+    opts = dict(lambda_up=lambda_up, lambda_down=lambda_down, lambda_min=lambda_min,
+                lambda_max=lambda_max, ftol=ftol, xtol=xtol, cg_tol=cg_tol,
+                cg_forcing=cg_forcing)
     init_cost = cost_at(rv, tv, pt)
     init_sq = sq_at(rv, tv, pt)
-    lam = torch.tensor(lambda_init, dtype=rv.dtype, device=rv.device)
-    cost = init_cost
-    b0 = blast = torch.tensor(-1.0, dtype=rv.dtype, device=rv.device)
-    it = 0
-    while it < max_iterations:
-        if cg_tol is None:
-            d_r, d_t, d_p = step(rv, tv, pt, lam)
-        else:
-            if cg_forcing:
-                loose = torch.full_like(b0, 0.1)
-                tol = torch.where(
-                    b0 > 0.0,
-                    torch.clamp(torch.sqrt(blast / torch.clamp(b0, min=1e-30)),
-                                min=cg_tol, max=0.1),
-                    loose)
-            else:
-                tol = torch.full_like(b0, cg_tol)
-            d_r, d_t, d_p, bnorm = step(rv, tv, pt, lam, tol)
-            b0 = torch.where(b0 > 0.0, b0, bnorm)
-            blast = bnorm
-        rv2, tv2, pt2 = rv + d_r, tv + d_t, pt + d_p
-        new_cost = cost_at(rv2, tv2, pt2)
-        accept = new_cost < cost
-        step_norm = torch.sqrt(torch.sum(d_r * d_r) + torch.sum(d_t * d_t)
-                               + torch.sum(d_p * d_p))
-        param_norm = torch.sqrt(torch.sum(rv * rv) + torch.sum(tv * tv)
-                                + torch.sum(pt * pt))
-        converged = accept & (
-            ((cost - new_cost) <= ftol * torch.clamp(cost, min=1e-12))
-            | (step_norm <= xtol * (param_norm + xtol)))
-        rv = torch.where(accept, rv2, rv)
-        tv = torch.where(accept, tv2, tv)
-        pt = torch.where(accept, pt2, pt)
-        cost = torch.where(accept, new_cost, cost)
-        lam = torch.where(accept, torch.clamp(lam * lambda_down, min=lambda_min),
-                          torch.clamp(lam * lambda_up, max=lambda_max))
-        stuck = (~accept) & (lam >= lambda_max)
-        it += 1
-        if bool(converged | stuck):
-            break
+    lam = torch.full((), lambda_init, dtype=rv.dtype, device=rv.device)
+    b0 = blast = torch.full((), -1.0, dtype=rv.dtype, device=rv.device)
+    state = (rv, tv, pt, lam, init_cost, b0, blast)
+    if masked:
+        done = torch.zeros((), dtype=torch.bool, device=rv.device)
+        iterations = torch.zeros((), dtype=torch.int32, device=rv.device)
+        for _ in range(max_iterations):
+            new, stop = _lm_iteration(step, cost_at, *state, **opts)
+            state = tuple(torch.where(done, a, b) for a, b in zip(state, new))
+            iterations = iterations + (~done).to(torch.int32)
+            done = done | stop
+    else:
+        it = 0
+        while it < max_iterations:
+            state, stop = _lm_iteration(step, cost_at, *state, **opts)
+            it += 1
+            if bool(stop):
+                break
+        iterations = torch.tensor(it, dtype=torch.int32)
+    rv, tv, pt, _, cost = state[:5]
     stats = BAStats(
         initial_cost=init_cost, final_cost=cost, initial_sq=init_sq,
-        final_sq=sq_at(rv, tv, pt),
-        iterations=torch.tensor(it, dtype=torch.int32),
+        final_sq=sq_at(rv, tv, pt), iterations=iterations,
         accepted=cost < init_cost,
     )
     return rv, tv, pt, stats
@@ -373,12 +405,14 @@ def ba_solve_impl(
     axis_name: str | None = None,
     cg_iters: int = 0,
     cg_tol: float = 1e-6,
+    masked: bool = False,
 ):
     """Levenberg-Marquardt with Schur elimination on the flat table.
     Returns (rvecs, tvecs, points, BAStats); the caller applies the
     divergence-discard rule.  ``cg_iters`` > 0 solves the reduced camera
     system by matrix-free block-Jacobi PCG to the fixed tolerance ``cg_tol``
-    (global BA over long keyframe chains)."""
+    (global BA over long keyframe chains).  ``masked``: the LM loop that
+    reads nothing on the host (``lm_loop``), as the pose refine runs it."""
     if axis_name is not None:
         raise NotImplementedError(
             "sharded BA (axis_name) needs parallel/dist_ba, not ported yet")
@@ -399,7 +433,7 @@ def ba_solve_impl(
                    max_iterations=max_iterations, lambda_init=lambda_init,
                    lambda_up=lambda_up, lambda_down=lambda_down,
                    lambda_min=lambda_min, lambda_max=lambda_max, ftol=ftol,
-                   xtol=xtol)
+                   xtol=xtol, masked=masked)
 
 
 ba_solve = ba_solve_impl

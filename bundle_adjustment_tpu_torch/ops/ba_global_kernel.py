@@ -543,21 +543,11 @@ def _plan_args(index: CameraIndex):
 #: host reads made by this module (``camera_index`` and the LM loop's stop
 #: flag); ``SOLVES`` takes each solve's share
 COUNTERS = {"host_reads": 0}
-#: launches recorded while a CUDA graph is captured, per kernel (``_launch``)
-_CAPTURED = collections.Counter()
 #: one record per solve, newest last: LM iterations, host reads, graph
 #: replays, the live CG iterations as a device tensor (reading it is the
 #: caller's host read), and host seconds of the first iteration, the
 #: capture and the replays, each up to its read of the stop flag
 SOLVES = collections.deque(maxlen=64)
-
-
-@functools.lru_cache(maxsize=None)
-def _side_stream(device):
-    """The one stream per device on which solves warm up and capture their
-    LM body (a new stream per solve would give cuBLAS a new workspace each
-    time)."""
-    return torch.cuda.Stream(device)
 
 
 def _host_list(t):
@@ -571,17 +561,13 @@ def _host_bool(t) -> bool:
 
 
 def _launch(name: str, dev, *args):
-    """Launch kernel ``name`` on the current stream and count it: in
-    ``kernels.LAUNCHES``, or in ``_CAPTURED`` while the stream is captured
-    into a CUDA graph (nothing runs then; each replay adds the count)."""
+    """Launch kernel ``name`` on the current stream and count it
+    (``kernels.count_launch``)."""
     fn = kernels.library_fn(name)
     err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else int(a) for a in args),
              torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(name, err)
-    if torch.cuda.is_current_stream_capturing():
-        _CAPTURED[name] += 1
-    else:
-        kernels.LAUNCHES[name] += 1
+    kernels.count_launch(name)
 
 
 def setup(cam, ptT, slotT, maskT, uvT, pmask, scal, n_fixed: int,
@@ -783,39 +769,16 @@ class GlobalLM:
         stuck = (~accept) & (lam >= o["lambda_max"])
         s["done"].copy_(converged | stuck)
 
-    def _on_side_stream(self, fn):
-        main = torch.cuda.current_stream(self.dev)
-        side = _side_stream(self.dev)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            out = fn()
-        main.wait_stream(side)
-        return out
-
     def warm_up(self):
         """The body once, eagerly, on the stream that captures it, as a
         capture wants the first call of each operation on its stream to have
         been made (it loads every kernel and gives cuBLAS its workspace)."""
-        self._on_side_stream(self.body)
+        kernels.on_side_stream(self.dev, self.body)
 
     def capture(self):
         """The body captured as a CUDA graph (nothing runs) and the launches
-        of each kernel that one replay makes.  ``capture_begin`` and
-        ``capture_end`` directly: ``torch.cuda.graph`` would also collect
-        Python's garbage and empty the allocator's cache, once per solve."""
-        graph = torch.cuda.CUDAGraph()
-        _CAPTURED.clear()
-
-        def record():
-            graph.capture_begin()
-            try:
-                self.body()
-            finally:
-                graph.capture_end()
-
-        self._on_side_stream(record)
-        per_replay = dict(_CAPTURED)
-        _CAPTURED.clear()
+        of each kernel that one replay makes."""
+        graph, _, per_replay = kernels.capture(self.dev, self.body)
         return graph, per_replay
 
     def run(self):
@@ -829,10 +792,8 @@ class GlobalLM:
         t0 = time.perf_counter()
         while n < self.opts["max_iterations"]:
             if graph is not None:
-                graph.replay()
+                kernels.replay(graph, per_replay)
                 replays += 1
-                for name, k in per_replay.items():
-                    kernels.LAUNCHES[name] += k
             elif graphed:
                 self.warm_up()
             else:

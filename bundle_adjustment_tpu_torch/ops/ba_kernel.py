@@ -301,7 +301,7 @@ def launch(grid: BAProblemGrid, n_fixed: int, max_iterations: int,
              rv.data_ptr(), tv.data_ptr(), pts.data_ptr(), stats.data_ptr(),
              scratch.data_ptr(), stream)
     kernels.check(NAME, err)
-    kernels.LAUNCHES[NAME] += 1
+    kernels.count_launch(NAME)
     return rv, tv, pts, stats
 
 

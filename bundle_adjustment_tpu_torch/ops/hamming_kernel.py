@@ -89,7 +89,7 @@ def launch(d1: torch.Tensor, d2: torch.Tensor, valid2: torch.Tensor):
              part.data_ptr(), QUERY_TILE, best.data_ptr(), idx.data_ptr(),
              second.data_ptr(), stream)
     kernels.check(NAME, err)
-    kernels.LAUNCHES[NAME] += 1
+    kernels.count_launch(NAME)
     return best, idx, second
 
 

@@ -111,13 +111,21 @@ def _blocked_cumsum_last(x):
     return (inner + carry[..., None]).reshape(x.shape[:-1] + (nb * B,))[..., :n]
 
 
-def gaussian_blur(img: torch.Tensor, sigma: float = 2.0, ksize: int = 7) -> torch.Tensor:
-    """Separable Gaussian blur, edge padding.  img: (H, W) f32."""
+@functools.lru_cache(maxsize=None)
+def _gaussian_taps(sigma: float, ksize: int, device) -> torch.Tensor:
+    """The normalised float32 Gaussian taps, once per device (a copy from
+    host memory cannot be captured into a CUDA graph)."""
     r = ksize // 2
     x = np.arange(-r, r + 1, dtype=np.float32)
     k = np.exp(-0.5 * (x / sigma) ** 2)
     k /= k.sum()
-    kt = torch.as_tensor(k, device=img.device)
+    return torch.as_tensor(k, device=device)
+
+
+def gaussian_blur(img: torch.Tensor, sigma: float = 2.0, ksize: int = 7) -> torch.Tensor:
+    """Separable Gaussian blur, edge padding.  img: (H, W) f32."""
+    r = ksize // 2
+    kt = _gaussian_taps(sigma, ksize, img.device)
     H, W = img.shape
     p = _edge_pad(img, 0, 0, r, r)
     img_h = sum(p[:, i: i + W] * kt[i] for i in range(ksize))
@@ -333,10 +341,12 @@ def level_budgets(num_features: int, levels: int, scale: float) -> list[int]:
     return [int(x) for x in b]
 
 
+@functools.lru_cache(maxsize=None)
 def _resize_weights(in_size: int, out_size: int, device) -> torch.Tensor:
     """(in_size, out_size) float32 weights of jax.image.resize's
     antialiased bilinear (triangle) kernel (compute_weight_mat), with the
-    column sums taken in increasing row order."""
+    column sums taken in increasing row order; built once per (in, out,
+    device) and shared (callers do not write to it)."""
     f32 = torch.float32
     scale = out_size / in_size
     inv_scale = 1.0 / scale

@@ -64,5 +64,5 @@ def gather_patches40(img: torch.Tensor, start_y: torch.Tensor,
     err = fn(imgc.data_ptr(), H, W, syc.data_ptr(), sxc.data_ptr(), B,
              out.data_ptr(), stream)
     kernels.check(NAME, err)
-    kernels.LAUNCHES[NAME] += 1
+    kernels.count_launch(NAME)
     return out

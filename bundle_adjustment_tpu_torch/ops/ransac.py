@@ -23,6 +23,8 @@ from typing import NamedTuple
 import torch
 from torch.func import jacfwd
 
+from bundle_adjustment_tpu_torch import device as device_mod
+from bundle_adjustment_tpu_torch.ops import small_linalg
 from bundle_adjustment_tpu_torch.ops.five_point import five_point_candidates
 from bundle_adjustment_tpu_torch.ops.lie import so3_exp, so3_hat
 from bundle_adjustment_tpu_torch.ops.projection import pixel_to_normalized, sampson_distance
@@ -35,6 +37,12 @@ class PoseResult(NamedTuple):
     num_inliers: torch.Tensor  # () int32
     inlier_ratio: torch.Tensor # () f32
     ok: torch.Tensor           # () bool
+
+
+def _take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``x[i]`` for a 0-d index tensor ``i``, on the device: indexing with a
+    0-d tensor reads it on the host first."""
+    return x.index_select(0, i.reshape(1))[0]
 
 
 def essential_draw_shape(num_hyp: int, solver: str = "5pt") -> tuple:
@@ -88,7 +96,7 @@ def _hartley_normalize(x):
 
 def _project_essential(E):
     U, _, Vt = torch.linalg.svd(E)
-    sv = torch.tensor([1.0, 1.0, 0.0], dtype=E.dtype, device=E.device)
+    sv = device_mod.constant((1.0, 1.0, 0.0), E.dtype, E.device)
     return torch.matmul(U * sv, Vt)
 
 
@@ -114,8 +122,8 @@ def _decompose_e(E):
     U, _, Vt = torch.linalg.svd(E)
     U = U * torch.sign(torch.linalg.det(U))
     Vt = Vt * torch.sign(torch.linalg.det(Vt))
-    W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
-                     dtype=E.dtype, device=E.device)
+    W = device_mod.constant(((0.0, -1.0, 0.0), (1.0, 0.0, 0.0), (0.0, 0.0, 1.0)),
+                            E.dtype, E.device)
     R1 = U @ W @ Vt
     R2 = U @ W.T @ Vt
     t = U[:, 2]
@@ -137,8 +145,8 @@ def _cheirality_counts(Rs, ts, x1, x2, mask):
 
 def _tangent_basis(t):
     """(3, 2) orthonormal basis of the plane perpendicular to unit t."""
-    ex = torch.tensor([1.0, 0.0, 0.0], dtype=t.dtype, device=t.device)
-    ey = torch.tensor([0.0, 1.0, 0.0], dtype=t.dtype, device=t.device)
+    ex = device_mod.constant((1.0, 0.0, 0.0), t.dtype, t.device)
+    ey = device_mod.constant((0.0, 1.0, 0.0), t.dtype, t.device)
     e = torch.where(torch.abs(t[0]) < 0.9, ex, ey)
     b1 = torch.linalg.cross(t, e, dim=-1)
     b1 = b1 / torch.linalg.norm(b1).clamp(min=1e-12)
@@ -239,7 +247,7 @@ def estimate_essential_pose(
         Es = _eight_point(x1[idx], x2[idx])
         scores = msac_batch(Es)
 
-    E = Es[torch.argmin(scores)]
+    E = _take(Es, torch.argmin(scores))
 
     for _ in range(refine_iters):
         d = sampson_distance(E, x1, x2)
@@ -251,7 +259,7 @@ def estimate_essential_pose(
     Rs, ts = _decompose_e(E)
     votes = _cheirality_counts(Rs, ts, x1, x2, inliers)
     pick = torch.argmax(votes)
-    R, t = Rs[pick], ts[pick]
+    R, t = _take(Rs, pick), _take(ts, pick)
 
     R, t = _polish_rt(R, t, x1, x2, valid, thr_norm_sq)
     E = torch.matmul(so3_hat(t), R)
@@ -274,15 +282,17 @@ def _dlt_projection(X, x):
     """Batched 6-point DLT for P (..., 3, 4) from X (..., S, 3), x (..., S, 2).
 
     The null vector comes from a float32 eigh of the unnormalised A^T A, as
-    in the JAX package.  That squares A's condition number: with the map a
-    few metres off the origin the vector misses the float64 null vector's
-    residual by 5 to 10 times, in both packages alike, and on a sample that
-    is close to coplanar the null space has more than one dimension and the
-    vector is whichever one LAPACK lands on.  RANSAC over such hypotheses
-    then differs between the packages by chance, in either direction
-    (``tests/test_torch_geometry.py``).  A float64 eigh repairs the first and
-    not the second, and moves the port away from the JAX package on scenes
-    of two planes, so it is not taken here."""
+    in the JAX package (``small_linalg.eigh``: ``torch.linalg.eigh``'s
+    solver on each device, LAPACK on the CPU).  That squares A's condition
+    number: with the map a few metres off the origin the vector misses the
+    float64 null vector's residual by 5 to 10 times, in both packages alike,
+    and on a sample that is close to coplanar the null space has more than
+    one dimension and the vector is whichever one the solver lands on.
+    RANSAC over such hypotheses then differs between the packages by
+    chance, in either direction (``tests/test_torch_geometry.py``).  A
+    float64 eigh repairs the first and not the second, and moves the port
+    away from the JAX package on scenes of two planes, so it is not taken
+    here."""
     ones = torch.ones_like(X[..., :1])
     Xh = torch.cat([X, ones], dim=-1)
     zeros = torch.zeros_like(Xh)
@@ -290,15 +300,16 @@ def _dlt_projection(X, x):
     r2 = torch.cat([zeros, Xh, -x[..., 1:2] * Xh], dim=-1)
     A = torch.cat([r1, r2], dim=-2)
     AtA = torch.matmul(A.transpose(-1, -2), A)
-    _, vecs = torch.linalg.eigh(AtA)
-    return vecs[..., :, 0].reshape(X.shape[:-2] + (3, 4))
+    return small_linalg.eigh(AtA)[1][..., :, 0].reshape(X.shape[:-2] + (3, 4))
 
 
 def _pose_from_projection(P):
     """(R, t) from P = s[R|t]: nearest rotation by SVD, scale from the
-    singular values, sign from det.  Invariant to the sign of P."""
+    singular values, sign from det.  Invariant to the sign of P.  The SVD
+    is ``small_linalg.svd``: ``torch.linalg.svd``'s solver on each
+    device."""
     M = P[..., :, :3]
-    U, s, Vt = torch.linalg.svd(M)
+    U, s, Vt = small_linalg.svd(M)
     detUV = torch.linalg.det(torch.matmul(U, Vt))
     sgn = torch.sign(detUV)
     R = torch.matmul(U * sgn[..., None, None], Vt)
@@ -340,7 +351,7 @@ def estimate_pnp_pose(
     Rs, ts = _pose_from_projection(_dlt_projection(X[idx], x[idx]))
     counts = torch.sum((_reproj_err_norm(Rs, ts, X, x) < thr_norm_sq) & valid, dim=-1)
     best = torch.argmax(counts)
-    R, t = Rs[best], ts[best]
+    R, t = _take(Rs, best), _take(ts, best)
     eye6 = torch.eye(6, dtype=dt, device=x.device)
 
     def cost(R_, t_):

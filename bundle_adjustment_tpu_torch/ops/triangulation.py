@@ -6,6 +6,8 @@ from __future__ import annotations
 
 import torch
 
+from bundle_adjustment_tpu_torch.ops import small_linalg
+
 
 def camera_matrix(K: torch.Tensor, R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """P = K [R | t], broadcasting over leading dims."""
@@ -14,9 +16,9 @@ def camera_matrix(K: torch.Tensor, R: torch.Tensor, t: torch.Tensor) -> torch.Te
 
 def triangulate_dlt(P1, P2, uv1, uv2):
     """Linear (DLT) triangulation of N correspondences via the
-    smallest-eigenvalue eigenvector of the 4x4 normal matrix.  The sign of
-    the eigenvector cancels in the homogeneous divide, so LAPACK and
-    cuSOLVER agree on X."""
+    smallest-eigenvalue eigenvector of the 4x4 normal matrix
+    (``small_linalg.eigh``: ``torch.linalg.eigh``'s solver on each
+    device).  Its sign cancels in the homogeneous divide."""
     u1, v1 = uv1[..., 0], uv1[..., 1]
     u2, v2 = uv2[..., 0], uv2[..., 1]
     A = torch.stack(
@@ -29,8 +31,7 @@ def triangulate_dlt(P1, P2, uv1, uv2):
         dim=-2,
     )
     AtA = torch.matmul(torch.swapaxes(A, -1, -2), A)
-    _, vecs = torch.linalg.eigh(AtA)
-    Xh = vecs[..., :, 0]
+    Xh = small_linalg.eigh(AtA)[1][..., :, 0]
     w = Xh[..., 3]
     w_safe = w + torch.where(w >= 0, 1e-6, -1e-6)
     return Xh[..., :3] / w_safe[..., None]

@@ -1,13 +1,207 @@
-"""Point-cloud output: the PCD writer of ``bundle_adjustment_tpu.utils.io``
-(own copy).  Frame sources (video and image decoding) are not ported yet."""
+"""Host I/O: frame sources and PCD point-cloud files (own copy of
+``bundle_adjustment_tpu.utils.io``'s frame sources and PCD reader/writer).
+
+The machine with the card has no cv2, so image folders of PNG files are
+decoded here with the standard library: ``read_png`` takes 8-bit gray, RGB
+and RGBA PNGs without interlace (``zlib`` and the five PNG row filters) and
+returns the BGR array that ``cv2.imread(path, cv2.IMREAD_COLOR)`` returns,
+byte for byte (gray replicated to three channels, alpha dropped).  Any
+other image, a PNG of another kind included, and any video go through cv2
+where it is installed and raise ``ImportError`` naming it where it is not.
+"""
 
 from __future__ import annotations
 
+import glob
 import os
 import struct
-from typing import Optional
+import zlib
+from typing import Iterator, Optional
 
 import numpy as np
+
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+#: PNG colour type -> channels, for the kinds ``read_png`` decodes itself
+_PNG_CHANNELS = {0: 1, 2: 3, 6: 4}
+_IMAGE_EXTENSIONS = (".png", ".jpg", ".jpeg", ".bmp")
+
+
+def _cv2(what: str):
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError(f"{what} needs cv2 (OpenCV), which is not installed; "
+                          "folders of 8-bit gray, RGB or RGBA PNG files are read "
+                          "without it") from e
+    return cv2
+
+
+class _PngKindUnsupported(ValueError):
+    """A valid PNG of a kind that ``read_png`` does not decode itself."""
+
+
+def _png_chunks(data: bytes):
+    if data[:8] != _PNG_SIGNATURE:
+        raise ValueError("not a PNG file (bad signature)")
+    pos = 8
+    while pos + 8 <= len(data):
+        (length,) = struct.unpack(">I", data[pos: pos + 4])
+        kind = data[pos + 4: pos + 8]
+        yield kind, data[pos + 8: pos + 8 + length]
+        if kind == b"IEND":
+            return
+        pos += 12 + length
+    raise ValueError("truncated PNG file (no IEND chunk)")
+
+
+def _paeth(a, b, c):
+    """The Paeth predictor on int16 arrays: a left, b above, c above-left."""
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def _unfilter(rows: np.ndarray, filters: np.ndarray, bpp: int) -> np.ndarray:
+    """Undo the PNG row filters of ``rows`` (H, stride) uint8 with
+    ``filters`` (H,) and ``bpp`` bytes per pixel."""
+    H, stride = rows.shape
+    W = stride // bpp
+    if np.all(filters <= 2):
+        # None, Sub and Up: one row at a time, each vectorised
+        out = np.empty_like(rows)
+        prev = np.zeros(stride, np.uint8)
+        for y in range(H):
+            f = filters[y]
+            if f == 0:
+                cur = rows[y]
+            elif f == 1:
+                cur = np.cumsum(rows[y].reshape(W, bpp), axis=0, dtype=np.uint8).reshape(-1)
+            else:
+                cur = rows[y] + prev
+            out[y] = prev = cur
+        return out
+    # Average and Paeth depend on the left, upper and upper-left pixels:
+    # one anti-diagonal of pixels at a time, vectorised over the rows
+    raw = rows.reshape(H, W, bpp).astype(np.int16)
+    out = np.zeros((H + 1, W + 1, bpp), np.int16)     # a zero row and column in front
+    f = filters.astype(np.int16)
+    for d in range(H + W - 1):
+        y = np.arange(max(0, d - W + 1), min(H, d + 1))
+        x = d - y
+        a, b, c = out[y + 1, x], out[y, x + 1], out[y, x]
+        fy = f[y][:, None]
+        pred = np.where(fy == 1, a, np.where(fy == 2, b, np.where(
+            fy == 3, (a + b) >> 1, np.where(fy == 4, _paeth(a, b, c), 0))))
+        out[y + 1, x + 1] = (raw[y, x] + pred) & 255
+    return out[1:, 1:].astype(np.uint8).reshape(H, stride)
+
+
+def read_png(path: str) -> np.ndarray:
+    """(H, W, 3) uint8 BGR of an 8-bit gray, RGB or RGBA PNG without
+    interlace, equal to ``cv2.imread(path, cv2.IMREAD_COLOR)``.  Raises
+    ``ValueError`` on a file that is not such a PNG."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    chunks = _png_chunks(data)
+    kind, body = next(chunks)
+    if kind != b"IHDR":
+        raise ValueError(f"{path}: PNG without IHDR first")
+    width, height, depth, colour, _, _, interlace = struct.unpack(">IIBBBBB", body)
+    if depth != 8 or colour not in _PNG_CHANNELS or interlace != 0:
+        raise _PngKindUnsupported(
+            f"{path}: PNG of bit depth {depth}, colour type {colour}, interlace "
+            f"{interlace}; decoded here: bit depth 8, colour type 0, 2 or 6, no interlace")
+    idat = [body for kind, body in chunks if kind == b"IDAT"]
+    bpp = _PNG_CHANNELS[colour]
+    stride = width * bpp
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size != height * (stride + 1):
+        raise ValueError(f"{path}: image data of {raw.size} bytes, expected "
+                         f"{height * (stride + 1)}")
+    raw = raw.reshape(height, stride + 1)
+    if raw[:, 0].max(initial=0) > 4:
+        raise ValueError(f"{path}: unknown PNG row filter {int(raw[:, 0].max())}")
+    pix = _unfilter(raw[:, 1:], raw[:, 0], bpp).reshape(height, width, bpp)
+    if bpp == 1:
+        return np.repeat(pix, 3, axis=2)
+    return np.ascontiguousarray(pix[:, :, 2::-1])
+
+
+def read_image(path: str) -> Optional[np.ndarray]:
+    """BGR uint8 of an image file, as ``cv2.imread(path, cv2.IMREAD_COLOR)``:
+    PNGs that ``read_png`` takes are decoded here, anything else by cv2
+    (``None`` where cv2 cannot read it), which raises ``ImportError`` where
+    it is not installed."""
+    if path.lower().endswith(".png"):
+        try:
+            return read_png(path)
+        except _PngKindUnsupported as e:
+            what = f"reading {e}"
+    else:
+        what = f"reading {path} (not a PNG file)"
+    cv2 = _cv2(what)
+    return cv2.imread(path, cv2.IMREAD_COLOR)
+
+
+def video_frames(path: str, start: int = 0, end: Optional[int] = None) -> Iterator[np.ndarray]:
+    """Yield BGR frames of a video from frame ``start`` up to ``end``
+    (exclusive), decoded by cv2."""
+    cv2 = _cv2(f"video_frames ({path})")
+    cap = cv2.VideoCapture(path)
+    if not cap.isOpened():
+        raise FileNotFoundError(f"cannot open video: {path}")
+    i = 0
+    try:
+        while True:
+            ok, frame = cap.read()
+            if not ok or (end is not None and i >= end):
+                return
+            if i >= start:
+                yield frame
+            i += 1
+    finally:
+        cap.release()
+
+
+def image_folder_frames(folder: str, pattern: str = "*") -> Iterator[np.ndarray]:
+    """Yield BGR frames of the images in ``folder`` (sorted by name)."""
+    paths = sorted(p for p in glob.glob(os.path.join(folder, pattern))
+                   if p.lower().endswith(_IMAGE_EXTENSIONS))
+    if not paths:
+        raise FileNotFoundError(f"no images found in {folder}")
+    for p in paths:
+        img = read_image(p)
+        if img is not None:
+            yield img
+
+
+def prefetch(iterator: Iterator, depth: int = 3) -> Iterator:
+    """Run an iterator (frame decoding) in a background thread with a
+    bounded queue, overlapping host I/O with device work; its exceptions
+    reach the consumer.  zlib and cv2 release the interpreter lock while
+    they decode."""
+    import queue
+    import threading
+
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    end = object()
+
+    def worker():
+        try:
+            for item in iterator:
+                q.put(item)
+            q.put(end)
+        except BaseException as e:  # handed to the consumer, which raises it
+            q.put(e)
+
+    threading.Thread(target=worker, daemon=True).start()
+    while True:
+        item = q.get()
+        if item is end:
+            return
+        if isinstance(item, BaseException):
+            raise item
+        yield item
 
 
 def write_pcd(path: str, points: np.ndarray, colors: Optional[np.ndarray] = None,
@@ -61,3 +255,33 @@ def write_pcd(path: str, points: np.ndarray, colors: Optional[np.ndarray] = None
                             f"{struct.unpack('<f', struct.pack('<f', row[3]))[0]:.9e}\n")
                 else:
                     f.write(f"{row[0]:.6f} {row[1]:.6f} {row[2]:.6f}\n")
+
+
+def read_pcd(path: str):
+    """Read the PCD subset written by ``write_pcd``.  Returns (points, colors
+    or None), float64."""
+    with open(path, "rb") as f:
+        header = {}
+        while True:
+            line = f.readline().decode().strip()
+            if line.startswith("#"):
+                continue
+            key, _, val = line.partition(" ")
+            header[key] = val
+            if key == "DATA":
+                break
+        n = int(header["POINTS"])
+        fields = header["FIELDS"].split()
+        ncols = len(fields)
+        if header["DATA"] == "binary":
+            data = np.frombuffer(f.read(n * ncols * 4), np.float32).reshape(n, ncols)
+        else:
+            data = np.loadtxt(f, dtype=np.float32).reshape(n, ncols)
+    points = data[:, :3].astype(np.float64)
+    colors = None
+    if "rgb" in fields:
+        rgb_u32 = np.ascontiguousarray(data[:, fields.index("rgb")]).view(np.uint32)
+        colors = np.stack(
+            [(rgb_u32 >> 16) & 0xFF, (rgb_u32 >> 8) & 0xFF, rgb_u32 & 0xFF], axis=1
+        ).astype(np.float64) / 255.0
+    return points, colors

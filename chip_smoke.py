@@ -30,21 +30,34 @@ Phases, each of which exits non-zero when it fails:
    (37 cameras, P = 1777, dead slots, n_fixed = 1), norm-wise; the whole
    solve against ``solve_plain``; two launches and two solves bit-equal;
    times per launch from CUDA events;
-6. the main path: the port's numpy-rendered strafe sequence at 1280 x 720,
-   ``preset_video`` (4000 features, 8 levels) with the camera fitted to the
-   render and the default ``BAConfig``, through
-   ``VisualOdometryPipeline.process_frame`` and ``finalize``, with the
-   kernels' launch counters set to 0 just before and read just after, and
-   what came out: keyframes, map points, BA results, trajectory against the
-   ground truth, outputs on disk; then an untimed second run over the same
-   frames records the inputs of K1 and K3, must give the same statuses, and
-   prints the shapes of its K3 launches and the time per launch of K1 and K3
-   on those inputs, each replayed several times (the spread of CUDA-event
-   times, and the device time under the profiler);
+6. the main path through its CLI: the port's numpy-rendered strafe sequence
+   at 1280 x 720, written as a folder of PNG files (a standard-library
+   encoder here, the port's own decoder in the run), through
+   ``run.main(["--preset", "video", "--images", ...])`` with the camera
+   fitted to the render (``preset_video``: 4000 features, 8 levels, the
+   default ``BAConfig``), pipelined (``process_stream``), ``--no-pipelined``
+   and pipelined again (the first run pays the process's first uses), the
+   kernels' launch counters set to 0 just before each and read just after:
+   statuses, keyframe ids and poses bit-equal between the three; per-frame median and p90, frames per second; the
+   tracked-frame step's graph captures (one) and replays (one per frame past
+   the first, plus the dropped speculative steps when pipelined), one host
+   read per tracked frame, K1 and K2 counted once per replay; keyframes, map
+   points, BA results, trajectory against the ground truth, outputs on
+   disk.  6b: on the first tracked frames a replay's ``packed``,
+   ``insert_packed`` and ``kp_desc`` equal eager ``track_step``'s bit for
+   bit; eager ``track_step``'s ms per call, split by stage, beside one
+   dispatch of the graph.  6c: the first tracked frame of the CLI in two
+   fresh processes, without and with ``--prewarm``.  Then an untimed run
+   over the same frames records the inputs of K1 (outside the capture) and
+   K3, must give the same statuses, and prints the shapes of its K3 launches
+   and the time per launch of K1 and K3 on those inputs, each replayed
+   several times (the spread of CUDA-event times, and the device time under
+   the profiler);
 7. the earlier path, ``BAConfig(use_pallas_ba=False)`` (the grid solver), on
    the same frames until its first windowed BA completes;
-8. determinism: the first 12 frames through two fresh pipelines give equal
-   statuses, keyframe ids and keyframe poses, bit for bit;
+8. determinism: the first 12 frames through two fresh pipelines (each
+   tracked frame a replay of its own graph) give equal statuses, keyframe
+   ids and keyframe poses, bit for bit;
 9. the global path at full width: a map of 200 keyframes, 30,000 points and
    120,000 observations (``synthetic_global_map``) in a
    ``VisualOdometryPipeline(preset_video(cam))``, then ``finalize``: global BA
@@ -73,6 +86,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -870,16 +884,146 @@ def kernel_times(torch, seed: int, dev) -> dict:
     return out
 
 
-def profile_frames(torch, frames, cfg, pipeline_cls, log_cls) -> None:
-    """A fresh pipeline over ``frames[1:]`` under the profiler."""
-    pipe = pipeline_cls(cfg, log=log_cls(echo=False), device="cuda")
+def write_png(path: str, bgr) -> None:
+    """``bgr`` (H, W, 3) uint8 as an RGB PNG, every row under the Up filter,
+    with the standard library (the card machine has no cv2)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    rgb = bgr[:, :, ::-1].reshape(bgr.shape[0], -1)
+    up = np.diff(rgb, axis=0, prepend=np.zeros_like(rgb[:1]))      # uint8, wraps
+    rows = np.concatenate([np.full((rgb.shape[0], 1), 2, np.uint8), up], axis=1)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    with open(path, "wb") as fh:
+        fh.write(b"\x89PNG\r\n\x1a\n"
+                 + chunk(b"IHDR", struct.pack(">IIBBBBB", bgr.shape[1], bgr.shape[0], 8, 2, 0, 0, 0))
+                 + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + chunk(b"IEND", b""))
+
+
+def cli_args(folder: str, K, W: int, H: int) -> list:
+    """``run.main``'s arguments for ``preset_video`` with the camera fitted
+    to the render."""
+    return ["--preset", "video", "--images", folder, "--fx", repr(float(K[0, 0])),
+            "--fy", repr(float(K[1, 1])), "--cx", repr(float(K[0, 2])), "--cy",
+            repr(float(K[1, 2])), "--size", f"{W}x{H}"]
+
+
+def frame_records(read_events, out: str) -> list:
+    """The ``frame_timing`` events of a CLI run, each with ``wall_ms``: the
+    wall time since the previous frame's result (the first frame's own
+    time for the first)."""
+    recs = [e for e in read_events(f"{out}/events.jsonl") if e["event"] == "frame_timing"]
+    for i, e in enumerate(recs):
+        e["wall_ms"] = e["total_ms"] if i == 0 else (e["t"] - recs[i - 1]["t"]) * 1e3
+    return recs
+
+
+def bit_equal(torch, a, b) -> bool:
+    """Equal bits, NaNs included (``torch.equal`` calls two NaNs unequal)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def step_check_and_times(torch, np, pipe_cls, cfg, frames, log_cls, n_check: int = 3) -> dict:
+    """A fresh pipeline's first frame, then on each of the next ``n_check``
+    frames one replay of the tracked-frame graph against eager
+    ``track_step`` on the same static inputs (``packed``, ``insert_packed``,
+    ``kp_desc``; fails on any difference); then the ms per call of eager
+    ``track_step`` (whole, and split by stage with a synchronise around
+    each) and of one replay, host clock to a synchronise, median of 5."""
+    from bundle_adjustment_tpu_torch.models import frontend
+    from bundle_adjustment_tpu_torch.models.pipeline import bgr_to_gray
+    from bundle_adjustment_tpu_torch.ops import ransac
+
+    pipe = pipe_cls(cfg, log=log_cls(echo=False), device="cuda")
     pipe.process_frame(frames[0])
+    step = pipe.track
+    u = step.u_buffer(ransac.pnp_draw_shape(cfg.pnp_iters))
+    for i in range(1, n_check + 1):
+        gray = bgr_to_gray(frames[i])
+        res = pipe._fused_dispatch(gray, i)
+        eager = frontend.track_step(step._images[gray.shape], step.state, step._K, u,
+                                    **pipe.track_args(*gray.shape))
+        torch.cuda.synchronize()
+        for name in ("packed", "insert_packed", "kp_desc"):
+            a, b = getattr(res, name), getattr(eager, name)
+            if not bit_equal(torch, a, b):
+                fail(f"frame {i}: the graph replay's {name} differs from eager track_step by "
+                     f"up to {(a.double() - b.double()).abs().max().item()}")
 
-    def rest():
-        for f in frames[1:]:
-            pipe.process_frame(f)
+    def median_ms(fn, n=5):
+        fn()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(out)
 
-    profile_call(torch, f"{len(frames) - 1} frames", rest)
+    args = (step._images[gray.shape], step.state, step._K, u)
+    kw = pipe.track_args(*gray.shape)
+    times = dict(eager_ms=median_ms(lambda: frontend.track_step(*args, **kw)),
+                 replay_ms=median_ms(lambda: pipe._fused_dispatch(gray, n_check)))
+    stages = {"orb extract": (frontend.orb, "extract"), "match": (frontend.hamming, "match"),
+              "pnp ransac + polish": (frontend.ransac, "estimate_pnp_pose")}
+    spent = {k: [] for k in stages}
+    originals = {}
+    for name, (mod, attr) in stages.items():
+        originals[name] = getattr(mod, attr)
+
+        def timed(*a, _f=originals[name], _name=name, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _f(*a, **k)
+            torch.cuda.synchronize()
+            spent[_name].append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        setattr(mod, attr, timed)
+    try:
+        total = median_ms(lambda: frontend.track_step(*args, **kw))
+    finally:
+        for name, (mod, attr) in stages.items():
+            setattr(mod, attr, originals[name])
+    split = {k: statistics.median(v) for k, v in spent.items()}
+    split["the rest"] = total - sum(split.values())
+    times["split_ms"] = split
+    times["split_total_ms"] = total
+    return times
+
+
+def fresh_process_first_frames(out_root: str, folder: str, K, W: int, H: int) -> dict:
+    """The CLI over ``folder`` in two fresh processes, without and with
+    ``--prewarm``: each run's first tracked frame's ms (frame 1), the
+    prewarm's seconds, and each process's wall seconds."""
+    from bundle_adjustment_tpu_torch.utils.event_log import read_events
+
+    out = {}
+    for tag, extra in (("cold", []), ("prewarm", ["--prewarm"])):
+        o = os.path.join(out_root, f"fresh_{tag}")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "bundle_adjustment_tpu_torch.run"]
+                              + cli_args(folder, K, W, H) + ["--out", o] + extra,
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            fail(f"the CLI in a fresh process ({tag}) failed:\n{proc.stderr[-3000:]}")
+        recs = frame_records(read_events, o)
+        warm = [e for e in read_events(f"{o}/events.jsonl") if e["event"] == "prewarm"]
+        out[tag] = dict(first_tracked_ms=recs[1]["total_ms"], frame0_ms=recs[0]["total_ms"],
+                        process_s=time.perf_counter() - t0,
+                        prewarm_s=warm[0]["prewarm_s"] if warm else None)
+    return out
 
 
 def drive(torch, pipe, frames, until_first_ba: bool = False) -> dict:
@@ -913,9 +1057,9 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=40)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", type=int, default=0, metavar="N",
-                    help="after the checks, profile a fresh pipeline over the "
-                         "first N frames and one finalize of the global path's "
-                         "map (default 0: no profile)")
+                    help="after the checks, run the CLI with --profile over the "
+                         "first N frames and profile one finalize of the global "
+                         "path's map (default 0: no profile)")
     ap.add_argument("--kernel-times", action="store_true",
                     help="only build the kernels and time K1, K3, K4a, K4b and K4d "
                          "(kernel_times), print one JSON line and exit")
@@ -942,6 +1086,7 @@ def main() -> int:
 
     from bundle_adjustment_tpu_torch import device as device_mod
     from bundle_adjustment_tpu_torch import kernels
+    from bundle_adjustment_tpu_torch import run as run_mod
     from bundle_adjustment_tpu_torch.config import CAMERA_LEHMAN, CameraModel, preset_video
     from bundle_adjustment_tpu_torch.models.pipeline import VisualOdometryPipeline
     from bundle_adjustment_tpu_torch.ops import ba_global_kernel, ba_kernel, hamming_kernel, orb, \
@@ -992,35 +1137,78 @@ def main() -> int:
                          so3_exp_np, args.seed, dev)
     k4 = check_global(torch, np, mods, args.seed, dev)
 
-    # -- 6. the main path ----------------------------------------------------
+    # -- 6. the main path, through the CLI ------------------------------------
     W, H = 1280, 720
     t0 = time.perf_counter()
     frames, K, gt_C, _ = synthetic_sequence(
         n_frames=args.frames, width=W, height=H, fx=CAMERA_LEHMAN.fx,
         seed=args.seed, motion="strafe")
-    print(f"rendered {len(frames)} frames {W}x{H} in "
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    folder = os.path.join(work, "frames")
+    os.makedirs(folder)
+    for i, f in enumerate(frames):
+        write_png(os.path.join(folder, f"{i:05d}.png"), f)
+    print(f"rendered {len(frames)} frames {W}x{H} and wrote them as PNG files in "
           f"{time.perf_counter() - t0:.1f} s")
     cam = CameraModel(fx=float(K[0, 0]), fy=float(K[1, 1]), cx=float(K[0, 2]),
                       cy=float(K[1, 2]), width=W, height=H)
     cfg = preset_video(cam)
     if not (cfg.ba.use_pallas_ba and cfg.ba.window_size == 5 and cfg.ba.n_fixed == 2):
         fail(f"preset_video no longer ships the default BAConfig: {cfg.ba}")
-    log = EventLog(echo=False)
-    pipe = VisualOdometryPipeline(cfg, log=log, device="cuda")
+    argv = cli_args(folder, K, W, H)
+    if run_mod._config(run_mod.build_parser().parse_args(argv + ["--out", work])) != \
+            dataclasses.replace(cfg, output_dir=work):
+        fail("the CLI's arguments do not give preset_video with the fitted camera")
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
-    run = drive(torch, pipe, frames)
-    out_dir = tempfile.mkdtemp(prefix="chip_smoke_")
-    t0 = time.perf_counter()
-    summary = pipe.finalize(out_dir)
-    torch.cuda.synchronize()
-    finalize_s = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
-    peak_mem = torch.cuda.max_memory_allocated()
-    frame_of_kf, statuses = run["frame_of_kf"], run["statuses"]
+    def cli_run(tag: str, extra: list) -> dict:
+        """``run.main`` over the folder, the launch counters set to 0 just
+        before and read just after; the pipeline it ran, kept by wrapping
+        ``finalize``."""
+        out = os.path.join(work, tag)
+        kept = []
+        orig = recorded(VisualOdometryPipeline, "finalize", lambda a, kw: kept.append(a[0]))
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            summary = run_mod.main(argv + ["--out", out] + extra)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+        finally:
+            VisualOdometryPipeline.finalize = orig
+        return dict(out=out, summary=summary, pipe=kept[0], launches=launches,
+                    peak=torch.cuda.max_memory_allocated(), seconds=seconds,
+                    frames=frame_records(read_events, out))
 
+    # the first run in the process pays the first uses (the 5-point solver's
+    # kernels, cuSOLVER): a second pipelined run, after the sequential one,
+    # compares the two at equal footing
+    runs = {tag: cli_run(tag, extra) for tag, extra in
+            (("pipelined", []), ("sequential", ["--no-pipelined"]), ("pipelined again", []))}
+    main_run = runs["pipelined"]
+    pipe, summary, launches = main_run["pipe"], main_run["summary"], main_run["launches"]
+    statuses = [e["status"] for e in main_run["frames"]]
+    for tag, r in runs.items():
+        st = [e["status"] for e in r["frames"]]
+        ids, poses = keyframe_state(np, r["pipe"])
+        print(f"CLI run, {tag}: statuses {''.join(x[0] for x in st)} (i=initialized "
+              f"k=keyframe t=tracked d=discarded); {r['summary']['frames_per_s']} frames/s over "
+              f"{r['summary']['elapsed_s']} s, run.main {r['seconds']:.2f} s")
+    ids_a, poses_a = keyframe_state(np, runs["pipelined"]["pipe"])
+    for tag in ("sequential", "pipelined again"):
+        ids_b, poses_b = keyframe_state(np, runs[tag]["pipe"])
+        st_b = [e["status"] for e in runs[tag]["frames"]]
+        if statuses != st_b or ids_a != ids_b or not np.array_equal(poses_a, poses_b):
+            fail(f"the pipelined and the {tag} CLI runs differ: statuses {statuses == st_b}, "
+                 f"keyframe ids {ids_a == ids_b}, poses equal "
+                 f"{poses_a.shape == poses_b.shape and np.array_equal(poses_a, poses_b)}")
+    print(f"pipelined, sequential, pipelined again: statuses, {len(ids_a)} keyframe ids and "
+          "poses bit-equal")
+
+    frame_of_kf = {k: pipe.map.keyframes[k].frame_idx for k in pipe.map.sorted_kf_ids()}
+    out_dir = main_run["out"]
     n_kf = pipe.map.num_keyframes
     n_pts = pipe.map.num_points
     events = read_events(f"{out_dir}/events.jsonl")
@@ -1032,23 +1220,56 @@ def main() -> int:
     gt = np.stack([gt_C[frame_of_kf[k]] for k in pipe.map.sorted_kf_ids()])
     ate = ate_rmse(traj, gt, with_scale=True)
     scale = float(np.linalg.norm(gt.max(0) - gt.min(0)))
-    fm = np.asarray(run["frame_ms"])
-    print(f"statuses: {''.join(s[0] for s in statuses)} "
-          "(i=initialized k=keyframe t=tracked d=discarded)")
-    print(f"per-frame ms: median {np.median(fm):.1f}, p90 "
-          f"{np.percentile(fm, 90):.1f}, first {fm[0]:.1f}, max {fm.max():.1f}; "
-          f"finalize {finalize_s:.2f} s")
-    slowest = np.argsort(-fm)[:4]
-    print("slowest frames: " + ", ".join(
-        f"#{i} {statuses[i]} {fm[i]:.1f} ms" for i in slowest))
+    for tag, r in runs.items():
+        fm = np.asarray([e["wall_ms"] for e in r["frames"]])
+        print(f"{tag}: per-frame wall ms median {np.median(fm):.1f}, p90 "
+              f"{np.percentile(fm, 90):.1f}, first {fm[0]:.1f}, first tracked (frame 1) "
+              f"{fm[1]:.1f}, max {fm.max():.1f}; frames 2 on {fm[2:].sum() / 1e3:.3f} s; "
+              "median by status " + ", ".join(
+                  f"{k} {np.median([w for w, e in zip(fm, r['frames']) if e['status'] == k]):.1f}"
+                  f" ({sum(e['status'] == k for e in r['frames'])})"
+                  for k in dict.fromkeys(e["status"] for e in r["frames"]))
+              + "; slowest " + ", ".join(
+                  f"#{i} {r['frames'][i]['status']} {fm[i]:.1f}" for i in np.argsort(-fm)[:4]))
     print(f"keyframes {n_kf}, map points {n_pts}, observations "
           f"{pipe.map.num_observations}, ba_complete events {n_ba} of "
           f"{len(ba_events)} BA solves, K3 launches {launches['ba_window_lm']}, final BA "
           f"{json.dumps(gba)}")
     print(f"keyframe-centre ATE after similarity alignment {ate:.4f} "
           f"(motion scale {scale:.3f})")
-    print(f"launches on the main path: {launches}; peak device memory "
-          f"{peak_mem / 2 ** 20:.1f} MiB")
+    print(f"launches on the main path (pipelined CLI run): {launches}; peak device memory "
+          f"{main_run['peak'] / 2 ** 20:.1f} MiB")
+
+    # the tracked-frame graph: one capture, one replay per fused frame (the
+    # pipelined run also replays for a speculative step it drops), one host
+    # read per frame that is tracked by the step's PnP and not a keyframe
+    # (the essential-RANSAC fallback stays eager and reads more)
+    fused = sum(1 for x in statuses if x != "initialized")
+    for tag, r in runs.items():
+        ts = r["summary"]["track_step"]
+        reads = {}
+        for e in r["frames"]:
+            key = e["status"] + (f" ({e['pose']})" if e.get("pose") else "")
+            reads.setdefault(key, []).append(e["host_reads"])
+        print(f"{tag}: tracked-frame graph captures {ts['captures']} "
+              f"({', '.join(f'{c:.2f}' for c in ts['capture_s'])} s with the warm-up), replays "
+              f"{ts['replays']} for {fused} frames past the first; host reads per frame by "
+              f"status: " + "; ".join(f"{k} {sorted(set(v))} (mean {statistics.mean(v):.2f})"
+                                       for k, v in reads.items())
+              + f"; host reads in all {r['summary']['host_reads']}")
+        if ts["captures"] != 1:
+            fail(f"{tag}: {ts['captures']} captures of the tracked-frame step, expected 1")
+        if any(n != 1 for n in reads.get("tracked (pnp)", [])):
+            fail(f"{tag}: a frame tracked by the fused step's PnP read the host other than "
+                 f"once: {reads['tracked (pnp)']}")
+        n_kf_frames = sum(1 for x in statuses if x == "keyframe")
+        dropped = ts["replays"] - fused
+        if (tag == "sequential" and dropped != 0) or not 0 <= dropped <= n_kf_frames:
+            fail(f"{tag}: {ts['replays']} replays of the tracked-frame graph for {fused} frames")
+    per_replay = pipe.track.captures[0]["launches_per_replay"]
+    n_dropped = runs["pipelined"]["summary"]["track_step"]["replays"] - fused
+    print(f"a replay launches {per_replay}; pipelined run: {n_dropped} speculative steps "
+          "dropped and reissued")
 
     if n_kf < 3:
         fail(f"{n_kf} keyframes, expected at least 3")
@@ -1067,9 +1288,21 @@ def main() -> int:
         rows = [ln for ln in fh if not ln.startswith("#")]
     if len(rows) != n_kf:
         fail(f"trajectory.txt has {len(rows)} rows for {n_kf} keyframes")
+    with open(f"{out_dir}/summary.json") as fh:
+        on_disk = json.load(fh)
+    if not all(k in on_disk for k in ("frames", "elapsed_s", "frames_per_s")) \
+            or on_disk["frames"] != len(frames):
+        fail(f"summary.json lacks frames, elapsed_s or frames_per_s: {on_disk}")
     for name in ("hamming_knn2", "orb_gather40", "ba_window_lm"):
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the main path")
+    replays = summary["track_step"]["replays"]
+    if launches["hamming_knn2"] < replays * per_replay.get("hamming_knn2", 0) \
+            or launches["orb_gather40"] < replays * per_replay.get("orb_gather40", 0) \
+            or per_replay.get("hamming_knn2") != 1 \
+            or per_replay.get("orb_gather40") != cfg.pyramid_levels:
+        fail(f"K1 and K2 not counted once per replay: {launches}, {replays} replays of "
+             f"{per_replay}")
     n_windowed = sum(1 for e in ba_events if not e.get("global_ba"))
     if not n_windowed <= launches["ba_window_lm"] <= len(ba_events):
         fail(f"{n_windowed} windowed of {len(ba_events)} BA solves on the main path but "
@@ -1079,14 +1312,38 @@ def main() -> int:
         fail("the port imported jax")
     ba_s = sum(e.get("elapsed_s", 0.0) for e in ba_events)
     print(f"time in BA solves (events' elapsed_s): {ba_s:.2f} s of "
-          f"{fm.sum() / 1e3 + finalize_s:.2f} s for all frames and finalize; per solve "
+          f"{summary['elapsed_s']:.2f} s for all frames; per solve "
           + ", ".join(f"{e.get('elapsed_s', 0.0) * 1e3:.0f}" for e in ba_events) + " ms")
 
+    # 6b. the graph against eager track_step, and the step's times
+    st = step_check_and_times(torch, np, VisualOdometryPipeline, cfg, frames, EventLog)
+    print(f"graph replay vs eager track_step on frames 1-3: packed, insert_packed and kp_desc "
+          f"bit-equal; eager track_step {st['eager_ms']:.2f} ms per call, one dispatch of the "
+          f"graph (image upload, draw, replay, output copies) {st['replay_ms']:.2f} ms "
+          f"(host clock to a synchronise, median of 5); eager split by stage (synchronised, "
+          f"{st['split_total_ms']:.2f} ms in all): " + ", ".join(
+              f"{k} {v:.2f}" for k, v in st["split_ms"].items()))
+
+    # 6c. the first tracked frame in fresh processes, without and with --prewarm
+    short = os.path.join(work, "frames_short")
+    os.makedirs(short)
+    for name in sorted(os.listdir(folder))[:8]:
+        os.symlink(os.path.join(folder, name), os.path.join(short, name))
+    fresh = fresh_process_first_frames(work, short, K, W, H)
+    print("first tracked frame in a fresh process (CLI over 8 frames): " + "; ".join(
+        f"{tag} {r['first_tracked_ms']:.1f} ms (frame 0 {r['frame0_ms']:.1f} ms"
+        + (f", prewarm {r['prewarm_s']:.2f} s" if r["prewarm_s"] is not None else "")
+        + f", process {r['process_s']:.1f} s)" for tag, r in fresh.items()))
+
     # an untimed second run over the same frames records the first K1 inputs
-    # and every K3 window (clones), which are then replayed alone
+    # launched outside a capture (the tracked-frame step's warm-up, the
+    # covisibility matches) and every K3 window (clones), which are then
+    # replayed alone
     k1_shapes, k1_calls, k3_calls = [], [], []
 
     def keep_k1(a, kw):
+        if torch.cuda.is_current_stream_capturing():
+            return
         k1_shapes.append((a[0].shape[0], a[1].shape[0]))
         if len(k1_calls) < 12:
             k1_calls.append((tuple(t.clone() for t in a), kw))
@@ -1101,9 +1358,16 @@ def main() -> int:
         torch.cuda.synchronize()
     finally:
         hamming_kernel.launch, ba_kernel.launch = orig_k1, orig_k3
-    if rec_statuses != statuses or len(k3_calls) != launches["ba_window_lm"] \
-            or len(k1_shapes) != launches["hamming_knn2"]:
-        fail("the recording run's statuses or K1/K3 launches differ from the main path's")
+    if rec_statuses != statuses or len(k3_calls) != launches["ba_window_lm"]:
+        fail("the recording run's statuses or K3 launches differ from the main path's")
+    # exact K1 count: the main path's launches outside the graph are the
+    # recording run's (one warm-up, the covisibility matches), and each replay
+    # adds one
+    k1_expected = len(k1_shapes) + replays * per_replay["hamming_knn2"]
+    if launches["hamming_knn2"] != k1_expected:
+        fail(f"{launches['hamming_knn2']} K1 launches on the main path, expected "
+             f"{len(k1_shapes)} outside the graph + {replays} replays x "
+             f"{per_replay['hamming_knn2']} = {k1_expected}")
     print("K3 launches on the main path (C, P, D, n_fixed): " + ", ".join(
         f"({a[0].rvecs.shape[0]}, {a[0].cam_slot.shape[0]}, {a[0].cam_slot.shape[1]}, {a[1]})"
         for a, _ in k3_calls))
@@ -1143,7 +1407,10 @@ def main() -> int:
           " ms; LM iterations and bound ms " + "; ".join(f"{i}, {b:.5f}" for i, b in k3_work)
           + f"; device time per recorded launch under the profiler in three passes: "
           + ", ".join(shown(ms, n, len(k3_calls)) for ms, n in dev_k3))
-    del k1_calls, k3_calls, rec      # the clones stay out of the later phases' peak memory
+    # the clones, and the pipelines with their graphs' memory pools, stay out
+    # of the later phases' peak memory
+    del k1_calls, k3_calls, rec, runs, main_run, pipe
+    gc.collect()
 
     # -- 7. the earlier path: the grid solver -------------------------------
     cfg_grid = dataclasses.replace(cfg, ba=dataclasses.replace(cfg.ba, use_pallas_ba=False))
@@ -1177,6 +1444,9 @@ def main() -> int:
         fail("the first 12 frames of a fresh pipeline differ from the main path's")
     print(f"determinism: two fresh pipelines over 12 frames: statuses "
           f"{''.join(s[0] for s in st_a)}, {len(ids_a)} keyframes, ids and poses bit-equal")
+
+    del pipe_grid, p2
+    gc.collect()
 
     # -- 9. the global path at full width -------------------------------------
     N_KF, N_PT, N_OBS = 200, 30000, 120000
@@ -1316,7 +1586,16 @@ def main() -> int:
         fail("the port imported jax")
 
     if args.profile:
-        profile_frames(torch, frames[: args.profile], cfg, VisualOdometryPipeline, EventLog)
+        # the CLI over the first N frames under torch.profiler
+        pfolder = os.path.join(work, "frames_profiled")
+        os.makedirs(pfolder)
+        for name in sorted(os.listdir(folder))[: args.profile]:
+            os.symlink(os.path.join(folder, name), os.path.join(pfolder, name))
+        prof = run_mod.main(cli_args(pfolder, K, W, H)
+                            + ["--out", os.path.join(work, "profiled"), "--profile"])["profile"]
+        print(f"profile of the CLI over {args.profile} frames (pipelined): wall "
+              f"{prof['wall_ms']:.1f} ms, device busy {prof['device_ms']:.1f} ms "
+              f"({100 * prof['device_busy']:.1f} %)")
         gpipe = global_pipe()
         profile_call(torch, f"finalize of the {N_KF}-keyframe map",
                      lambda: gpipe.finalize(tempfile.mkdtemp(prefix="chip_smoke_prof_")))

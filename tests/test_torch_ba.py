@@ -142,3 +142,63 @@ def test_unported_solver_options_raise(window):
     assert float(pcg[3].final_cost) <= 1.02 * float(dense[3].final_cost)
     with pytest.raises(NotImplementedError, match="parallel"):
         tba.ba_solve(pt, n_fixed=1, axis_name="x")
+
+
+def _refine_problem(window, cam):
+    """The pipeline's pose refine of camera ``cam`` of the window: that
+    camera's observations alone, every point fixed, ``n_fixed`` 0."""
+    p = jax.tree.map(np.asarray, window)
+    keep = (p.cam_idx == cam) & (p.obs_mask > 0)
+    O = p.uv.shape[0]
+    ci, pi = np.zeros(O, np.int32), np.zeros(O, np.int32)
+    uv, om = np.zeros((O, 2), np.float32), np.zeros(O, np.float32)
+    n = int(keep.sum())
+    pi[:n], uv[:n], om[:n] = p.pnt_idx[keep], p.uv[keep], 1.0
+    return jba.BAProblem(*(jnp.asarray(x) for x in (
+        p.rvecs[cam: cam + 1], p.tvecs[cam: cam + 1], p.points, ci, pi, uv, om,
+        np.zeros_like(p.point_mask), p.K)))
+
+
+# (camera, max_iterations, ftol = xtol, stops early): the refine's own cap
+# of 10 with its tolerance, where camera 1 stops at 9 iterations, and a
+# looser tolerance, where camera 3 stops at 4; a cap of 2, and tolerances of
+# 0, where the loop runs to the cap
+LOOP_CASES = [(1, 10, 1e-5, True), (3, 10, 1e-4, True), (3, 2, 1e-5, False),
+              (3, 6, 0.0, False)]
+
+
+@pytest.mark.parametrize("threads", [1, 4])
+@pytest.mark.parametrize("cam,max_iterations,tol,early", LOOP_CASES)
+def test_masked_lm_loop_equals_the_loop_that_leaves(window, threads, cam, max_iterations, tol,
+                                                    early):
+    """The LM loop on the device (updates masked after the stop, no host
+    read) gives the bits of the loop that leaves at the stop, and counts
+    the live iterations alone, at one and at four torch threads."""
+    pt = _port(_refine_problem(window, cam))
+    kw = dict(n_fixed=0, max_iterations=max_iterations, huber_delta=1.0, ftol=tol, xtol=tol)
+    before = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        a = tba.ba_solve(pt, **kw)
+        b = tba.ba_solve(pt, **kw, masked=True)
+    finally:
+        torch.set_num_threads(before)
+    for x, y in zip(a[:3], b[:3]):
+        assert torch.equal(x, y)
+    for name, x, y in zip(a[3]._fields, a[3], b[3]):
+        assert torch.equal(torch.as_tensor(x), torch.as_tensor(y)), name
+    its = int(b[3].iterations)
+    assert (1 <= its < max_iterations) if early else (its == max_iterations)
+    assert float(b[3].final_cost) < float(b[3].initial_cost)
+
+
+def test_pipeline_refine_holds_to_jax(window):
+    """The pipeline's pose refine (its cap of 10, the masked loop) against
+    the JAX package's ``ba_solve`` on the same problem, to the bounds of
+    ``_same_result``."""
+    pj = _refine_problem(window, 4)
+    a = jba.ba_solve(pj, n_fixed=0, max_iterations=10)
+    b = tba.ba_solve(_port(pj), n_fixed=0, max_iterations=10, masked=True)
+    _same_result(a, b)
+    np.testing.assert_allclose(b[0].numpy(), np.asarray(a[0]), atol=1e-3)
+    np.testing.assert_allclose(b[1].numpy(), np.asarray(a[1]), atol=1e-3)

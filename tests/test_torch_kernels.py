@@ -758,3 +758,137 @@ def test_a_global_solve_reads_the_host_once_per_lm_iteration(card):
     assert rec["graph_replays"] == its - 1
     assert its <= int(rec["cg_iterations"]) <= 8 * its
     assert kernels.LAUNCHES[gk.SETUP] - before[gk.SETUP] == its
+
+
+def _bit_equal(a, b):
+    """Equal bits, NaNs included (the packed medians are NaN on an empty
+    subset)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def _track_pipeline(card):
+    """A pipeline at 320x240 on the card, its first frame (the first
+    keyframe) processed, and its frames."""
+    from bundle_adjustment_tpu_torch.utils.synthetic import synthetic_sequence
+
+    frames, K, _, _ = synthetic_sequence(n_frames=12, width=320, height=240, fx=300.0, seed=3)
+    cfg = PipelineConfig(camera=CameraModel(fx=K[0, 0], fy=K[1, 1], cx=K[0, 2], cy=K[1, 2],
+                                            width=320, height=240),
+                         num_features=500, pyramid_levels=3)
+    pipe = VisualOdometryPipeline(cfg, log=EventLog(echo=False), device=card)
+    pipe.process_frame(frames[0])
+    return pipe, frames
+
+
+def _eager_step(pipe, shape):
+    """``track_step`` eagerly on the step's static buffers, as they stand."""
+    from bundle_adjustment_tpu_torch.models import frontend
+    from bundle_adjustment_tpu_torch.ops import ransac
+
+    t = pipe.track
+    return frontend.track_step(t._images[shape], t.state, t._K,
+                               t.u_buffer(ransac.pnp_draw_shape(pipe.cfg.pnp_iters)),
+                               **pipe.track_args(*shape))
+
+
+@pytest.mark.cuda
+def test_track_step_replay_equals_eager_over_frames_and_a_state_change(card):
+    """Three frames through the tracked-frame step's graph, the static state
+    replaced by another keyframe's before the third: each replay's outputs
+    equal, bit for bit, eager ``track_step`` on the same static inputs; one
+    capture, one replay per frame, and the replay's K1 and K2 launches
+    counted (one 2-NN, one gather per pyramid level; the first frame's
+    eager warm-up before the capture launches them once more)."""
+    from bundle_adjustment_tpu_torch.models import frontend
+    from bundle_adjustment_tpu_torch.models.pipeline import bgr_to_gray
+
+    pipe, frames = _track_pipeline(card)
+    for i in (1, 2, 3):
+        if i == 3:
+            kp = pipe.track.state
+            pipe.track.load_state(frontend.FrontendState(
+                desc=res.kp_desc, xy=res.kp_xy, kp_valid=res.kp_valid,
+                pts3d=kp.pts3d.flip(0) + 0.5, tracked=kp.tracked.flip(0),
+                rvec=torch.full((3,), 0.01, device=card), tvec=torch.zeros(3, device=card)))
+        gray = bgr_to_gray(frames[i])
+        before = dict(kernels.LAUNCHES)
+        res = pipe._fused_dispatch(gray, i)
+        launched = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        eager = _eager_step(pipe, gray.shape)
+        torch.cuda.synchronize()
+        for name, a, b in zip(res._fields, res, eager):
+            assert _bit_equal(a, b), (i, name)
+        per_replay = {hamming_kernel.NAME: 1, orb_kernel.NAME: 3}
+        assert pipe.track.captures[0]["launches_per_replay"] == per_replay
+        for name, k in per_replay.items():
+            assert launched[name] == (2 * k if i == 1 else k), (i, name)
+    assert len(pipe.track.captures) == 1 and pipe.track.replays == 3
+
+
+@pytest.mark.cuda
+def test_track_step_outputs_outlive_the_next_replay(card):
+    """What a replay returned is the caller's own: the next replay leaves it
+    as it was, and a keyframe keeps the descriptors it was given while
+    later frames replay the graph."""
+    from bundle_adjustment_tpu_torch.models.pipeline import bgr_to_gray
+
+    pipe, frames = _track_pipeline(card)
+    first = pipe._fused_dispatch(bgr_to_gray(frames[1]), 1)
+    kept = [t.clone() for t in first]
+    second = pipe._fused_dispatch(bgr_to_gray(frames[2]), 2)
+    torch.cuda.synchronize()
+    for name, a, b in zip(first._fields, first, kept):
+        assert _bit_equal(a, b), name
+    assert not torch.equal(first.kp_desc, second.kp_desc)
+    kf_desc = {k: (kf.desc, kf.desc.clone()) for k, kf in pipe.map.keyframes.items()}
+    for f in frames[1:8]:
+        pipe.process_frame(f)
+    torch.cuda.synchronize()
+    assert pipe.map.num_keyframes > 1 and pipe.track.replays >= 7
+    for k, kf in pipe.map.keyframes.items():
+        kf_desc.setdefault(k, (kf.desc, kf.desc.clone()))
+    pipe._fused_dispatch(bgr_to_gray(frames[8]), 8)
+    torch.cuda.synchronize()
+    for k, (desc, copy) in kf_desc.items():
+        assert torch.equal(desc, copy), k
+
+
+def _small_batch(card, shape, seed):
+    """A batch of the tracked-frame step's small matrices: the DLT's and the
+    triangulation's normal matrices of random rows, the pose's 3x3 M; the
+    first one exactly zero."""
+    B, rows, n = {"dlt": (128, 12, 12), "triangulation": (4000, 4, 4),
+                  "pose": (128, 3, 3)}[shape]
+    g = torch.Generator().manual_seed(seed)
+    A = torch.randn(B, rows, n, generator=g)
+    A[0] = 0.0
+    return (A if shape == "pose" else A.transpose(-1, -2) @ A).to(card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["dlt", "triangulation", "pose"])
+def test_small_linalg_is_torch_linalg_on_the_card_and_replays(card, shape):
+    """``small_linalg.eigh`` (DLT, triangulation) and ``small_linalg.svd``
+    (pose) give ``torch.linalg``'s bits on the card, and a CUDA graph of
+    them, replayed on new inputs, gives the eager call's."""
+    from bundle_adjustment_tpu_torch.ops import small_linalg
+
+    ours, theirs = ((small_linalg.svd, torch.linalg.svd) if shape == "pose"
+                    else (small_linalg.eigh, torch.linalg.eigh))
+    A = _small_batch(card, shape, 0)
+    for a, b in zip(ours(A), theirs(A)):
+        assert _bit_equal(a.contiguous(), b.contiguous())
+    static = A.clone()
+    kernels.on_side_stream(card, lambda: ours(static))
+    graph, out, _ = kernels.capture(card, lambda: ours(static))
+    for seed in (1, 2):
+        static.copy_(_small_batch(card, shape, seed))
+        graph.replay()
+        eager = theirs(static)
+        torch.cuda.synchronize()
+        for a, b in zip(out, eager):
+            assert _bit_equal(a.contiguous(), b.contiguous())

@@ -73,9 +73,10 @@ class JaxDraws:
         self._key, k = jax.random.split(self._key)
         return torch.as_tensor(np.array(jax.random.uniform(k, shape)))
 
-    def for_frame(self, frame_idx, shape):
+    def for_frame(self, frame_idx, shape, out=None):
         k = jax.random.fold_in(self._dispatch, frame_idx)
-        return torch.as_tensor(np.array(jax.random.uniform(k, shape)))
+        u = torch.as_tensor(np.array(jax.random.uniform(k, shape)))
+        return u if out is None else out.copy_(u)
 
 
 def _config(mod, K, use_pallas_ba=False):

@@ -1,11 +1,12 @@
 """Rules the PyTorch port keeps:
 
-- no module of ``bundle_adjustment_tpu_torch``, and neither ``chip_smoke.py``
-  nor ``chip_determinism.py``, imports ``jax`` or anything of the JAX package
+- no module of ``bundle_adjustment_tpu_torch``, and none of the ``chip_*.py``
+  scripts, imports ``jax`` or anything of the JAX package
   (a source scan, and a fresh interpreter that imports every module and
   finds no ``jax`` loaded);
-- every entry point's default device is ``"cuda"``, and without a card it
-  raises instead of running on the CPU;
+- every entry point's default device is ``"cuda"`` (the pipeline, the
+  tracked-frame step, the CLI's ``run.main`` and ``prewarm`` among them),
+  and without a card it raises instead of running on the CPU;
 - a kernel wrapper takes its plain version only for a CPU tensor;
 - every configuration not ported yet raises ``NotImplementedError`` naming
   the missing module; the default configuration is not one, and neither is
@@ -24,12 +25,13 @@ import pytest
 import torch
 
 import bundle_adjustment_tpu_torch
-from bundle_adjustment_tpu_torch import convert
+from bundle_adjustment_tpu_torch import convert, run
 from bundle_adjustment_tpu_torch.config import BAConfig, CameraModel, PipelineConfig
 from bundle_adjustment_tpu_torch.models import frontend, pipeline
 from bundle_adjustment_tpu_torch.ops import ba, ba_global_kernel, ba_kernel, hamming_kernel, \
     orb_kernel
 from bundle_adjustment_tpu_torch.ops.ba_grid import BAProblemGrid
+from bundle_adjustment_tpu_torch.utils import prewarm
 from bundle_adjustment_tpu_torch.utils.synthetic import synthetic_global_map, synthetic_window
 
 # Several pytest workers share the cores: more torch threads per worker
@@ -48,7 +50,7 @@ def _forbidden(module: str) -> bool:
 
 
 def _sources():
-    return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "chip_determinism.py"]
+    return sorted(PKG.rglob("*.py")) + sorted(REPO.glob("chip_*.py"))
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))
@@ -99,8 +101,16 @@ def test_default_device_raises_without_a_card(monkeypatch):
 
     with pytest.raises(RuntimeError, match="cuda"):
         frontend.make_state(KF, np.zeros((0, 3)), 4)
+    with pytest.raises(RuntimeError, match="cuda"):
+        frontend.TrackStep()
+    with pytest.raises(RuntimeError, match="cuda"):
+        prewarm.prewarm(PipelineConfig(camera=CAM))
+    with pytest.raises(RuntimeError, match="cuda"):
+        run.main(["--images", str(REPO / "no_such_folder"), "--out", str(REPO / "no_such_out")])
+    assert not (REPO / "no_such_out").exists()
     # the CPU is used when asked for
     assert pipeline.VisualOdometryPipeline(PipelineConfig(camera=CAM), device="cpu")
+    assert frontend.TrackStep("cpu")
 
 
 def test_wrappers_take_the_plain_path_only_for_cpu_tensors():

@@ -1,0 +1,249 @@
+"""The port's entry points around the main path, on the CPU:
+
+- ``process_stream`` gives what the sequential ``process_frame`` loop gives,
+  bit for bit (statuses, keyframes, points, observations, poses), as the JAX
+  package's ``tests/test_process_stream.py`` holds its own;
+- the CLI (``run.main``) on a folder of PNG frames, pipelined and
+  ``--no-pipelined``: equal results, ``summary.json`` written;
+- the PNG reader is byte-equal to ``cv2.imread(path, IMREAD_COLOR)`` on gray,
+  RGB and RGBA files written by cv2 and by this file's encoder with each of
+  the five row filters, and reads a PNG folder with cv2 hidden; video and
+  other images raise naming cv2 where it is hidden;
+- the CLI's flags whose module is not ported raise naming it;
+- ``read_pcd`` reads back what ``write_pcd`` writes, as the JAX package's
+  reader does;
+- ``TrackStep`` refuses uniforms that are not its static buffer.
+"""
+
+import json
+import os
+import struct
+import sys
+import zlib
+
+import cv2
+import numpy as np
+import pytest
+import torch
+
+from bundle_adjustment_tpu.utils import io as jio
+from bundle_adjustment_tpu_torch import run
+from bundle_adjustment_tpu_torch.config import (BAConfig, CameraModel, KeyframeCriteria,
+                                                PipelineConfig)
+from bundle_adjustment_tpu_torch.models import frontend
+from bundle_adjustment_tpu_torch.models.pipeline import VisualOdometryPipeline
+from bundle_adjustment_tpu_torch.utils import io
+from bundle_adjustment_tpu_torch.utils.event_log import EventLog, read_events
+from bundle_adjustment_tpu_torch.utils.synthetic import synthetic_sequence
+
+# Several pytest workers share the cores: more torch threads per worker
+# only contend with each other.
+torch.set_num_threads(1)
+
+W, H = 320, 240
+
+
+def _png_bytes(img: np.ndarray, colour: int, filt: int) -> bytes:
+    """A PNG of ``img`` (H, W[, C]) uint8 with every row under filter
+    ``filt`` (0-4), or filter ``y % 5`` on row y when ``filt`` is -1."""
+    bpp = {0: 1, 2: 3, 6: 4}[colour]
+    h, w = img.shape[:2]
+    raw = img.reshape(h, w * bpp).astype(np.int16)
+    prev = np.zeros(w * bpp, np.int16)
+    rows = []
+    for y in range(h):
+        cur = raw[y]
+        left = np.r_[np.zeros(bpp, np.int16), cur[:-bpp]]
+        ul = np.r_[np.zeros(bpp, np.int16), prev[:-bpp]]
+        f = y % 5 if filt < 0 else filt
+        if f == 0:
+            r = cur
+        elif f == 1:
+            r = cur - left
+        elif f == 2:
+            r = cur - prev
+        elif f == 3:
+            r = cur - ((left + prev) >> 1)
+        else:
+            p = left + prev - ul
+            pa, pb, pc = np.abs(p - left), np.abs(p - prev), np.abs(p - ul)
+            r = cur - np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, prev, ul))
+        rows.append(bytes([f]) + (r & 255).astype(np.uint8).tobytes())
+        prev = cur
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(b"".join(rows))) + chunk(b"IEND", b""))
+
+
+def _image(colour: int) -> np.ndarray:
+    rng = np.random.default_rng(colour)
+    shape = (29, 41) if colour == 0 else (29, 41, {2: 3, 6: 4}[colour])
+    img = rng.integers(0, 256, shape, dtype=np.uint8)
+    img[4:15, 6:30] = 200                    # flat and ramped regions beside noise
+    img[16:, :20] = np.arange(20, dtype=np.uint8).reshape((1, 20) + (1,) * (img.ndim - 2)) * 12
+    return img
+
+
+@pytest.mark.parametrize("colour", [0, 2, 6], ids=["gray", "rgb", "rgba"])
+@pytest.mark.parametrize("writer", ["cv2", "none", "sub", "up", "average", "paeth", "mixed"])
+def test_png_reader_equals_cv2_imread(tmp_path, colour, writer):
+    img = _image(colour)
+    path = str(tmp_path / "f.png")
+    if writer == "cv2":
+        assert cv2.imwrite(path, img)
+    else:
+        filt = ["none", "sub", "up", "average", "paeth"].index(writer) if writer != "mixed" else -1
+        with open(path, "wb") as fh:
+            fh.write(_png_bytes(img, colour, filt))
+    ref = cv2.imread(path, cv2.IMREAD_COLOR)
+    out = io.read_png(path)
+    assert out.dtype == ref.dtype == np.uint8 and out.shape == ref.shape == (29, 41, 3)
+    np.testing.assert_array_equal(out, ref)
+
+
+def test_png_folder_reads_without_cv2_and_the_rest_names_it(tmp_path, monkeypatch):
+    frames = [_image(2), _image(6)]
+    for i, f in enumerate(frames):
+        cv2.imwrite(str(tmp_path / f"{i:03d}.png"), f)
+    refs = [cv2.imread(str(tmp_path / f"{i:03d}.png")) for i in range(2)]
+    monkeypatch.setitem(sys.modules, "cv2", None)           # import cv2 now fails
+    got = list(io.image_folder_frames(str(tmp_path)))
+    assert len(got) == 2
+    for a, b in zip(got, refs):
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(ImportError, match="cv2"):
+        next(io.video_frames(str(tmp_path / "clip.mp4")))
+    (tmp_path / "003.jpg").write_bytes(b"\xff\xd8\xff")
+    with pytest.raises(ImportError, match="cv2"):
+        list(io.image_folder_frames(str(tmp_path)))
+    # a 16-bit PNG is a kind read_png leaves to cv2
+    with open(tmp_path / "004.png", "wb") as fh:
+        fh.write(b"\x89PNG\r\n\x1a\n" + struct.pack(">I", 13) + b"IHDR"
+                 + struct.pack(">IIBBBBB", 2, 2, 16, 0, 0, 0, 0) + b"\0" * 4)
+    with pytest.raises(ImportError, match="cv2"):
+        io.read_image(str(tmp_path / "004.png"))
+
+
+@pytest.mark.parametrize("binary", [False, True])
+@pytest.mark.parametrize("with_colors", [False, True])
+def test_read_pcd_round_trips_write_pcd(tmp_path, binary, with_colors):
+    rng = np.random.default_rng(1)
+    pts = rng.normal(size=(57, 3)) * 3
+    cols = rng.integers(0, 256, (57, 3)) / 255.0 if with_colors else None
+    path = str(tmp_path / "m.pcd")
+    io.write_pcd(path, pts, cols, binary=binary)
+    p, c = io.read_pcd(path)
+    pj, cj = jio.read_pcd(path)
+    np.testing.assert_array_equal(p, pj)
+    # float32 on disk, and six decimals in the ASCII form
+    np.testing.assert_allclose(p, pts, rtol=0, atol=1e-5)
+    if with_colors:
+        np.testing.assert_array_equal(c, cj)
+        np.testing.assert_array_equal(np.round(c * 255), np.round(cols * 255))
+    else:
+        assert c is None and cj is None
+
+
+@pytest.mark.parametrize("flag,needs", [
+    (["--debug"], "viz"), (["--features-from-cv2"], "cv2"), (["--mesh", "2"], "parallel"),
+    (["--multihost"], "parallel"), (["--checkpoint", "ck.npz"], "checkpoint"),
+])
+def test_unported_flags_raise_by_name(tmp_path, flag, needs):
+    with pytest.raises(NotImplementedError, match=needs):
+        run.main(["--device", "cpu", "--images", str(tmp_path), "--out", str(tmp_path / "o")]
+                 + flag)
+
+
+def test_track_step_takes_its_own_uniforms():
+    step = frontend.TrackStep("cpu")
+    u = torch.zeros((128, 6))
+    with pytest.raises(RuntimeError, match="load_state"):
+        step.run(np.zeros((8, 8), np.uint8), torch.eye(3), step.u_buffer((128, 6)))
+    step.load_state(frontend.FrontendState(
+        desc=torch.zeros((4, 8), dtype=torch.int32), xy=torch.zeros((4, 2)),
+        kp_valid=torch.zeros(4, dtype=torch.bool), pts3d=torch.zeros((4, 3)),
+        tracked=torch.zeros(4, dtype=torch.bool), rvec=torch.zeros(3), tvec=torch.zeros(3)))
+    with pytest.raises(ValueError, match="u_buffer"):
+        step.run(np.zeros((8, 8), np.uint8), torch.eye(3), u)
+
+
+def _stream_cfg(K):
+    """The JAX package's ``tests/test_process_stream.py`` configuration at
+    the port's test size, with a displacement trigger of 30 px so that the
+    frames after the keyframes of the start are tracked."""
+    return PipelineConfig(
+        camera=CameraModel(fx=K[0, 0], fy=K[1, 1], cx=K[0, 2], cy=K[1, 2], width=W, height=H),
+        num_features=500, pyramid_levels=3, ratio_test=0.75, min_tracked_features=15,
+        pose_inlier_ratio=0.4, pose_inlier_numbers=15, consistent_convention=True,
+        keyframe=KeyframeCriteria(min_median_displacement_px=30.0),
+        ba=BAConfig(window_size=4, max_points=4096, max_obs=16384))
+
+
+def test_stream_matches_sequential():
+    frames, K, _, _ = synthetic_sequence(n_frames=12, width=W, height=H, fx=300.0, seed=3)
+    frames = frames[:10]
+    pipe_a = VisualOdometryPipeline(_stream_cfg(K), log=EventLog(echo=False), device="cpu")
+    seq = [pipe_a.process_frame(f) for f in frames]
+    pipe_b = VisualOdometryPipeline(_stream_cfg(K), log=EventLog(echo=False), device="cpu")
+    stream = list(pipe_b.process_stream(frames))
+
+    statuses = [r["status"] for r in seq]
+    assert [r["status"] for r in stream] == statuses
+    # the run tracks, inserts keyframes and solves windows, so a speculative
+    # step is both used and dropped
+    assert "tracked" in statuses and statuses.count("keyframe") >= 3
+    assert pipe_b.map.num_keyframes == pipe_a.map.num_keyframes
+    assert pipe_b.map.num_points == pipe_a.map.num_points
+    assert pipe_b.map.num_observations == pipe_a.map.num_observations
+    for k in pipe_a.map.sorted_kf_ids():
+        np.testing.assert_array_equal(pipe_b.map.keyframes[k].R, pipe_a.map.keyframes[k].R)
+        np.testing.assert_array_equal(pipe_b.map.keyframes[k].t, pipe_a.map.keyframes[k].t)
+    np.testing.assert_array_equal(pipe_b.map.points(), pipe_a.map.points())
+    # one host read (the packed scalars) per frame tracked by the fused
+    # step's PnP; the essential-RANSAC fallback reads more
+    timing = [e for e in pipe_b.log.events if e["event"] == "frame_timing"]
+    by_pnp = [e["host_reads"] for e in timing
+              if e["status"] == "tracked" and e["pose"] == "pnp"]
+    assert by_pnp and by_pnp == [1] * len(by_pnp)
+
+
+@pytest.fixture(scope="module")
+def png_folder(tmp_path_factory):
+    frames, K, _, _ = synthetic_sequence(n_frames=12, width=W, height=H, fx=300.0, seed=3)
+    folder = tmp_path_factory.mktemp("frames")
+    for i, f in enumerate(frames[:9]):
+        cv2.imwrite(str(folder / f"{i:04d}.png"), f)
+    return str(folder), K
+
+
+def test_cli_pipelined_equals_sequential(png_folder, tmp_path):
+    folder, K = png_folder
+    args = ["--device", "cpu", "--images", folder, "--features", "500", "--size", f"{W}x{H}",
+            "--fx", str(K[0, 0]), "--cx", str(K[0, 2]), "--cy", str(K[1, 2])]
+    outs = [str(tmp_path / "pipelined"), str(tmp_path / "sequential")]
+    a = run.main(args + ["--out", outs[0]])
+    b = run.main(args + ["--out", outs[1], "--no-pipelined"])
+    for summary, out in zip((a, b), outs):
+        with open(os.path.join(out, "summary.json")) as fh:
+            on_disk = json.load(fh)
+        assert on_disk == json.loads(json.dumps(summary))
+        assert summary["frames"] == 9 and summary["elapsed_s"] > 0
+        assert summary["frames_per_s"] == pytest.approx(9 / summary["elapsed_s"], rel=1e-2)
+        assert summary["track_step"] == {"captures": 0, "replays": 0, "capture_s": []}
+    for key in ("num_keyframes", "num_points", "num_observations"):
+        assert a[key] == b[key], key
+    timed = ("elapsed_s",)
+    assert ({k: v for k, v in a["global_ba"].items() if k not in timed}
+            == {k: v for k, v in b["global_ba"].items() if k not in timed})
+    assert a["num_keyframes"] >= 3
+    for name in ("trajectory.txt", "final_map_global_ba.pcd"):
+        with open(os.path.join(outs[0], name)) as fa, open(os.path.join(outs[1], name)) as fb:
+            assert fa.read() == fb.read(), name
+    status = [[e["status"] for e in read_events(os.path.join(out, "events.jsonl"))
+               if e["event"] == "frame_timing"] for out in outs]
+    assert status[0] == status[1] and len(status[0]) == 9
