@@ -3,6 +3,11 @@
 observation table only, like ``Map(use_native=False)``; the ctypes native
 mirror is not ported yet).
 
+Points die by culling (``cull_points``) and by loop-closure fusion
+(``merge_points``); their observations die with them, and every reader of
+the table (``gather_window``, the per-point queries, ``get_pcd``) skips dead
+rows and dead points.
+
 The flat observation table — (kf_id, mp_id, kp_idx, u, v) rows — is at once
 the per-point and per-keyframe observation list and the BA sparsity
 pattern.  ``gather_window`` compacts a keyframe window into a padded
@@ -127,6 +132,22 @@ class Map:
     def points(self) -> np.ndarray:
         return self._pts[: self._n_pts]
 
+    def colors(self) -> np.ndarray:
+        return self._colors[: self._n_pts]
+
+    def point_alive(self) -> np.ndarray:
+        return self._pt_alive[: self._n_pts]
+
+    def cull_points(self, mp_ids: np.ndarray):
+        """Remove map points; their observations and the keypoint
+        back-pointers to them die with them."""
+        self._pt_alive[mp_ids] = False
+        dead = np.zeros(self._n_pts, bool)
+        dead[mp_ids] = True
+        self._obs_alive[: self._n_obs][dead[self._obs_mp[: self._n_obs]]] = False
+        for kf in self.keyframes.values():
+            kf.kp_to_mp[dead[kf.kp_to_mp] & (kf.kp_to_mp >= 0)] = -1
+
     # -- observations ------------------------------------------------------
 
     def _ensure_obs(self, extra: int):
@@ -164,6 +185,70 @@ class Map:
     @property
     def num_observations(self) -> int:
         return int(self._obs_alive[: self._n_obs].sum())
+
+    def observations_of_point(self, mp_id: int):
+        """(kf_ids, kp_idxs) of the live observations of one point."""
+        m = (self._obs_mp[: self._n_obs] == mp_id) & self._obs_alive[: self._n_obs]
+        return self._obs_kf[: self._n_obs][m], self._obs_kp[: self._n_obs][m]
+
+    def first_observer_per_point(self) -> np.ndarray:
+        """Per point, the id of its first observing keyframe (int64; the
+        largest int64 for a point with no live observation)."""
+        first = np.full(self._n_pts, np.iinfo(np.int64).max, np.int64)
+        alive = self._obs_alive[: self._n_obs]
+        np.minimum.at(first, self._obs_mp[: self._n_obs][alive],
+                      self._obs_kf[: self._n_obs][alive])
+        return first
+
+    def anchor_observations(self, max_first_kf: int):
+        """(mp_ids, kf_ids, kp_idxs) of each live point's first observation,
+        for the points first observed at or before ``max_first_kf``: the
+        loop-closure bank, one descriptor per map point (a bank of every
+        view would hold near-equal descriptors of one point, and the ratio
+        test rejects every match among such duplicates)."""
+        first = self.first_observer_per_point()
+        alive_rows = self._obs_alive[: self._n_obs]
+        okf = self._obs_kf[: self._n_obs][alive_rows]
+        omp = self._obs_mp[: self._n_obs][alive_rows]
+        okp = self._obs_kp[: self._n_obs][alive_rows]
+        sel = (first[omp] == okf) & (okf <= max_first_kf) & self._pt_alive[omp]
+        mp, kf, kp = omp[sel], okf[sel], okp[sel]
+        _, f = np.unique(mp, return_index=True)
+        return mp[f], kf[f], kp[f]
+
+    def merge_points(self, dst_mp: int, src_mp: int) -> int:
+        """Fuse two map points found to be one (loop closure): the
+        observations of ``src_mp`` move to ``dst_mp`` and ``src_mp`` dies.  A
+        keyframe that already observes ``dst_mp`` keeps its own observation
+        (one observation per keyframe and point).  Kill and re-add, as the
+        JAX package does.  Returns the number of observations moved."""
+        rows = np.flatnonzero(self._obs_mp[: self._n_obs] == src_mp)
+        live = rows[self._obs_alive[rows]]
+        kfs, kps, uvs = self._obs_kf[live], self._obs_kp[live], self._obs_uv[live]
+        drows = np.flatnonzero(self._obs_mp[: self._n_obs] == dst_mp)
+        dst_kfs = set(self._obs_kf[drows[self._obs_alive[drows]]].tolist())
+        # cull_points([src_mp]) over the rows of src_mp only: a keypoint's
+        # back-pointer is set by add_observations, which adds a row, so only
+        # keyframes with a row of src_mp (live or dead) can point at it
+        self._pt_alive[src_mp] = False
+        self._obs_alive[rows] = False
+        for k in np.unique(self._obs_kf[rows]):
+            kp_to_mp = self.keyframes[int(k)].kp_to_mp
+            kp_to_mp[kp_to_mp == src_mp] = -1
+        n = 0
+        for kf, kp, uv in zip(kfs, kps, uvs):
+            if int(kf) in dst_kfs:
+                continue
+            self.add_observations(int(kf), np.asarray([dst_mp]), np.asarray([kp]), uv[None])
+            dst_kfs.add(int(kf))
+            n += 1
+        return n
+
+    def observation_count_per_point(self) -> np.ndarray:
+        counts = np.zeros(self._n_pts, np.int64)
+        alive = self._obs_alive[: self._n_obs]
+        np.add.at(counts, self._obs_mp[: self._n_obs][alive], 1)
+        return counts
 
     # -- BA window extraction / writeback ---------------------------------
 

@@ -6,17 +6,21 @@ tracked-frame step on the device (ORB extract, Hamming 2-NN, PnP, Sampson
 inliers, keyframe metrics; on the card one replay of its CUDA graph,
 ``frontend.TrackStep``) -> one host read of its packed scalars -> host
 gates and keyframe decision -> keyframe insertion with covisibility
-re-observation -> windowed local BA with the newest keyframe's motion-only
-refine (its LM loop on the device).  ``finalize`` runs the global and full
-BA and writes the outputs.  ``process_stream`` issues frame N+1's step
-before frame N's read, so the device works on one frame while the host
-finishes the last; ``host_reads`` counts every read of a device tensor made
-here.
+re-observation (and, with ``cull_enabled``, map-point culling) -> windowed
+local BA with the newest keyframe's motion-only refine (its LM loop on the
+device) -> with ``loop_closure``, a loop-closure attempt
+(``models/loop_closure``).  A frame lost twice in a row, with
+``reloc_enabled``, tries relocalization (``models/relocalize``).
+``finalize`` runs the global and full BA and writes the outputs.
+``process_stream`` issues frame N+1's step before frame N's read, so the
+device works on one frame while the host finishes the last;
+``host_reads`` counts every read of a device tensor made here.
 
-The port runs the branches the default configuration reaches, plus the
-staged (unfused) path.  A window of at most ``pcg_min_cameras`` cameras: with
-``BAConfig.use_pallas_ba`` (the default) and a shape the window LM kernel
-admits (``ops/ba_kernel.kernel_eligible``) it is solved in one kernel launch;
+The port runs the branches the default configuration and
+``preset_lehman_indoor`` reach, plus the staged (unfused) path.  A window
+of at most ``pcg_min_cameras`` cameras: with ``BAConfig.use_pallas_ba``
+(the default) and a shape the window LM kernel admits
+(``ops/ba_kernel.kernel_eligible``) it is solved in one kernel launch;
 any other such window, and every one with the switch off, goes to the grid
 solver.  A window above ``pcg_min_cameras`` cameras (global and full BA over
 a long chain) takes the matrix-free PCG camera solve: on the card the
@@ -45,7 +49,7 @@ import torch
 
 from bundle_adjustment_tpu_torch import device as device_mod
 from bundle_adjustment_tpu_torch.config import PipelineConfig
-from bundle_adjustment_tpu_torch.models import frontend
+from bundle_adjustment_tpu_torch.models import frontend, loop_closure, relocalize
 from bundle_adjustment_tpu_torch.models.keyframe import decide_from_metrics, decide_keyframe
 from bundle_adjustment_tpu_torch.models.map_store import Keyframe, Map
 from bundle_adjustment_tpu_torch.ops import (ba, ba_global_kernel, ba_grid, ba_kernel, hamming, orb,
@@ -91,12 +95,6 @@ class Draws:
 def _unported(cfg: PipelineConfig, dev: torch.device) -> Optional[str]:
     """The first configuration switch the port cannot run yet, with what
     it needs, or None."""
-    if cfg.reloc_enabled:
-        return "reloc_enabled needs models/relocalize and ops/ann, not ported yet"
-    if cfg.cull_enabled:
-        return "cull_enabled needs map-point culling, not ported yet"
-    if cfg.loop_closure:
-        return "loop_closure needs models/loop_closure, not ported yet"
     if tuple(cfg.mesh_shape) != (1, 1):
         return "mesh_shape != (1, 1) needs parallel/ (dist_ba), not ported yet"
     if cfg.features_source != "orb_tpu":
@@ -172,6 +170,7 @@ class VisualOdometryPipeline:
         self.K_t = torch.as_tensor(self.K, dtype=torch.float32, device=self.device)
         self.draws = draws if draws is not None else Draws(0, self.device)
         self._lost_frames = 0
+        self._last_loop_kf = -(10 ** 9)   # the loop-closure cooldown's last closure
         self.track = frontend.TrackStep(self.device)
         self._front_state = None
         self._front_state_kf = -1
@@ -270,8 +269,9 @@ class VisualOdometryPipeline:
         overlapped: frame N+1's tracked-frame step is issued before frame
         N's host read, so the device runs N+1 while the host finishes N.
         The speculation is against the current last-keyframe state; when
-        frame N moves it (a keyframe, or BA moved the map) the speculative
-        step is dropped and frame N+1 issues its own."""
+        frame N moves it (a keyframe or a relocalization, which change the
+        keyframe count; BA or a loop closure, which mark the state dirty)
+        the speculative step is dropped and frame N+1 issues its own."""
         pending = None  # (frame_bgr, gray, speculative TrackResult or None)
         for frame_bgr in frames:
             if pending is None:
@@ -318,7 +318,7 @@ class VisualOdometryPipeline:
         n_matches = int(match_mask.sum())
         if n_matches < self.cfg.min_tracked_features:
             self.log.frame_discarded(self.frame_idx, "Not enough matches to track.")
-            return self._tracking_lost("matches")
+            return self._tracking_lost(frame_bgr, kp, "matches")
 
         kp_xy = self._host(kp.xy)
         uv1 = last_kf.xy
@@ -343,7 +343,7 @@ class VisualOdometryPipeline:
             if not self._host(pose.ok):
                 self.log.pose(self.frame_idx, 0, n_matches, 0.0)
                 self.log.frame_discarded(self.frame_idx, "Could not estimate pose.")
-                return self._tracking_lost("pose")
+                return self._tracking_lost(frame_bgr, kp, "pose")
             R_rel = self._host(pose.R).astype(np.float64)
             t_rel = self._host(pose.t).astype(np.float64)
             inl = self._host(pose.inliers)
@@ -367,7 +367,7 @@ class VisualOdometryPipeline:
                 and num_inliers > self.cfg.pose_inlier_numbers):
             self.log.frame_discarded(
                 self.frame_idx, "Low inlier ratio or insufficient inliers.")
-            return self._tracking_lost("unreliable")
+            return self._tracking_lost(frame_bgr, kp, "unreliable")
         self._lost_frames = 0
 
         rot_mag = float(rotation_angle(torch.as_tensor(R_rel, dtype=torch.float32)))
@@ -388,7 +388,7 @@ class VisualOdometryPipeline:
             refine_kf_id=kf_id if self.cfg.pose_refine else None)
         return {"status": "keyframe", "kf_id": kf_id, "reason": decision.reason,
                 "inliers": num_inliers, "inlier_ratio": inlier_ratio,
-                "ba": ba_result, "loop": None}
+                "ba": ba_result, "loop": self._maybe_close_loop(kf_id)}
 
     def _host_decision(self, last_kf, inl, R_rel, t_rel, uv_last, uv_new,
                        rot_mag, num_inliers):
@@ -431,7 +431,7 @@ class VisualOdometryPipeline:
 
         if n_matches < self.cfg.min_tracked_features:
             self.log.frame_discarded(self.frame_idx, "Not enough matches to track.")
-            return self._tracking_lost("matches")
+            return self._tracking_lost(frame_bgr, kp, "matches")
 
         world_pose_override = None
         pnp_good = (sc.pnp_ok
@@ -452,7 +452,7 @@ class VisualOdometryPipeline:
             if not self._host(pose.ok):
                 self.log.pose(self.frame_idx, 0, n_matches, 0.0)
                 self.log.frame_discarded(self.frame_idx, "Could not estimate pose.")
-                return self._tracking_lost("pose")
+                return self._tracking_lost(frame_bgr, kp, "pose")
             R_rel = self._host(pose.R).astype(np.float64)
             t_rel = self._host(pose.t).astype(np.float64)
             inl = self._host(pose.inliers)
@@ -465,7 +465,7 @@ class VisualOdometryPipeline:
                 and num_inliers > self.cfg.pose_inlier_numbers):
             self.log.frame_discarded(
                 self.frame_idx, "Low inlier ratio or insufficient inliers.")
-            return self._tracking_lost("unreliable")
+            return self._tracking_lost(frame_bgr, kp, "unreliable")
         self._lost_frames = 0
 
         if metrics_from_device:
@@ -507,7 +507,17 @@ class VisualOdometryPipeline:
             refine_kf_id=kf_id if self.cfg.pose_refine else None)
         return {"status": "keyframe", "kf_id": kf_id, "reason": decision.reason,
                 "inliers": num_inliers, "inlier_ratio": inlier_ratio,
-                "ba": ba_result, "loop": None, "pose": pose_from}
+                "ba": ba_result, "loop": self._maybe_close_loop(kf_id), "pose": pose_from}
+
+    def _maybe_close_loop(self, kf_id: int):
+        """A loop-closure attempt for a keyframe just inserted (after its
+        windowed BA), at most one closure per ``loop_cooldown`` keyframes."""
+        if not self.cfg.loop_closure or kf_id - self._last_loop_kf < self.cfg.loop_cooldown:
+            return None
+        info = loop_closure.try_close_loop(self, self.map.keyframes[kf_id])
+        if info is not None:
+            self._last_loop_kf = kf_id
+        return info
 
     def _epipolar_inliers(self, R_rel, t_rel, uv1, uv2, match_mask):
         """Sampson inlier classification against a known relative model."""
@@ -552,8 +562,17 @@ class VisualOdometryPipeline:
             return None
         return R_pnp, t_pnp
 
-    def _tracking_lost(self, why: str) -> dict:
+    def _tracking_lost(self, frame_bgr, kp, why: str) -> dict:
+        """A discarded frame; from the second in a row, with
+        ``reloc_enabled``, a relocalization attempt on its keypoints ``kp``
+        (device tensors; on the fused path the copies of the step's
+        outputs)."""
         self._lost_frames += 1
+        if self.cfg.reloc_enabled and self._lost_frames >= 2:
+            result = relocalize.try_relocalize(self, frame_bgr, kp)
+            if result is not None:
+                self._lost_frames = 0
+                return result
         return {"status": "discarded", "why": why}
 
     def _initialize_map(self, frame_bgr, kp: orb.Keypoints):
@@ -636,6 +655,9 @@ class VisualOdometryPipeline:
 
         if self.cfg.covis_keyframes > 0:
             self._covisibility_reobserve(new_kf, exclude_id=last_kf.kf_id)
+
+        if self.cfg.cull_enabled:
+            self._cull_points()
 
         if self.cfg.export_pcd_series:
             pts_w, colors = self.map.get_pcd()
@@ -726,6 +748,29 @@ class VisualOdometryPipeline:
             kf = self.map.keyframes[kf_id]
             kf.R = so3_exp_np(v[0:3])
             kf.t = v[3:6].copy()
+
+    def _cull_points(self):
+        """Drop weakly observed points (fewer than ``cull_min_observations``
+        live observations) once no keyframe of the active window observes
+        them.  A cull rewrites keyframes' ``kp_to_mp``, which the tracked-frame
+        step's state mirrors for the last keyframe: the state is marked
+        dirty."""
+        w_ids = self.map.sorted_kf_ids()[-(self.cfg.ba.window_size + 1):]
+        counts = self.map.observation_count_per_point()
+        alive = self.map.point_alive()
+        n = self.map._n_obs
+        obs_alive = self.map._obs_alive[:n]
+        obs_kf = self.map._obs_kf[:n]
+        obs_mp = self.map._obs_mp[:n]
+        in_window = np.zeros(len(counts), bool)
+        for k in w_ids:
+            in_window[obs_mp[obs_alive & (obs_kf == k)]] = True
+        weak = alive & ~in_window & (counts < self.cfg.cull_min_observations)
+        if weak.any():
+            self.map.cull_points(np.flatnonzero(weak))
+            self._front_dirty = True
+            self.log.emit("cull", f"    -> Culled {int(weak.sum())} weak map points.",
+                          culled=int(weak.sum()))
 
     # -- bundle adjustment glue -------------------------------------------
 

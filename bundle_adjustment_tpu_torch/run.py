@@ -18,7 +18,10 @@ kernels, captures the tracked-frame step's CUDA graph and runs the first-use
 paths on a synthetic sequence before the frame loop (``utils/prewarm``).
 ``--profile`` runs the frame loop under ``torch.profiler``: the trace goes
 to ``OUT/torch_trace.json`` and the device's busy share into the summary.
-Flags whose module is not ported raise ``NotImplementedError`` naming it.
+``--checkpoint PATH`` resumes from PATH when it exists (skipping the source
+frames already consumed) and saves the pipeline there after the frame loop,
+before ``finalize`` (``utils/checkpoint``).  Flags whose module is not
+ported raise ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import itertools
 import json
 import os
 import shutil
@@ -46,7 +50,6 @@ UNPORTED = {
     "features_from_cv2": "the cv2 feature path (features_source='cv2'), not ported",
     "mesh": "parallel/ (dist_ba, BA sharded over several cards), not ported yet",
     "multihost": "parallel/ over several hosts (torch.distributed), not ported yet",
-    "checkpoint": "utils/checkpoint, not ported yet",
 }
 
 
@@ -87,7 +90,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--multihost", action="store_true",
                    help="span several hosts (not ported: raises)")
     p.add_argument("--checkpoint", default=None,
-                   help="resume from and save to a checkpoint (not ported: raises)")
+                   help="resume from this checkpoint when it exists, and save to it "
+                        "after the frame loop")
     p.add_argument("--prewarm", action="store_true",
                    help="build the kernels, capture the tracked-frame graph and run the "
                         "first-use paths on a synthetic sequence before the frame loop")
@@ -137,6 +141,7 @@ def main(argv=None) -> dict:
 
     from bundle_adjustment_tpu_torch import device as device_mod
     from bundle_adjustment_tpu_torch.models.pipeline import VisualOdometryPipeline
+    from bundle_adjustment_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
     from bundle_adjustment_tpu_torch.utils.event_log import EventLog
     from bundle_adjustment_tpu_torch.utils.io import image_folder_frames, prefetch, video_frames
     from bundle_adjustment_tpu_torch.utils.prewarm import prewarm
@@ -148,7 +153,17 @@ def main(argv=None) -> dict:
     os.makedirs(args.out, exist_ok=True)
 
     log = EventLog(os.path.join(args.out, "events.jsonl"), echo=True)
-    pipe = VisualOdometryPipeline(cfg, log=log, device=device)
+    resumed_frames = 0
+    if args.checkpoint and os.path.exists(args.checkpoint):
+        pipe = load_checkpoint(args.checkpoint, cfg, log=log, device=device)
+        # frame_idx counts the frames already consumed (0-based): skip as
+        # many source frames, or they would enter the restored map twice
+        resumed_frames = pipe.frame_idx + 1
+        print(f"Resumed from {args.checkpoint}: frame {pipe.frame_idx}, "
+              f"{pipe.map.num_keyframes} keyframes; skipping the first {resumed_frames} "
+              "source frames")
+    else:
+        pipe = VisualOdometryPipeline(cfg, log=log, device=device)
     if args.prewarm:
         info = prewarm(cfg, device=device, track=pipe.track)
         log.emit("prewarm", f"Prewarm: {info['frames']} synthetic frames in "
@@ -159,7 +174,7 @@ def main(argv=None) -> dict:
         frames = image_folder_frames(args.images)
     else:
         frames = video_frames(args.video, start=args.start, end=args.end)
-    frames = prefetch(frames)
+    frames = prefetch(itertools.islice(frames, resumed_frames, None))
 
     profiler = contextlib.nullcontext()
     if args.profile:
@@ -182,8 +197,11 @@ def main(argv=None) -> dict:
             torch.cuda.synchronize(device)
         elapsed = time.perf_counter() - t0
 
+    if args.checkpoint:
+        save_checkpoint(pipe, args.checkpoint)
     summary = pipe.finalize(args.out)
     summary["frames"] = n_frames
+    summary["resumed_frames"] = resumed_frames
     summary["elapsed_s"] = round(elapsed, 3)
     summary["frames_per_s"] = round(n_frames / max(elapsed, 1e-9), 3)
     summary["host_reads"] = pipe.host_reads

@@ -1,13 +1,18 @@
-"""Synthetic rendered sequences with ground-truth camera trajectories,
-numpy only.
+"""Synthetic rendered sequences with ground-truth camera trajectories.
 
-The same kind of scene as ``bundle_adjustment_tpu.utils.synthetic``: two
-textured planes at two depths (one plane would be degenerate for
-essential-matrix estimation) seen along a "strafe" or "orbit" trajectory.
-That renderer draws with cv2, which the machine with the card does not
-have; this one paints the textures with numpy and warps each plane into the
-frame by inverse-homography bilinear sampling, at any size, seeded from
-numpy.  Frames are not pixel-equal to the JAX package's renders.
+The same scenes as ``bundle_adjustment_tpu.utils.synthetic``: two textured
+planes at two depths (one plane would be degenerate for essential-matrix
+estimation) seen along a "strafe" or "orbit" trajectory, and the "room": a
+box of 4 textured walls, each split into 6 x 6 sub-planes, with 2 occluder
+planes inside, which the camera patrols on an ellipse with a sinusoidal yaw
+so that it revisits its start (the long-sequence scene of the JAX package's
+``tools/stress.py``).  That renderer draws with cv2, which the machine with
+the card does not have; this one paints the textures with numpy and warps
+each plane into the frame with torch, on the CPU or on a card, by
+inverse-homography bilinear sampling over the plane's projected bounding
+box (the room's 146 planes at 1280 x 720 render on the card).  The same
+numpy random draws in the same order give the JAX package's ground-truth poses
+bit for bit; frames are not pixel-equal to its renders.
 """
 
 from __future__ import annotations
@@ -52,6 +57,29 @@ def _plane_corners_world(center, ex, ey, half):
     ])
 
 
+def _subdivide(tex, corners, n):
+    """An n x n grid of sub-quads of a textured quad, each with its crop of
+    the texture: a plane reaching behind the camera is skipped, so a wall
+    split this way loses only its sliver nearest the camera."""
+    out = []
+    c0, c1, c2, c3 = [np.asarray(c, float) for c in corners]
+    h, w = tex.shape[:2]
+    for i in range(n):        # texture y, the ey direction
+        for j in range(n):    # texture x, the ex direction
+            u0, u1 = j / n, (j + 1) / n
+            v0, v1 = i / n, (i + 1) / n
+
+            def P(u, v):
+                top = c0 * (1 - u) + c1 * u
+                bot = c3 * (1 - u) + c2 * u
+                return top * (1 - v) + bot * v
+
+            sub = tex[int(v0 * h):max(int(v1 * h), int(v0 * h) + 2),
+                      int(u0 * w):max(int(u1 * w), int(u0 * w) + 2)]
+            out.append((sub, np.stack([P(u0, v0), P(u1, v0), P(u1, v1), P(u0, v1)])))
+    return out
+
+
 def _project(K, R, t, X):
     Xc = X @ R.T + t
     return (Xc[:, :2] / Xc[:, 2:]) @ np.diag([K[0, 0], K[1, 1]]) + [K[0, 2], K[1, 2]]
@@ -67,34 +95,63 @@ def _homography(src, dst):
     return Vt[-1].reshape(3, 3)
 
 
-def _warp_into(frame, tex, H, width, height):
-    """Paint ``tex`` into ``frame`` where the inverse homography maps a
-    frame pixel inside the texture, sampling bilinearly."""
-    Hinv = np.linalg.inv(H)
-    ys, xs = np.mgrid[0:height, 0:width].astype(np.float64)
-    pts = np.stack([xs.ravel(), ys.ravel(), np.ones(xs.size)])
-    src = Hinv @ pts
-    w = src[2]
-    ok = np.abs(w) > 1e-12
-    sx = np.where(ok, src[0] / np.where(ok, w, 1.0), -1.0)
-    sy = np.where(ok, src[1] / np.where(ok, w, 1.0), -1.0)
+def _warp_into(frame, tex, H, uv):
+    """Paint ``tex`` (float64 tensor) into ``frame`` (uint8 tensor on the
+    same device) where the inverse homography maps a frame pixel inside the
+    texture, sampling bilinearly.  Only the bounding box of the plane's
+    projected corners ``uv``, clipped to the frame, is mapped: every pixel
+    the plane covers lies inside it."""
+    import torch
+
+    height, width = frame.shape[:2]
+    x0, y0 = np.maximum(np.floor(uv.min(0)), 0).astype(int)
+    x1 = int(min(np.ceil(uv[:, 0].max()), width - 1))
+    y1 = int(min(np.ceil(uv[:, 1].max()), height - 1))
+    if x0 > x1 or y0 > y1:
+        return
+    dev = frame.device
+    f64 = torch.float64
+    Hinv = torch.as_tensor(np.linalg.inv(H), dtype=f64, device=dev)
+    ys = torch.arange(y0, y1 + 1, dtype=f64, device=dev)[:, None]
+    xs = torch.arange(x0, x1 + 1, dtype=f64, device=dev)[None, :]
+    w = Hinv[2, 0] * xs + Hinv[2, 1] * ys + Hinv[2, 2]
+    ok = w.abs() > 1e-12
+    w = torch.where(ok, w, 1.0)
+    sx = torch.where(ok, (Hinv[0, 0] * xs + Hinv[0, 1] * ys + Hinv[0, 2]) / w, -1.0)
+    sy = torch.where(ok, (Hinv[1, 0] * xs + Hinv[1, 1] * ys + Hinv[1, 2]) / w, -1.0)
     th, tw = tex.shape[:2]
     inside = ok & (sx >= 0) & (sx <= tw - 1) & (sy >= 0) & (sy <= th - 1)
-    sx, sy = sx[inside], sy[inside]
-    x0 = np.clip(np.floor(sx).astype(np.int64), 0, tw - 2)
-    y0 = np.clip(np.floor(sy).astype(np.int64), 0, th - 2)
-    fx = (sx - x0)[:, None]
-    fy = (sy - y0)[:, None]
-    val = ((1 - fy) * ((1 - fx) * tex[y0, x0] + fx * tex[y0, x0 + 1])
-           + fy * ((1 - fx) * tex[y0 + 1, x0] + fx * tex[y0 + 1, x0 + 1]))
-    flat = frame.reshape(-1, 3)
-    flat[np.flatnonzero(inside)] = np.clip(np.round(val), 0, 255).astype(np.uint8)
+    # every pixel of the box is sampled (clamped) and the outside ones kept
+    # as they were: no mask indexing, so no read of its count by the host
+    sx = torch.where(inside, sx, 0.0)
+    sy = torch.where(inside, sy, 0.0)
+    xi = torch.clamp(torch.floor(sx).long(), 0, tw - 2)
+    yi = torch.clamp(torch.floor(sy).long(), 0, th - 2)
+    fx = (sx - xi)[..., None]
+    fy = (sy - yi)[..., None]
+    val = ((1 - fy) * ((1 - fx) * tex[yi, xi] + fx * tex[yi, xi + 1])
+           + fy * ((1 - fx) * tex[yi + 1, xi] + fx * tex[yi + 1, xi + 1]))
+    box = frame[y0:y1 + 1, x0:x1 + 1]
+    box.copy_(torch.where(inside[..., None],
+                          torch.clamp(torch.round(val), 0, 255).to(torch.uint8), box))
 
 
-def render_frame(K, R, t, planes, width=640, height=480):
+def render_frame(K, R, t, planes, width=640, height=480, depth_sort=False, device=None):
     """planes: list of (texture (h, w, 3) float32, corners_world (4, 3)),
-    far to near; a plane reaching behind the camera is skipped."""
-    frame = np.full((height, width, 3), 40, np.uint8)
+    far to near; a plane reaching behind the camera is skipped.
+    ``depth_sort`` orders them far to near for this camera (the painter's
+    order of a closed scene depends on the viewpoint).  The frame is drawn
+    with torch on ``device`` (the CPU by default); textures are float64
+    tensors there or numpy arrays.  Returns a numpy array."""
+    import torch
+
+    if depth_sort:
+        def depth(p):
+            return float((R @ p[1].mean(axis=0) + t)[2])
+
+        planes = sorted(planes, key=depth, reverse=True)
+    device = torch.device(device or "cpu")
+    frame = torch.full((height, width, 3), 40, dtype=torch.uint8, device=device)
     for tex, corners in planes:
         Xc = corners @ R.T + t
         if (Xc[:, 2] < 0.2).any():
@@ -105,8 +162,40 @@ def render_frame(K, R, t, planes, width=640, height=480):
         th, tw = tex.shape[:2]
         src = np.array([[0, 0], [tw - 1, 0], [tw - 1, th - 1], [0, th - 1]],
                        np.float64)
-        _warp_into(frame, tex, _homography(src, uv), width, height)
-    return frame
+        _warp_into(frame, torch.as_tensor(tex, dtype=torch.float64, device=device),
+                   _homography(src, uv), uv)
+    return frame.cpu().numpy()
+
+
+def _room_planes(rng):
+    """The room: 4 walls of a box of half-size 8, each a 768-pixel texture
+    split 6 x 6, and 2 free-standing occluders (the JAX package's draws)."""
+    half = 8.0
+    planes = []
+    for center, ex, ey in [
+        ([0, 0, half], [1, 0, 0], [0, 1, 0]),      # front wall
+        ([0, 0, -half], [-1, 0, 0], [0, 1, 0]),    # back wall
+        ([half, 0, 0], [0, 0, -1], [0, 1, 0]),     # right wall
+        ([-half, 0, 0], [0, 0, 1], [0, 1, 0]),     # left wall
+    ]:
+        planes.extend(_subdivide(_texture(rng, size=768, blobs=900),
+                                 _plane_corners_world(center, ex, ey, half), n=6))
+    planes.append((_texture(rng, size=256, blobs=160),
+                   _plane_corners_world([1.5, 0.3, 4.0], [1, 0, 0.2], [0, 1, 0], 1.0)))
+    planes.append((_texture(rng, size=256, blobs=160),
+                   _plane_corners_world([-2.5, -0.5, -3.0], [1, 0, -0.3], [0, 1, 0], 1.2)))
+    return planes
+
+
+def room_pose(i: int, n_frames: int):
+    """The room camera's extrinsic (R, t) and centre C at frame ``i`` of
+    ``n_frames``: one full loop of an ellipse, yaw sweeping around it."""
+    s = i / max(n_frames - 1, 1)
+    ang = 2.0 * np.pi * s                       # a full loop: the end revisits the start
+    C = np.array([2.5 * np.sin(ang), 0.3 * np.sin(2 * ang), 2.0 - 2.0 * np.cos(ang)])
+    yaw = -ang + 0.35 * np.sin(3 * ang)         # look-around sweeps
+    R = so3_exp_np(np.array([0.0, yaw, 0.0]))
+    return R, -R @ C, C
 
 
 def synthetic_sequence(
@@ -116,18 +205,36 @@ def synthetic_sequence(
     fx: float = 450.0,
     seed: int = 0,
     motion: str = "strafe",
+    device=None,
 ):
     """Returns (frames list of (H, W, 3) uint8 BGR, K, gt_positions (N, 3),
     gt_rotations (N, 3, 3)); extrinsic poses x_cam = R X + t with camera
-    centre C = -R^T t.  ``motion``: "strafe" or "orbit"."""
+    centre C = -R^T t.  ``motion``: "strafe", "orbit" or "room".  The frames
+    are drawn with torch on ``device``, the CPU by default (``render_frame``)."""
+    import torch
+
+    def on_device(planes):
+        return [(torch.as_tensor(tex, dtype=torch.float64, device=device or "cpu"), c)
+                for tex, c in planes]
+
     rng = np.random.default_rng(seed)
     K = np.array([[fx, 0, width / 2], [0, fx, height / 2], [0, 0, 1.0]])
+    if motion == "room":
+        planes = on_device(_room_planes(rng))
+        frames, centers, rotations = [], [], []
+        for i in range(n_frames):
+            R, t, C = room_pose(i, n_frames)
+            frames.append(render_frame(K, R, t, planes, width, height, depth_sort=True,
+                                       device=device))
+            centers.append(C)
+            rotations.append(R)
+        return frames, K, np.stack(centers), np.stack(rotations)
     tex_far = _texture(rng)
     tex_near = _texture(rng)
-    planes = [
+    planes = on_device([
         (tex_far, _plane_corners_world([0.6, 0.0, 9.0], [1, 0, 0], [0, 1, 0], 6.0)),
         (tex_near, _plane_corners_world([-1.2, -0.4, 4.5], [1, 0, 0.15], [0, 1, 0], 1.8)),
-    ]
+    ])
     frames, centers, rotations = [], [], []
     for i in range(n_frames):
         s = i / max(n_frames - 1, 1)
@@ -142,7 +249,7 @@ def synthetic_sequence(
             raise ValueError(motion)
         R = so3_exp_np(w)
         t = -R @ C
-        frames.append(render_frame(K, R, t, planes, width, height))
+        frames.append(render_frame(K, R, t, planes, width, height, device=device))
         centers.append(C)
         rotations.append(R)
     return frames, K, np.stack(centers), np.stack(rotations)

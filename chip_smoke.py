@@ -30,7 +30,7 @@ Phases, each of which exits non-zero when it fails:
    (37 cameras, P = 1777, dead slots, n_fixed = 1), norm-wise; the whole
    solve against ``solve_plain``; two launches and two solves bit-equal;
    times per launch from CUDA events;
-6. the main path through its CLI: the port's numpy-rendered strafe sequence
+6. the main path through its CLI: the port's rendered strafe sequence
    at 1280 x 720, written as a folder of PNG files (a standard-library
    encoder here, the port's own decoder in the run), through
    ``run.main(["--preset", "video", "--images", ...])`` with the camera
@@ -70,21 +70,50 @@ Phases, each of which exits non-zero when it fails:
 10. the same path through a real VO run: the rendered frames with
    ``BAConfig(pcg_min_cameras=3)`` until a windowed BA completes, so that
    every windowed BA takes the PCG branch, K4 and its graph, then
-   ``finalize``.
+   ``finalize``;
+11. ``preset_lehman_indoor`` as it ships (1280 x 720, 4000 features, 8
+   levels, the default ``BAConfig``, relocalization, culling and loop
+   closure on), the launch counters set to 0 just before each part and read
+   just after: (a) 600 frames of the room (``synthetic_sequence(motion=
+   "room")``, rendered on the card, written as PNG files) through
+   ``run.main(["--preset", "lehman_indoor", ...])`` with the camera fitted,
+   pipelined: per-frame median and p90, frames per second, keyframes, live
+   and culled points, relocalizations, ``loop_reject`` counts by stage,
+   closures, ATE over the path extent, launches of K1 to K4, the polish BAs'
+   LM iterations and host reads, peak memory; (a2) the same with
+   ``--consistent-convention``, as the JAX package's own long-sequence
+   harness runs the preset; each run held to ``LEHMAN_BOUNDS`` (keyframes,
+   ATE, closures), and K1's first launch against a bank of more than 8000
+   descriptors held to the plain version exactly; (b) a closure that always
+   happens: the drifted ring of ``tests/test_loop_closure.py`` with as many
+   keyframes as (a) made, 4000 keypoints each, through ``try_close_loop``:
+   anchor 0, the scale within 0.05 of 1/s, points fused, the polish BA
+   through K4, whose four roles on the polish's problem are then held
+   against their plain versions in float32 and in float64
+   (``check_k4_roles``); (c) forced relocalizations after blackout frames,
+   one with a bank above ``reloc_ann_threshold`` (the coarse-to-fine
+   search, no K1 launch) and one at most at it (one K1 launch, its inputs
+   held to the plain version exactly); (d) the CLI with ``--checkpoint`` and
+   ``--consistent-convention`` over the first 450 frames, then over all
+   600: keyframe ids, poses and the loop and relocalization events
+   bit-equal to (a2)'s.
 
 ``--kernel-times [--tree DIR]`` only builds and times K1, K3 and K4's setup,
 matvec and cost (``kernel_times``: K3 per LM iteration over a sweep of C' and
 P as well; K4a, K4b and K4d at the global path's shape) on this checkout or
 on another commit's tree, for comparing two commits in one call.
 
-The line before the last is the kernels' JSON record, the line before that
-the card's name and power limit; the last line is the ``{"ok": true, ...}``
+The line before the last is the kernels' JSON record (``launches``: the
+main path's, phase 6, for K1 to K3 and the global path's, phase 9, for K4;
+``launches_lehman_indoor``: phase 11's run (a)), the line before that the
+card's name and power limit; the last line is the ``{"ok": true, ...}``
 record.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -470,17 +499,130 @@ K4_BOUNDS = {"Y": 2e-3,         # 6.0e-4 (translation rows; rotation rows 3.5e-4
              "cost": 1e-5}      # 1.1e-7
 
 
-def check_global(torch, np, mods, seed: int, dev) -> dict:
-    """K4: each role against its plain version on the card.  Every output is
-    compared in groups of one scale, each by its largest absolute difference
-    over the group's largest absolute value: a camera's rotation lanes are
-    larger than its translation lanes by the scene's depth, and the 54 lanes
-    of the setup reduction span five orders of magnitude, so one norm over a
-    whole output would hide an error as large as its small lanes.  The groups
-    are Y's rotation and translation rows, V^-1, z_p, the ten groups of
+def check_k4_roles(torch, np, gk, g, n_fixed: int, seed: int, name: str,
+                   against_f64: bool = False):
+    """K4: each role launched once on the grid ``g`` and held against its
+    plain version on the card.  Every output is compared in groups of one
+    scale, each by its largest absolute difference over the group's largest
+    absolute value: a camera's rotation lanes are larger than its
+    translation lanes by the scene's depth, and the 54 lanes of the setup
+    reduction span five orders of magnitude, so one norm over a whole output
+    would hide an error as large as its small lanes.  The groups are Y's
+    rotation and translation rows, V^-1, z_p, the ten groups of
     ``ba_global_kernel.red_lane_groups``, the matvec's rotation and
     translation lanes, dp, and each of the two costs.  The gaps are printed
     and held to ``K4_BOUNDS``.
+
+    ``against_f64``: for a problem whose float32 rounding alone exceeds
+    those bounds (a near-converged one, whose pixel residuals of a hundredth
+    of a pixel are differences of two numbers near 600), both float32
+    versions are also held against the plain version in float64 on the same
+    inputs, and a group passes when the kernel's gap to float64 is within
+    its bound or at most twice the float32 plain version's gap to float64.
+    Returns the launch's inputs and outputs and each role's max abs error,
+    as a namespace."""
+    C = g.rvecs.shape[0]
+    lay = gk.layout(g)
+    index = gk.camera_index(lay.slotT, lay.maskT, C, n_fixed)
+    ptT = g.points.T.contiguous()
+    scal = gk.with_lambda(lay.scal, 1e-3)
+    cam = gk.camera_rows(g.rvecs, g.tvecs, True)
+    camc = gk.camera_rows(g.rvecs, g.tvecs, False)
+    x = torch.as_tensor(np.random.default_rng(seed).normal(0, 1e-2, (C - n_fixed, 6))
+                        .astype(np.float32), device=g.rvecs.device)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+    def run_setup(fn, *extra):
+        return fn(cam, ptT, lay.slotT, lay.maskT, lay.uvT, lay.pmask, scal, n_fixed, *extra)
+
+    # every role's output on the card is the index's, which its next
+    # call overwrites: clone what is kept
+    ks = tuple(t.clone() for t in run_setup(gk.setup, index))
+    ps = run_setup(gk.setup_plain)
+    YT, VinvT, zpT, _ = ps
+    outs = {
+        "ba_global_setup": (ks, ps),
+        "ba_global_matvec": (     # the kernel's output is the index's scratch
+            (gk.matvec(YT, VinvT, lay.slotT, lay.maskT, x, n_fixed, index).clone(),),
+            (gk.matvec_plain(YT, VinvT, lay.slotT, lay.maskT, x, n_fixed),)),
+        "ba_global_backsub": (
+            (gk.backsub(YT, VinvT, zpT, lay.slotT, lay.maskT, x, n_fixed, index).clone(),),
+            (gk.backsub_plain(YT, VinvT, zpT, lay.slotT, lay.maskT, x, n_fixed),)),
+        "ba_global_cost": (
+            (gk.cost(camc, ptT, lay.slotT, lay.maskT, lay.uvT, lay.scal, index).clone(),),
+            (gk.cost_plain(camc, ptT, lay.slotT, lay.maskT, lay.uvT, lay.scal),)),
+    }
+    if against_f64:
+        f64 = torch.float64
+        ptT64, maskT64, uvT64 = ptT.to(f64), lay.maskT.to(f64), lay.uvT.to(f64)
+        YT64, VinvT64, x64 = YT.to(f64), VinvT.to(f64), x.to(f64)
+        outs64 = {
+            "ba_global_setup": gk.setup_plain(cam.to(f64), ptT64, lay.slotT, maskT64, uvT64,
+                                              lay.pmask.to(f64), scal.to(f64), n_fixed),
+            "ba_global_matvec": (gk.matvec_plain(YT64, VinvT64, lay.slotT, maskT64, x64,
+                                                 n_fixed),),
+            "ba_global_backsub": (gk.backsub_plain(YT64, VinvT64, zpT.to(f64), lay.slotT,
+                                                   maskT64, x64, n_fixed),),
+            "ba_global_cost": (gk.cost_plain(camc.to(f64), ptT64, lay.slotT, maskT64, uvT64,
+                                             lay.scal.to(f64)),),
+        }
+    torch.cuda.synchronize()
+    D = lay.slotT.shape[0]
+
+    def y_part(Y, rows):      # rows of the 6x3 blocks: 0-2 rotation, 3-5 translation
+        return Y.reshape(D, 6, 3, -1)[:, rows]
+
+    def parts(role, o):
+        """label -> (the part of this role's outputs that has one scale, bound)"""
+        if role == "ba_global_setup":
+            out = {"Y.r": (y_part(o[0], slice(0, 3)), K4_BOUNDS["Y"]),
+                   "Y.t": (y_part(o[0], slice(3, 6)), K4_BOUNDS["Y"]),
+                   "Vinv": (o[1], K4_BOUNDS["Vinv"]), "zp": (o[2], K4_BOUNDS["zp"])}
+            out.update({k: (o[3][:, lanes], K4_BOUNDS["red"])
+                        for k, lanes in gk.red_lane_groups().items()})
+            return out
+        if role == "ba_global_matvec":
+            return {"r": (o[0][:, :3], K4_BOUNDS["matvec"]),
+                    "t": (o[0][:, 3:], K4_BOUNDS["matvec"])}
+        if role == "ba_global_backsub":
+            return {"dp": (o[0], K4_BOUNDS["backsub"])}
+        return {"huber": (o[0][:1], K4_BOUNDS["cost"]), "sq": (o[0][1:], K4_BOUNDS["cost"])}
+
+    errs = {}
+    for role, (outs_k, outs_p) in outs.items():
+        errs[role] = max(float((a - b).abs().max()) for a, b in zip(outs_k, outs_p))
+        if not all(bool(torch.isfinite(a).all()) for a in outs_k):
+            fail(f"K4 {role} {name}: non-finite output")
+        pk, pp = parts(role, outs_k), parts(role, outs_p)
+        gaps = {k: rel(pk[k][0], pp[k][0]) for k in pk}
+        print(f"K4 {role} {name}: relative err " + " ".join(
+            f"{k} {v:.2e}" for k, v in gaps.items()) + f", max abs err {errs[role]:.3e}")
+        if against_f64:
+            p64 = parts(role, outs64[role])
+            to64 = {k: (rel(pk[k][0], p64[k][0]), rel(pp[k][0], p64[k][0])) for k in pk}
+            print(f"K4 {role} {name}: relative err to float64, kernel / float32 plain " + " ".join(
+                f"{k} {a:.2e} / {b:.2e}" for k, (a, b) in to64.items()))
+            over = {k: (a, b, pk[k][1]) for k, (a, b) in to64.items()
+                    if not (a <= pk[k][1] or a <= 2 * b)}
+            if over:
+                fail(f"K4 {role} {name}: further from float64 than its bound and than twice "
+                     f"the float32 plain version: (kernel gap, plain gap, bound) {over}")
+            continue
+        over = {k: (v, pk[k][1]) for k, v in gaps.items() if not v <= pk[k][1]}
+        if over:
+            fail(f"K4 {role} {name}: differs from the plain version: (relative gap, "
+                 f"bound) {over}")
+    return types.SimpleNamespace(lay=lay, index=index, ptT=ptT, cam=cam, camc=camc, x=x,
+                                 run_setup=run_setup, ks=ks, YT=YT, VinvT=VinvT, zpT=zpT,
+                                 outs=outs, errs=errs)
+
+
+def check_global(torch, np, mods, seed: int, dev) -> dict:
+    """K4: each role against its plain version on the card
+    (``check_k4_roles``) at two shapes; two launches on one input, and two
+    solves of one problem, equal bits; the solve against ``solve_plain``.
     Returns role -> the kernels line's numbers at the full-width shape."""
     gk = mods.gk
     shapes = [   # name, C, n_pts, P, drop, n_fixed
@@ -490,73 +632,9 @@ def check_global(torch, np, mods, seed: int, dev) -> dict:
     records = None
     for name, C, n_pts, P, drop, n_fixed in shapes:
         g = global_grid(torch, mods, seed + 3, C, n_pts, P, drop, dev)
-        lay = gk.layout(g)
-        index = gk.camera_index(lay.slotT, lay.maskT, C, n_fixed)
-        ptT = g.points.T.contiguous()
-        scal = gk.with_lambda(lay.scal, 1e-3)
-        cam = gk.camera_rows(g.rvecs, g.tvecs, True)
-        camc = gk.camera_rows(g.rvecs, g.tvecs, False)
-        x = torch.as_tensor(np.random.default_rng(seed).normal(0, 1e-2, (C - n_fixed, 6))
-                            .astype(np.float32), device=dev)
-
-        def rel(a, b):
-            return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
-
-        def run_setup(fn, *extra):
-            return fn(cam, ptT, lay.slotT, lay.maskT, lay.uvT, lay.pmask, scal, n_fixed, *extra)
-
-        # every role's output on the card is the index's, which its next
-        # call overwrites: clone what is kept
-        ks = tuple(t.clone() for t in run_setup(gk.setup, index))
-        ps = run_setup(gk.setup_plain)
-        YT, VinvT, zpT, _ = ps
-        outs = {
-            "ba_global_setup": (ks, ps),
-            "ba_global_matvec": (     # the kernel's output is the index's scratch
-                (gk.matvec(YT, VinvT, lay.slotT, lay.maskT, x, n_fixed, index).clone(),),
-                (gk.matvec_plain(YT, VinvT, lay.slotT, lay.maskT, x, n_fixed),)),
-            "ba_global_backsub": (
-                (gk.backsub(YT, VinvT, zpT, lay.slotT, lay.maskT, x, n_fixed, index).clone(),),
-                (gk.backsub_plain(YT, VinvT, zpT, lay.slotT, lay.maskT, x, n_fixed),)),
-            "ba_global_cost": (
-                (gk.cost(camc, ptT, lay.slotT, lay.maskT, lay.uvT, lay.scal, index).clone(),),
-                (gk.cost_plain(camc, ptT, lay.slotT, lay.maskT, lay.uvT, lay.scal),)),
-        }
-        torch.cuda.synchronize()
-
-        def y_part(Y, rows):      # rows of the 6x3 blocks: 0-2 rotation, 3-5 translation
-            return Y.reshape(D, 6, 3, -1)[:, rows]
-
-        def parts(role, o):
-            """label -> (the part of this role's outputs that has one scale, bound)"""
-            if role == "ba_global_setup":
-                out = {"Y.r": (y_part(o[0], slice(0, 3)), K4_BOUNDS["Y"]),
-                       "Y.t": (y_part(o[0], slice(3, 6)), K4_BOUNDS["Y"]),
-                       "Vinv": (o[1], K4_BOUNDS["Vinv"]), "zp": (o[2], K4_BOUNDS["zp"])}
-                out.update({k: (o[3][:, lanes], K4_BOUNDS["red"])
-                            for k, lanes in gk.red_lane_groups().items()})
-                return out
-            if role == "ba_global_matvec":
-                return {"r": (o[0][:, :3], K4_BOUNDS["matvec"]),
-                        "t": (o[0][:, 3:], K4_BOUNDS["matvec"])}
-            if role == "ba_global_backsub":
-                return {"dp": (o[0], K4_BOUNDS["backsub"])}
-            return {"huber": (o[0][:1], K4_BOUNDS["cost"]), "sq": (o[0][1:], K4_BOUNDS["cost"])}
-
-        D = lay.slotT.shape[0]
-        errs = {}
-        for role, (outs_k, outs_p) in outs.items():
-            errs[role] = max(float((a - b).abs().max()) for a, b in zip(outs_k, outs_p))
-            if not all(bool(torch.isfinite(a).all()) for a in outs_k):
-                fail(f"K4 {role} {name}: non-finite output")
-            pk, pp = parts(role, outs_k), parts(role, outs_p)
-            gaps = {k: rel(pk[k][0], pp[k][0]) for k in pk}
-            print(f"K4 {role} {name}: relative err " + " ".join(
-                f"{k} {v:.2e}" for k, v in gaps.items()) + f", max abs err {errs[role]:.3e}")
-            over = {k: (v, pk[k][1]) for k, v in gaps.items() if not v <= pk[k][1]}
-            if over:
-                fail(f"K4 {role} {name}: differs from the plain version: (relative gap, "
-                     f"bound) {over}")
+        r = check_k4_roles(torch, np, gk, g, n_fixed, seed, name)
+        lay, index, ptT, camc, x, run_setup = r.lay, r.index, r.ptT, r.camc, r.x, r.run_setup
+        ks, YT, VinvT, zpT, outs, errs = r.ks, r.YT, r.VinvT, r.zpT, r.outs, r.errs
         if ks[1][:, n_pts:].any() or ks[2][:, n_pts:].any():
             fail(f"K4 setup {name}: a padding point has a non-zero V^-1 or z_p")
 
@@ -906,12 +984,61 @@ def write_png(path: str, bgr) -> None:
                  + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + chunk(b"IEND", b""))
 
 
-def cli_args(folder: str, K, W: int, H: int) -> list:
-    """``run.main``'s arguments for ``preset_video`` with the camera fitted
-    to the render."""
-    return ["--preset", "video", "--images", folder, "--fx", repr(float(K[0, 0])),
+def cli_args(folder: str, K, W: int, H: int, preset: str = "video") -> list:
+    """``run.main``'s arguments for ``preset`` with the camera fitted to the
+    render."""
+    return ["--preset", preset, "--images", folder, "--fx", repr(float(K[0, 0])),
             "--fy", repr(float(K[1, 1])), "--cx", repr(float(K[0, 2])), "--cy",
             repr(float(K[1, 2])), "--size", f"{W}x{H}"]
+
+
+def write_pngs(folder: str, frames) -> None:
+    """``frames`` as ``folder``/00000.png, ... (zlib releases the interpreter
+    lock: eight threads)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    os.makedirs(folder, exist_ok=True)
+    with ThreadPoolExecutor(8) as pool:
+        for fut in [pool.submit(write_png, os.path.join(folder, f"{i:05d}.png"), f)
+                    for i, f in enumerate(frames)]:
+            fut.result()
+
+
+def run_cli(torch, argv: list) -> dict:
+    """``run.main(argv)`` with the launch counters and the global solves'
+    records set to 0 just before and read just after; the pipeline it ran,
+    kept by wrapping ``finalize``, with the number of global solves made
+    before ``finalize``.  What the CLI prints (its event log's lines) goes
+    to ``OUT.stdout.txt`` beside its output folder."""
+    from bundle_adjustment_tpu_torch import kernels
+    from bundle_adjustment_tpu_torch import run as run_mod
+    from bundle_adjustment_tpu_torch.models.pipeline import VisualOdometryPipeline
+    from bundle_adjustment_tpu_torch.ops import ba_global_kernel
+    from bundle_adjustment_tpu_torch.utils.event_log import read_events
+
+    out = argv[argv.index("--out") + 1]
+    kept = []
+    orig = recorded(VisualOdometryPipeline, "finalize", lambda a, kw: kept.append(
+        (a[0], len(ba_global_kernel.SOLVES))))
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        ba_global_kernel.SOLVES.clear()
+        t0 = time.perf_counter()
+        with open(out.rstrip("/") + ".stdout.txt", "w") as fh, contextlib.redirect_stdout(fh):
+            summary = run_mod.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        VisualOdometryPipeline.finalize = orig
+    return dict(out=out, summary=summary, pipe=kept[0][0], launches=launches,
+                peak=torch.cuda.max_memory_allocated(), seconds=seconds,
+                frames=frame_records(read_events, out),
+                solves=[dict(r, cg_iterations=int(r["cg_iterations"]))
+                        for r in ba_global_kernel.SOLVES],
+                solves_before_finalize=kept[0][1])
 
 
 def frame_records(read_events, out: str) -> list:
@@ -1052,6 +1179,465 @@ def keyframe_state(np, pipe) -> tuple:
     return ids, poses
 
 
+#: the lehman_indoor drive: the room render's length and seed (the JAX
+#: package's tools/stress.py defaults), and the frames of the checkpointed
+#: first run of (d)
+LEHMAN_FRAMES, LEHMAN_SEED, LEHMAN_HEAD = 600, 2, 450
+# phase 11's bounds per CLI run: at most so many keyframes, an ATE of at
+# most so many % of the path extent, at least so many loop closures
+LEHMAN_BOUNDS = {"a": (560, 40.0, 0), "a2": (400, 20.0, 1)}
+
+
+def event_key(e: dict) -> tuple:
+    """An event's fields without its clock time, for comparing two runs."""
+    return tuple(sorted((k, json.dumps(v)) for k, v in e.items() if k != "t"))
+
+
+def drifted_ring(np, torch, pipe, C: int, n_kp: int, seed: int):
+    """``tests/test_loop_closure.py``'s drifted ring at a real size in
+    ``pipe``'s map: ``C`` keyframes on a ring of radius 5 around a cloud,
+    each with ``n_kp`` keypoint slots (its own ``n_kp // 2`` anchor points,
+    then the previous keyframe's), poses and points under a sim(3) drift
+    that grows along the ring to (1.18, 0.12 rad about y, (0.35, 0, -0.2));
+    then a closing keyframe at the first view under the full drift, whose
+    keypoints see the first keyframe's points as new duplicate points with
+    the same descriptors.  Returns (closing keyframe, 1 / drift scale)."""
+    from bundle_adjustment_tpu_torch.models.loop_closure import _interp_sim3
+    from bundle_adjustment_tpu_torch.models.map_store import Keyframe
+    from bundle_adjustment_tpu_torch.ops.lie import so3_exp_np
+
+    rng = np.random.default_rng(seed)
+    K, dev = pipe.K, pipe.device
+    half = n_kp // 2
+    P = C * half
+    X = rng.normal(size=(P, 3)) * [1.5, 1.0, 1.5]
+    X *= np.minimum(1.0, 3.5 / np.linalg.norm(X, axis=1))[:, None]   # depth >= 1.5
+    desc = torch.as_tensor(rng.integers(0, 2 ** 32, size=(P, 8), dtype=np.uint64)
+                           .astype(np.uint32).view(np.int32), device=dev)
+    drift = (1.18, so3_exp_np(np.array([0.0, 0.12, 0.0])), np.array([0.35, 0.0, -0.2]))
+
+    def true_pose(i):
+        ang = 2 * np.pi * i / C
+        c = np.array([5 * np.sin(ang), 0.0, -5 * np.cos(ang)])
+        z = -c / np.linalg.norm(c)
+        x = np.cross([0.0, 1.0, 0.0], z)
+        x /= np.linalg.norm(x)
+        R = np.stack([x, np.cross(z, x), z])
+        return R, -R @ c
+
+    def keyframe(kf_id, R, t, alpha, seen):
+        # slots 0.. hold the points ``seen``; the keyframe's pose under the drift
+        sa, Ra, ta = _interp_sim3(*drift, alpha)
+        Xc = X[seen] @ R.T + t
+        xy = np.zeros((n_kp, 2))
+        xy[: len(seen)] = Xc[:, :2] / Xc[:, 2:] * [K[0, 0], K[1, 1]] + [K[0, 2], K[1, 2]]
+        valid = np.arange(n_kp) < len(seen)
+        d = torch.zeros((n_kp, 8), dtype=torch.int32, device=dev)
+        d[: len(seen)] = desc[torch.as_tensor(seen, device=dev)]
+        Rs = R @ Ra.T
+        return Keyframe(kf_id=kf_id, R=Rs, t=sa * t - Rs @ ta, xy=xy, desc=d,
+                        kp_valid=valid, frame_idx=kf_id)
+
+    def drifted(pts, alpha):
+        sa, Ra, ta = _interp_sim3(*drift, alpha)
+        return sa * (pts @ Ra.T) + ta
+
+    mp_ids = pipe.map.add_map_points(np.zeros((P, 3)))
+    for i in range(C):
+        own = np.arange(i * half, (i + 1) * half)
+        pipe.map._pts[own] = drifted(X[own], i / (C - 1))
+        seen = np.concatenate([own, np.arange((i - 1) * half, i * half) if i else own[:0]])
+        kf = keyframe(i, *true_pose(i), i / (C - 1), seen)
+        pipe.map.add_keyframe(kf)
+        pipe.map.add_observations(i, mp_ids[seen], np.arange(len(seen)), kf.xy[: len(seen)])
+    own = np.arange(half)
+    dup = pipe.map.add_map_points(drifted(X[own], 1.0))
+    new_kf = keyframe(C, *true_pose(0), 1.0, own)
+    pipe.map.add_keyframe(new_kf)
+    pipe.map.add_observations(C, dup, own, new_kf.xy[:half])
+    return new_kf, 1.0 / drift[0]
+
+
+def lehman_indoor_phase(torch, np, work: str) -> dict:
+    """Phase 11: ``preset_lehman_indoor`` as it ships on the card (see the
+    module docstring).  Returns the launches of run (a) and of the whole
+    phase per kernel."""
+    from bundle_adjustment_tpu_torch import kernels
+    from bundle_adjustment_tpu_torch import run as run_mod
+    from bundle_adjustment_tpu_torch.config import CAMERA_LEHMAN, CameraModel, \
+        preset_lehman_indoor
+    from bundle_adjustment_tpu_torch.models.loop_closure import try_close_loop
+    from bundle_adjustment_tpu_torch.models.map_store import Map
+    from bundle_adjustment_tpu_torch.models.pipeline import VisualOdometryPipeline, bgr_to_gray
+    from bundle_adjustment_tpu_torch.ops import ba_global_kernel, hamming_kernel
+    from bundle_adjustment_tpu_torch.ops.ba_grid import BAProblemGrid
+    from bundle_adjustment_tpu_torch.utils.event_log import EventLog
+    from bundle_adjustment_tpu_torch.utils.metrics import ate_rmse
+    from bundle_adjustment_tpu_torch.utils.synthetic import synthetic_sequence
+
+    K4_ROLES = (ba_global_kernel.SETUP, ba_global_kernel.MATVEC, ba_global_kernel.BACKSUB,
+                ba_global_kernel.COST)
+    W, H = 1280, 720
+    phase_t0 = time.perf_counter()
+    total = {name: 0 for name in kernels.LAUNCHES}
+
+    def tally(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    # K1's inputs at the bank searches: the first launch of each run below
+    # against a bank of more than 8000 descriptors (a loop-detection or
+    # relocalization bank; the tracked frame's matches are 4000 x 4000),
+    # cloned, to be held against the plain version after the run's counts
+    # are read
+    k1_banks = {}
+
+    def keep_k1(tag):
+        def keep(a, kw):
+            if tag not in k1_banks and a[1].shape[0] > 8000 \
+                    and not torch.cuda.is_current_stream_capturing():
+                k1_banks[tag] = tuple(t.clone() for t in a)
+        return keep
+
+    def check_k1_bank(tag):
+        if tag not in k1_banks:
+            print(f"lehman_indoor ({tag}): no K1 launch against a bank above 8000 descriptors")
+            return
+        d1, d2, valid2 = k1_banks.pop(tag)
+        got = hamming_kernel.launch(d1, d2, valid2)
+        want = hamming_kernel.knn2_plain(d1, d2, valid2)
+        torch.cuda.synchronize()
+        bad = {what: int((a != b).sum()) for what, a, b in zip(("best", "idx", "second"),
+                                                                got, want)}
+        sms = torch.cuda.get_device_properties(d1.device).multi_processor_count
+        splits, rows = hamming_kernel.split_plan(d1.shape[0], d2.shape[0], sms)
+        print(f"lehman_indoor ({tag}): K1 at the bank search {d1.shape[0]}x{d2.shape[0]} "
+              f"({int((~valid2).sum())} invalid bank slots, {splits} train splits of {rows} "
+              f"rows) against the plain version: rows differing {bad}")
+        if any(bad.values()):
+            fail(f"lehman_indoor ({tag}): K1 at {d1.shape[0]}x{d2.shape[0]} differs from "
+                 f"the plain version: {bad}")
+
+    # -- (a) the CLI run over 600 frames of the room ------------------------
+    t0 = time.perf_counter()
+    frames, K, gt_C, _ = synthetic_sequence(
+        n_frames=LEHMAN_FRAMES, width=W, height=H, fx=CAMERA_LEHMAN.fx, seed=LEHMAN_SEED,
+        motion="room", device="cuda")
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    folder = os.path.join(work, "room")
+    t0 = time.perf_counter()
+    write_pngs(folder, frames)
+    png_s = time.perf_counter() - t0
+    print(f"lehman_indoor: rendered {len(frames)} room frames {W}x{H} on the card in "
+          f"{render_s:.1f} s (146 planes each), wrote them as PNG files in {png_s:.1f} s")
+    cam = CameraModel(fx=float(K[0, 0]), fy=float(K[1, 1]), cx=float(K[0, 2]),
+                      cy=float(K[1, 2]), width=W, height=H)
+    cfg = dataclasses.replace(preset_lehman_indoor(), camera=cam)
+    if not (cfg.reloc_enabled and cfg.cull_enabled and cfg.loop_closure
+            and cfg.num_features == 4000 and cfg.pyramid_levels == 8
+            and cfg.ba == type(cfg.ba)()):
+        fail(f"preset_lehman_indoor no longer ships as this phase expects: {cfg}")
+    argv = cli_args(folder, K, W, H, preset="lehman_indoor")
+    if run_mod._config(run_mod.build_parser().parse_args(argv + ["--out", work])) != \
+            dataclasses.replace(cfg, output_dir=work):
+        fail("the CLI's arguments do not give preset_lehman_indoor with the fitted camera")
+
+    merges = []
+    orig_merge = Map.merge_points
+
+    def timed_merge(self, dst, src):
+        t = time.perf_counter()
+        n = orig_merge(self, dst, src)
+        merges.append(time.perf_counter() - t)
+        return n
+
+    def cli_drive(tag: str, extra: list, consistent: bool) -> dict:
+        """Run ``tag``: the CLI over the room's frames with ``extra``
+        arguments; prints its numbers and holds it to ``LEHMAN_BOUNDS[tag]``."""
+        Map.merge_points = timed_merge
+        merges.clear()
+        orig_k1 = recorded(hamming_kernel, "launch", keep_k1(tag))
+        try:
+            a = run_cli(torch, argv + extra + ["--out", os.path.join(work, f"lehman_{tag}")])
+        finally:
+            Map.merge_points = orig_merge
+            hamming_kernel.launch = orig_k1
+        tally(a["launches"])
+        check_k1_bank(tag)
+        pipe, summary, events = a["pipe"], a["summary"], a["pipe"].log.events
+        fm = np.asarray([e["wall_ms"] for e in a["frames"]])
+        statuses = [e["status"] for e in a["frames"]]
+        ids = pipe.map.sorted_kf_ids()
+        traj = pipe.map.trajectory(consistent)
+        gt = np.stack([gt_C[pipe.map.keyframes[k].frame_idx] for k in ids])
+        ate = ate_rmse(traj, gt, with_scale=True)
+        extent = float(np.linalg.norm(gt.max(0) - gt.min(0)))
+        culled = sum(e["culled"] for e in events if e["event"] == "cull")
+        relocs = [e for e in events if e["event"] == "relocalization"]
+        rejects = {}
+        for e in events:
+            if e["event"] == "loop_reject":
+                rejects[e["stage"]] = rejects.get(e["stage"], 0) + 1
+        closures = [e for e in events if e["event"] == "loop_closure"]
+        plain = [e for e in events if e["event"] == "pcg_plain_solver"]
+        polish = a["solves"][: a["solves_before_finalize"]]
+        print(f"lehman_indoor ({tag}), the CLI {' '.join(extra)} over {len(frames)} frames, "
+              f"pipelined: {summary['frames_per_s']} frames/s over {summary['elapsed_s']} s, "
+              f"run.main {a['seconds']:.1f} s; per-frame wall ms median {np.median(fm):.1f}, "
+              f"p90 {np.percentile(fm, 90):.1f}, max {fm.max():.1f}; statuses " + ", ".join(
+                  f"{k} {statuses.count(k)}" for k in dict.fromkeys(statuses)))
+        triggers = {}
+        for e in events:
+            if e["event"] == "keyframe_trigger":
+                triggers[e["reason"]] = triggers.get(e["reason"], 0) + 1
+        windows = [e for e in events if e["event"] in ("ba_complete", "ba_diverged")
+                   and not e.get("global_ba")]
+        print(f"lehman_indoor ({tag}): per-frame ms by status (median, p90, count) " + "; ".join(
+            f"{k} {np.median(v):.1f}, {np.percentile(v, 90):.1f}, {len(v)}" for k, v in (
+                (k, [w for w, st in zip(fm, statuses) if st == k])
+                for k in dict.fromkeys(statuses)))
+              + f"; keyframe triggers {triggers}; window BAs {len(windows)}, diverged "
+              f"{sum(e['event'] == 'ba_diverged' for e in windows)}, the completed ones' median "
+              f"{1e3 * np.median([e['elapsed_s'] for e in windows if 'elapsed_s' in e]):.1f} ms")
+        print(f"lehman_indoor ({tag}): keyframes {len(ids)}, live map points "
+              f"{pipe.map.num_points} of {pipe.map._n_pts}, culled {culled}, observations "
+              f"{pipe.map.num_observations}; relocalizations tried {len(relocs)}, succeeded "
+              f"{sum(1 for e in relocs if e['success'])}; loop_reject by stage {rejects}; "
+              f"closures {len(closures)}: " + "; ".join(
+                  f"KF {e['kf_id']} -> anchor {e['anchor_kf']}, scale {e['scale']}, fused "
+                  f"{e['fused']}, +{e['added_obs']} obs, {e['chain_corrected']} poses corrected"
+                  for e in closures)
+              + f"; merge_points {len(merges)} calls, {sum(merges):.2f} s")
+        print(f"lehman_indoor ({tag}): keyframe-centre ATE after similarity alignment "
+              f"{ate:.4f} over a path extent of {extent:.3f} ({100 * ate / extent:.2f} %); "
+              f"launches {a['launches']}; polish BAs {len(polish)}: " + "; ".join(
+                  f"LM iterations {r['lm_iterations']}, host reads {r['host_reads']}, graph "
+                  f"replays {r['graph_replays']}, capture {1e3 * r['capture_s']:.1f} ms"
+                  for r in polish)
+              + f"; global solves in finalize {len(a['solves']) - len(polish)}"
+              + f"; plain PCG solves on the card {len(plain)} "
+              f"({sorted({e['why'] for e in plain})})"
+              + f"; peak device memory {a['peak'] / 2 ** 20:.1f} MiB; host reads "
+              f"{summary['host_reads']}; tracked-frame graph {summary['track_step']}")
+        if summary["frames"] != len(frames) or len(ids) < 3 or pipe.map.num_points <= 100:
+            fail(f"lehman_indoor ({tag}): {summary['frames']} frames, {len(ids)} keyframes, "
+                 f"{pipe.map.num_points} points")
+        if not (np.isfinite(traj).all() and math.isfinite(ate)):
+            fail(f"lehman_indoor ({tag}): trajectory not finite")
+        max_kf, max_ate, min_closures = LEHMAN_BOUNDS[tag]
+        if len(ids) > max_kf or 100 * ate / extent > max_ate or len(closures) < min_closures:
+            fail(f"lehman_indoor ({tag}): {len(ids)} keyframes (at most {max_kf}), ATE "
+                 f"{100 * ate / extent:.2f} % of the path (at most {max_ate} %), "
+                 f"{len(closures)} closures (at least {min_closures})")
+        # finalize's global and full BA: finite; a solve whose cost rose is
+        # rejected by the pipeline (the map is kept) and reported here
+        final_ba = [e for e in events if e["event"] in ("ba_complete", "ba_diverged")
+                    and e.get("global_ba")][-2:]
+        print(f"lehman_indoor ({tag}): finalize's global and full BA: " + "; ".join(
+            f"{e['event']} over KF {e['kf_id']}, squared cost {e['initial_cost']:.1f} -> "
+            f"{e['final_cost']:.1f} in {e.get('iterations')} LM iterations, "
+            f"{e.get('elapsed_s', 0.0):.3f} s" for e in final_ba))
+        if len(final_ba) != 2 or not all(math.isfinite(e["initial_cost"])
+                                         and math.isfinite(e["final_cost"]) for e in final_ba):
+            fail(f"lehman_indoor ({tag}): finalize's BA is not two finite solves: {final_ba}")
+        if culled <= 0:
+            fail(f"lehman_indoor ({tag}): culling removed no point")
+        for name in ("hamming_knn2", "orb_gather40", "ba_window_lm"):
+            if a["launches"][name] <= 0:
+                fail(f"lehman_indoor ({tag}): kernel {name} was not launched")
+        return dict(state=keyframe_state(np, pipe), launches=a["launches"],
+                    events=[event_key(e) for e in events if e["event"]
+                            in ("relocalization", "loop_closure", "loop_reject")])
+
+    # as it ships: the reference pose convention
+    run_a = cli_drive("a", [], False)
+    gc.collect()
+    # the JAX package's own long-sequence harness (tools/stress.py) runs the
+    # preset with --consistent-convention: PnP poses as extrinsics
+    cfg2 = dataclasses.replace(cfg, consistent_convention=True)
+    if run_mod._config(run_mod.build_parser().parse_args(
+            argv + ["--consistent-convention", "--out", work])) != \
+            dataclasses.replace(cfg2, output_dir=work):
+        fail("the CLI's arguments do not give preset_lehman_indoor with the consistent "
+             "convention")
+    run_a2 = cli_drive("a2", ["--consistent-convention"], True)
+    head_frames = frames[:30]
+    del frames
+    gc.collect()
+
+    # -- (b) a closure that always happens: the drifted ring -----------------
+    t0 = time.perf_counter()
+    n_ring = len(run_a["state"][0])
+    ring = VisualOdometryPipeline(cfg, log=EventLog(echo=False), device="cuda")
+    new_kf, inv_scale = drifted_ring(np, torch, ring, n_ring, cfg.num_features, LEHMAN_SEED)
+    build_s = time.perf_counter() - t0
+    merges.clear()
+    Map.merge_points = timed_merge
+    # the polish's problem, cloned, to hold K4's roles on it afterwards
+    polish_in = []
+    orig_solve = recorded(ba_global_kernel, "solve", lambda a, kw: polish_in.append(
+        (BAProblemGrid(*(t.clone() for t in a[0])), kw.get("n_fixed", 1))))
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        ba_global_kernel.SOLVES.clear()
+        t0 = time.perf_counter()
+        info = try_close_loop(ring, new_kf)
+        torch.cuda.synchronize()
+        close_s = time.perf_counter() - t0
+    finally:
+        Map.merge_points = orig_merge
+        ba_global_kernel.solve = orig_solve
+    ring_launches = dict(kernels.LAUNCHES)
+    tally(ring_launches)
+    if info is None:
+        fail(f"lehman_indoor (b): no closure on the drifted ring: "
+             f"{[e for e in ring.log.events if e['event'] == 'loop_reject']}")
+    rec = list(ba_global_kernel.SOLVES)
+    ba = info.get("ba") or {}
+    print(f"lehman_indoor (b), the drifted ring: {n_ring} keyframes of {cfg.num_features} "
+          f"keypoints, {ring.map._n_pts} points, built in {build_s:.1f} s; closure in "
+          f"{close_s:.2f} s: anchor {info['anchor_kf']}, scale {info['scale']} (1/s = "
+          f"{inv_scale:.4f}), matches {info['matches']}, PnP inliers {info['pnp_inliers']}, "
+          f"fused {info['fused']} ({len(merges)} merge_points calls, {sum(merges):.2f} s), "
+          f"+{info['added_obs']} obs, {info['chain_corrected']} poses corrected; polish BA "
+          f"{json.dumps(ba)}; its solve: " + "; ".join(
+              f"LM iterations {r['lm_iterations']}, host reads {r['host_reads']}, graph "
+              f"replays {r['graph_replays']}, live CG iterations {int(r['cg_iterations'])}, "
+              f"first iteration {1e3 * r['first_s']:.1f} ms, capture {1e3 * r['capture_s']:.1f} "
+              f"ms, replays {1e3 * r['replay_s']:.1f} ms" for r in rec)
+          + f"; launches {ring_launches}")
+    if info["anchor_kf"] != 0 or abs(info["scale"] - inv_scale) > 0.05 or info["fused"] <= 0:
+        fail(f"lehman_indoor (b): the ring's closure is off: {info}")
+    if not ba or ba.get("diverged") or any(ring_launches[k] <= 0 for k in K4_ROLES) \
+            or any(e["event"] == "pcg_plain_solver" for e in ring.log.events):
+        fail(f"lehman_indoor (b): the polish BA did not go through K4: {ba}, {ring_launches}")
+    del ring, new_kf
+    gc.collect()
+    # K4's four roles on the polish's problem against their plain versions,
+    # at the bounds of phase 5, and against float64 (the problem is near its
+    # minimum: its residuals are a hundredth of a pixel)
+    if len(polish_in) != 1:
+        fail(f"lehman_indoor (b): {len(polish_in)} global solves in the closure, expected 1")
+    g, n_fixed = polish_in.pop()
+    t0 = time.perf_counter()
+    check_k4_roles(torch, np, ba_global_kernel, g, n_fixed, LEHMAN_SEED,
+                   f"(b)'s polish C={g.rvecs.shape[0]} n_fixed={n_fixed} "
+                   f"P={g.cam_slot.shape[0]} D={g.cam_slot.shape[1]}", against_f64=True)
+    print(f"lehman_indoor (b): K4's roles on the polish's problem checked in "
+          f"{time.perf_counter() - t0:.1f} s")
+    del g
+    gc.collect()
+
+    # -- (c) forced relocalizations after blackout frames --------------------
+    # as tests/test_reloc_cull.py runs it: the consistent pose convention
+    # (PnP poses as extrinsics), so that a keyframe's points and pose agree
+    t0 = time.perf_counter()
+    frames = head_frames
+    kernels.reset_launches()
+    rp = VisualOdometryPipeline(dataclasses.replace(cfg, consistent_convention=True),
+                                log=EventLog(echo=False), device="cuda")
+    for f in frames:
+        rp.process_frame(f)
+    black = np.random.default_rng(0).integers(0, 30, size=frames[0].shape, dtype=np.uint8)
+    reloc_out = []
+    # the second bank (4 keyframes of 4000 slots) is at most the threshold
+    for bank_size in (cfg.reloc_bank_size, 4):
+        rp.cfg = dataclasses.replace(rp.cfg, reloc_bank_size=bank_size)
+        for _ in range(2):
+            if rp.process_frame(black)["status"] != "discarded":
+                fail("lehman_indoor (c): a blackout frame was not discarded")
+        # the view of the bank keyframe with the most map points, among those
+        # of the 30 frames (not a relocalized one) and not used already
+        bank_ids = rp.map.sorted_kf_ids()[-bank_size:]
+        seen = [o["target"] for o in reloc_out]
+        best = max((k for k in bank_ids if rp.map.keyframes[k].frame_idx < len(frames)
+                    and rp.map.keyframes[k].frame_idx not in seen),
+                   key=lambda k: int((rp.map.keyframes[k].kp_to_mp >= 0).sum()))
+        target = rp.map.keyframes[best].frame_idx
+        bank = sum(rp.map.keyframes[k].desc.shape[0] for k in bank_ids)
+        rp.frame_idx += 1
+        kp = rp._extract(bgr_to_gray(frames[target]))
+        before = kernels.LAUNCHES[hamming_kernel.NAME]
+        rp._lost_frames = 1
+        # the K1 search's inputs, for the check below
+        orig_k1 = recorded(hamming_kernel, "launch", keep_k1("c"))
+        t = time.perf_counter()
+        try:
+            r = rp._tracking_lost(frames[target], kp, "forced")
+            torch.cuda.synchronize()
+        finally:
+            hamming_kernel.launch = orig_k1
+        reloc_out.append(dict(bank=bank, target=target, result=r,
+                              k1=kernels.LAUNCHES[hamming_kernel.NAME] - before,
+                              ms=1e3 * (time.perf_counter() - t)))
+    tally(kernels.LAUNCHES)
+    failed_blackout = [e for e in rp.log.events if e["event"] == "relocalization"
+                       and not e["success"]]
+    print(f"lehman_indoor (c): {len(frames)} frames, {rp.map.num_keyframes} keyframes, "
+          f"{len(failed_blackout)} failed relocalizations on blackout frames; forced: " + "; ".join(
+              f"bank {o['bank']} descriptors ({'K1' if o['bank'] <= cfg.reloc_ann_threshold else 'ANN'}"
+              f", K1 launches {o['k1']}), frame {o['target']}: {o['result']['status']}, anchor "
+              f"{o['result'].get('anchor_kf')}, PnP inliers {o['result'].get('inliers')}, "
+              f"{o['ms']:.1f} ms" for o in reloc_out)
+          + f" (phase (c) {time.perf_counter() - t0:.1f} s)")
+    ann, k1 = reloc_out
+    if not (ann["bank"] > cfg.reloc_ann_threshold >= k1["bank"]):
+        fail(f"lehman_indoor (c): banks {ann['bank']}, {k1['bank']} do not straddle "
+             f"{cfg.reloc_ann_threshold}")
+    if any(o["result"]["status"] != "relocalized" for o in reloc_out) \
+            or ann["k1"] != 0 or k1["k1"] != 1 or not failed_blackout:
+        fail(f"lehman_indoor (c): forced relocalizations {reloc_out}")
+    if "c" not in k1_banks or k1_banks["c"][1].shape[0] != k1["bank"]:
+        fail(f"lehman_indoor (c): K1's inputs at the forced relocalization's bank of "
+             f"{k1['bank']} descriptors were not recorded")
+    check_k1_bank("c")
+    del rp, frames
+    gc.collect()
+
+    # -- (d) checkpoint resume of (a2): 450 frames, then all 600 ------------
+    # (a2) is the run with closures and relocalizations, whose cooldown and
+    # lost-frame counter the checkpoint must carry
+    head = os.path.join(work, "room_head")
+    os.makedirs(head)
+    for name in sorted(os.listdir(folder))[:LEHMAN_HEAD]:
+        os.symlink(os.path.join(folder, name), os.path.join(head, name))
+    ck = os.path.join(work, "lehman.npz")
+    d1 = run_cli(torch, cli_args(head, K, W, H, preset="lehman_indoor")
+                 + ["--consistent-convention", "--out", os.path.join(work, "lehman_d1"),
+                    "--checkpoint", ck])
+    ck_mb = os.path.getsize(ck) / 2 ** 20
+    d2 = run_cli(torch, argv + ["--consistent-convention", "--out",
+                                os.path.join(work, "lehman_d2"), "--checkpoint", ck])
+    tally(d1["launches"])
+    tally(d2["launches"])
+    state_a, events_a = run_a2["state"], run_a2["events"]
+    state_d = keyframe_state(np, d2["pipe"])
+    events_d = [event_key(e) for r in (d1, d2) for e in r["pipe"].log.events
+                if e["event"] in ("relocalization", "loop_closure", "loop_reject")]
+    same = (state_a[0] == state_d[0] and state_a[1].shape == state_d[1].shape
+            and np.array_equal(state_a[1], state_d[1]) and events_a == events_d)
+    print(f"lehman_indoor (d): --checkpoint over {LEHMAN_HEAD} frames ({d1['seconds']:.1f} s, "
+          f"checkpoint {ck_mb:.1f} MiB), resumed over {LEHMAN_FRAMES} "
+          f"({d2['summary']['resumed_frames']} skipped, {d2['summary']['frames']} run, "
+          f"{d2['seconds']:.1f} s): keyframe ids, poses and {len(events_d)} loop and "
+          f"relocalization events {'bit-equal to' if same else 'DIFFERENT from'} run (a2)'s")
+    if not same:
+        fail(f"lehman_indoor (d): the resumed run differs from the straight run: keyframe ids "
+             f"{state_a[0] == state_d[0]}, events {events_a == events_d}")
+    if d2["summary"]["resumed_frames"] != LEHMAN_HEAD:
+        fail(f"lehman_indoor (d): resumed {d2['summary']['resumed_frames']} frames")
+    print(f"lehman_indoor: launches over the phase {total} "
+          f"(phase {time.perf_counter() - phase_t0:.1f} s)")
+    missing = [k for k, v in total.items() if v <= 0]
+    if missing:
+        fail(f"lehman_indoor: kernels {missing} were not launched in the phase")
+    if "jax" in sys.modules:
+        fail("the port imported jax")
+    return dict(launches_a=run_a["launches"], total=total)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=40)
@@ -1145,9 +1731,7 @@ def main() -> int:
         seed=args.seed, motion="strafe")
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     folder = os.path.join(work, "frames")
-    os.makedirs(folder)
-    for i, f in enumerate(frames):
-        write_png(os.path.join(folder, f"{i:05d}.png"), f)
+    write_pngs(folder, frames)
     print(f"rendered {len(frames)} frames {W}x{H} and wrote them as PNG files in "
           f"{time.perf_counter() - t0:.1f} s")
     cam = CameraModel(fx=float(K[0, 0]), fy=float(K[1, 1]), cx=float(K[0, 2]),
@@ -1161,26 +1745,7 @@ def main() -> int:
         fail("the CLI's arguments do not give preset_video with the fitted camera")
 
     def cli_run(tag: str, extra: list) -> dict:
-        """``run.main`` over the folder, the launch counters set to 0 just
-        before and read just after; the pipeline it ran, kept by wrapping
-        ``finalize``."""
-        out = os.path.join(work, tag)
-        kept = []
-        orig = recorded(VisualOdometryPipeline, "finalize", lambda a, kw: kept.append(a[0]))
-        try:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            kernels.reset_launches()
-            t0 = time.perf_counter()
-            summary = run_mod.main(argv + ["--out", out] + extra)
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-            launches = dict(kernels.LAUNCHES)
-        finally:
-            VisualOdometryPipeline.finalize = orig
-        return dict(out=out, summary=summary, pipe=kept[0], launches=launches,
-                    peak=torch.cuda.max_memory_allocated(), seconds=seconds,
-                    frames=frame_records(read_events, out))
+        return run_cli(torch, argv + ["--out", os.path.join(work, tag)] + extra)
 
     # the first run in the process pays the first uses (the 5-point solver's
     # kernels, cuSOLVER): a second pipelined run, after the sequential one,
@@ -1585,6 +2150,11 @@ def main() -> int:
     if "jax" in sys.modules:
         fail("the port imported jax")
 
+    # -- 11. preset_lehman_indoor at full width ----------------------------
+    del pipe_pcg
+    gc.collect()
+    lehman = lehman_indoor_phase(torch, np, work)
+
     if args.profile:
         # the CLI over the first N frames under torch.profiler
         pfolder = os.path.join(work, "frames_profiled")
@@ -1604,20 +2174,24 @@ def main() -> int:
         dict(name="hamming_knn2", route="cuda",
              source="bundle_adjustment_tpu_torch/csrc/hamming_knn2.cu",
              replaces="bundle_adjustment_tpu/ops/hamming_pallas.py:87",
-             launches=launches["hamming_knn2"], library_ms=None, **k1),
+             launches=launches["hamming_knn2"], library_ms=None, **k1,
+             launches_lehman_indoor=lehman["launches_a"]["hamming_knn2"]),
         dict(name="orb_gather40", route="cuda",
              source="bundle_adjustment_tpu_torch/csrc/orb_gather.cu",
              replaces="bundle_adjustment_tpu/ops/orb_pallas.py:97",
-             launches=launches["orb_gather40"], library_ms=None, **k2),
+             launches=launches["orb_gather40"], library_ms=None, **k2,
+             launches_lehman_indoor=lehman["launches_a"]["orb_gather40"]),
         dict(name="ba_window_lm", route="cuda",
              source="bundle_adjustment_tpu_torch/csrc/ba_window_lm.cu",
              replaces="bundle_adjustment_tpu/ops/ba_pallas.py:521",
-             launches=launches["ba_window_lm"], library_ms=None, **k3),
+             launches=launches["ba_window_lm"], library_ms=None, **k3,
+             launches_lehman_indoor=lehman["launches_a"]["ba_window_lm"]),
     ] + [
         dict(name=role, route="cuda",
              source="bundle_adjustment_tpu_torch/csrc/ba_global_pcg.cu",
              replaces=f"bundle_adjustment_tpu/ops/ba_global_pallas.py:{line}",
-             launches=g_launches[role], library_ms=None, **k4[role])
+             launches=g_launches[role], library_ms=None, **k4[role],
+             launches_lehman_indoor=lehman["launches_a"][role])
         for role, line in zip(K4_ROLES, (339, 522, 583, 621))
     ]}
     print(smi)

@@ -892,3 +892,60 @@ def test_small_linalg_is_torch_linalg_on_the_card_and_replays(card, shape):
         torch.cuda.synchronize()
         for a, b in zip(out, eager):
             assert _bit_equal(a.contiguous(), b.contiguous())
+
+
+@pytest.mark.cuda
+def test_ann_bank_search_on_the_card_equals_the_cpu(card):
+    """The coarse-to-fine bank search (plain PyTorch, ``ops/ann.py``) on the
+    card at a relocalization bank's shape (4000 queries, 32,000
+    descriptors, coarse ties in 50 groups): indices and distances equal to
+    the CPU's exactly, in one block and in chunks of queries."""
+    from bundle_adjustment_tpu_torch.ops import ann
+
+    rng = np.random.default_rng(11)
+    bank = rng.integers(0, 2 ** 32, size=(32000, 8), dtype=np.uint64).astype(np.uint32)
+    bank[:, :2] = bank[rng.integers(0, 50, len(bank))][:, :2]
+    q = bank[rng.integers(0, len(bank), 4000)].copy()
+    q[:, 5] ^= rng.integers(0, 2 ** 32, len(q), dtype=np.uint64).astype(np.uint32)
+    valid = torch.as_tensor(rng.random(len(bank)) > 0.2)
+    qt, bt = torch.as_tensor(q.view(np.int32)), torch.as_tensor(bank.view(np.int32))
+    want = ann.knn2_coarse_fine(qt, bt, valid)
+    default = ann.MAX_BLOCK
+    try:
+        for block in (default, 32000 * 300):
+            ann.MAX_BLOCK = block
+            got = ann.knn2_coarse_fine(qt.to(card), bt.to(card), valid.to(card))
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                assert torch.equal(a.cpu(), b)
+    finally:
+        ann.MAX_BLOCK = default
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threshold", [16384, 0], ids=["k1", "ann"])
+def test_relocalization_on_the_card(card, threshold):
+    """A pipeline on the card over 6 frames, then a forced relocalization of
+    frame 4's keypoints: it succeeds; the bank search launches K1 once when
+    the bank is at most ``reloc_ann_threshold`` descriptors and not at all
+    through the coarse-to-fine search."""
+    import dataclasses
+
+    from bundle_adjustment_tpu_torch.models.pipeline import bgr_to_gray
+    from bundle_adjustment_tpu_torch.models.relocalize import try_relocalize
+
+    pipe, frames = _track_pipeline(card)
+    for f in frames[1:6]:
+        pipe.process_frame(f)
+    assert pipe.map.num_keyframes >= 3
+    pipe.cfg = dataclasses.replace(pipe.cfg, reloc_enabled=True, reloc_ann_threshold=threshold)
+    pipe.frame_idx += 1
+    kp = pipe._extract(bgr_to_gray(frames[4]))
+    n_kf = pipe.map.num_keyframes
+    before = kernels.LAUNCHES[hamming_kernel.NAME]
+    r = try_relocalize(pipe, frames[4], kp)
+    assert r is not None and r["status"] == "relocalized" and r["inliers"] > 15
+    assert kernels.LAUNCHES[hamming_kernel.NAME] - before == (1 if threshold else 0)
+    assert pipe.map.num_keyframes == n_kf + 1
+    kf = pipe.map.keyframes[r["kf_id"]]
+    assert np.isfinite(kf.R).all() and np.isfinite(kf.t).all() and kf.desc.is_cuda

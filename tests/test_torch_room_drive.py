@@ -1,0 +1,202 @@
+"""The lehman_indoor drive on the room (``utils.synthetic``'s ``motion="room"``),
+the port against the JAX package on the CPU, one frame at a time from the
+same state.
+
+Free runs of the two packages part after a few keyframes: float32
+evaluation order moves a keyframe's pose by about 1e-5, and a later PnP
+RANSAC on points that disagree by that much can keep one inlier more or
+less, which changes a keyframe decision.  So each frame is held from a
+shared state.  The JAX pipeline runs free; before each frame the port
+pipeline takes a copy of its state (the map through
+``convert.map_store``, the frame counter, the lost-frame counter, the
+loop-closure cooldown and the sequential RANSAC key, which ``JaxDraws``
+replays) and processes the same frame.  Its result must be the JAX
+pipeline's: the same status and keyframe trigger and the same events in
+the same order, with every integer and string in them equal and every
+float within 1e-3 + 1e-2 of the JAX value relatively (a rotation angle of
+a few milliradians from an arccos carries float32 rounding of a few
+percent; a BA cost carries the order of float32 sums).
+
+The test runs frames 0-12 of a 600-frame loop at 320x240 with 500
+features, ``preset_lehman_indoor`` otherwise as it ships: the reference
+pose convention, relocalization, culling and loop closure on.  Run as a
+script, the same comparison covers a longer drive under either pose
+convention, and the two packages' free runs over it are tallied side by
+side (keyframes, triggers, statuses, relocalizations, ``loop_reject``
+stages, closures):
+
+    JAX_PLATFORMS=cpu python tests/test_torch_room_drive.py --frames 150 \\
+        --convention reference
+"""
+
+import argparse
+import dataclasses
+import os
+import sys
+
+import jax
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import bundle_adjustment_tpu.config as jcfg  # noqa: E402
+from bundle_adjustment_tpu.models.pipeline import VisualOdometryPipeline as JaxPipeline  # noqa: E402
+from bundle_adjustment_tpu.utils.event_log import EventLog as JaxEventLog  # noqa: E402
+import bundle_adjustment_tpu_torch.config as tcfg  # noqa: E402
+from bundle_adjustment_tpu_torch import convert  # noqa: E402
+from bundle_adjustment_tpu_torch.models.pipeline import VisualOdometryPipeline  # noqa: E402
+from bundle_adjustment_tpu_torch.utils import synthetic  # noqa: E402
+from bundle_adjustment_tpu_torch.utils.event_log import EventLog  # noqa: E402
+
+# Several pytest workers share the cores: more torch threads per worker
+# only contend with each other.
+torch.set_num_threads(1)
+
+W, H, LOOP = 320, 240, 600
+FX = 912.7816 * W / 1280          # CAMERA_LEHMAN's focal length at this width
+TIME_KEYS = {"t", "total_ms", "elapsed_s", "wall_ms", "ms"}
+
+
+class JaxDraws:
+    """The JAX pipeline's key schedule from ``key`` on, as the port's
+    ``draws``: split once per sequential RANSAC call, fold_in(PRNGKey(1),
+    frame) for the fused step."""
+
+    def __init__(self, key):
+        self._key = key
+
+    def next(self, shape):
+        self._key, k = jax.random.split(self._key)
+        return torch.as_tensor(np.array(jax.random.uniform(k, shape)))
+
+    def for_frame(self, frame_idx, shape, out=None):
+        k = jax.random.fold_in(jax.random.PRNGKey(1), frame_idx)
+        u = torch.as_tensor(np.array(jax.random.uniform(k, shape)))
+        return u if out is None else out.copy_(u)
+
+
+def room_frames(n: int):
+    """Frames 0..n-1 of a ``LOOP``-frame loop of the room at W x H."""
+    K = np.array([[FX, 0, W / 2], [0, FX, H / 2], [0, 0, 1.0]])
+    planes = synthetic._room_planes(np.random.default_rng(2))
+    return [synthetic.render_frame(K, *synthetic.room_pose(i, LOOP)[:2], planes, W, H,
+                                   depth_sort=True) for i in range(n)]
+
+
+def config(mod, consistent: bool):
+    return dataclasses.replace(
+        mod.preset_lehman_indoor(),
+        camera=mod.CameraModel(fx=FX, fy=FX, cx=W / 2, cy=H / 2, width=W, height=H),
+        num_features=500, consistent_convention=consistent)
+
+
+def port_from(jp, consistent: bool):
+    """A port pipeline holding a copy of the JAX pipeline ``jp``'s state."""
+    tp = VisualOdometryPipeline(config(tcfg, consistent), log=EventLog(echo=False),
+                                device="cpu", draws=JaxDraws(jp._key))
+    tp.map = convert.map_store(jp.map, device="cpu")
+    tp.map.log = tp.log
+    tp.frame_idx, tp._lost_frames = jp.frame_idx, jp._lost_frames
+    tp._last_loop_kf = jp._last_loop_kf
+    tp._front_dirty = True
+    return tp
+
+
+def _close(a, b) -> bool:
+    if isinstance(a, bool) or isinstance(b, bool) or not isinstance(a, (int, float)) \
+            or not isinstance(b, (int, float)):
+        return a == b
+    if isinstance(a, int) and isinstance(b, int):
+        return a == b
+    return abs(a - b) <= 1e-3 + 1e-2 * abs(b)
+
+
+def differences(jres, jevents, tres, tevents) -> list:
+    """How the port's result and events on one frame differ from the JAX
+    pipeline's (empty when they agree); keys only one of them logs, and
+    clock times, are not compared."""
+    out = []
+    for key in ("status", "reason"):
+        if jres.get(key) != tres.get(key):
+            out.append(f"{key}: {jres.get(key)} != {tres.get(key)}")
+    if [e["event"] for e in jevents] != [e["event"] for e in tevents]:
+        out.append(f"events: {[e['event'] for e in jevents]} != {[e['event'] for e in tevents]}")
+        return out
+    for je, te in zip(jevents, tevents):
+        for k in sorted((je.keys() & te.keys()) - TIME_KEYS):
+            if not _close(je[k], te[k]):
+                out.append(f"{je['event']}.{k}: {je[k]} != {te[k]}")
+    return out
+
+
+def step_drive(frames, consistent: bool):
+    """The JAX pipeline over ``frames``; before each, the port from its
+    state.  Returns (JAX pipeline, [(frame, differences)])."""
+    jp = JaxPipeline(config(jcfg, consistent), log=JaxEventLog(echo=False),
+                     use_pallas_matcher=False)
+    steps = []
+    for i, f in enumerate(frames):
+        tp = port_from(jp, consistent)
+        n0 = len(jp.log.events)
+        jres = jp.process_frame(f)
+        tres = tp.process_frame(f)
+        steps.append((i, differences(jres, jp.log.events[n0:], tres, tp.log.events)))
+    return jp, steps
+
+
+def test_each_frame_from_the_jax_state_reference_convention():
+    frames = room_frames(13)
+    jp, steps = step_drive(frames, consistent=False)
+    assert [d for _, d in steps] == [[]] * len(frames), [s for s in steps if s[1]]
+    triggers = [e["reason"] for e in jp.log.events if e["event"] == "keyframe_trigger"]
+    assert triggers[:3] == ["Initialization", "Rotation", "Parallax"]
+
+
+def tally(pipe) -> dict:
+    ev = pipe.log.events
+
+    def count(event, key):
+        out = {}
+        for e in ev:
+            if e["event"] == event:
+                out[e[key]] = out.get(e[key], 0) + 1
+        return out
+
+    relocs = [e for e in ev if e["event"] == "relocalization"]
+    return dict(keyframes=pipe.map.num_keyframes, statuses=count("frame_timing", "status"),
+                triggers=count("keyframe_trigger", "reason"),
+                relocalizations=f"{sum(e['success'] for e in relocs)}/{len(relocs)}",
+                loop_reject=count("loop_reject", "stage"),
+                closures=sum(e["event"] == "loop_closure" for e in ev))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="the room drive, JAX against the port, "
+                                             "frame by frame from the same state")
+    ap.add_argument("--frames", type=int, default=150)
+    ap.add_argument("--convention", choices=("reference", "consistent"), default="reference")
+    args = ap.parse_args(argv)
+    jax.config.update("jax_platforms", "cpu")
+    consistent = args.convention == "consistent"
+    frames = room_frames(args.frames)
+    jp, steps = step_drive(frames, consistent)
+    agree = [i for i, d in steps if not d]
+    decided = [i for i, d in steps if not any(x.split(":")[0] in ("status", "reason", "events")
+                                               for x in d)]
+    print(f"{args.frames} room frames at {W}x{H}, {args.convention} convention: the port "
+          f"from the JAX state decides as it (status, trigger, events) on {len(decided)} of "
+          f"{len(steps)} frames, and agrees in every number too on {len(agree)}")
+    for i, d in steps:
+        if d:
+            print(f"  frame {i}: " + "; ".join(d))
+    tp = VisualOdometryPipeline(config(tcfg, consistent), log=EventLog(echo=False),
+                                device="cpu", draws=JaxDraws(jax.random.PRNGKey(0)))
+    for f in frames:
+        tp.process_frame(f)
+    print(f"free runs: JAX {tally(jp)}")
+    print(f"           port {tally(tp)}")
+
+
+if __name__ == "__main__":
+    main()

@@ -129,10 +129,23 @@ def test_wrappers_take_the_plain_path_only_for_cpu_tensors():
         ba_global_kernel.solve(g, n_fixed=1)
 
 
+@pytest.mark.parametrize("change", [
+    dict(reloc_enabled=True), dict(cull_enabled=True), dict(loop_closure=True),
+    dict(reloc_enabled=True, cull_enabled=True, loop_closure=True),
+], ids=["reloc_enabled", "cull_enabled", "loop_closure", "all-three"])
+def test_lehman_indoor_switches_build(change):
+    """Relocalization, culling and loop closure are ported: each switch,
+    and the three together, build a pipeline on the CPU, and the card is
+    the default."""
+    cfg = dataclasses.replace(PipelineConfig(camera=CAM), **change)
+    assert pipeline._unported(cfg, torch.device("cuda")) is None
+    pipe = pipeline.VisualOdometryPipeline(cfg, device="cpu")
+    assert pipe._last_loop_kf < 0 and pipe.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="cuda"):
+        pipeline.VisualOdometryPipeline(cfg)
+
+
 @pytest.mark.parametrize("change,needs", [
-    (dict(reloc_enabled=True), "relocalize"),
-    (dict(cull_enabled=True), "cull"),
-    (dict(loop_closure=True), "loop_closure"),
     (dict(mesh_shape=(2, 1)), "parallel"),
     (dict(features_source="cv2"), "cv2"),
     (dict(debug=True), "viz"),

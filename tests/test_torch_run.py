@@ -10,6 +10,8 @@
   the five row filters, and reads a PNG folder with cv2 hidden; video and
   other images raise naming cv2 where it is hidden;
 - the CLI's flags whose module is not ported raise naming it;
+- ``--checkpoint`` writes a checkpoint after the frame loop and resumes from
+  it, skipping the frames consumed, to the straight run's trajectory;
 - ``read_pcd`` reads back what ``write_pcd`` writes, as the JAX package's
   reader does;
 - ``TrackStep`` refuses uniforms that are not its static buffer.
@@ -151,7 +153,7 @@ def test_read_pcd_round_trips_write_pcd(tmp_path, binary, with_colors):
 
 @pytest.mark.parametrize("flag,needs", [
     (["--debug"], "viz"), (["--features-from-cv2"], "cv2"), (["--mesh", "2"], "parallel"),
-    (["--multihost"], "parallel"), (["--checkpoint", "ck.npz"], "checkpoint"),
+    (["--multihost"], "parallel"),
 ])
 def test_unported_flags_raise_by_name(tmp_path, flag, needs):
     with pytest.raises(NotImplementedError, match=needs):
@@ -247,3 +249,28 @@ def test_cli_pipelined_equals_sequential(png_folder, tmp_path):
     status = [[e["status"] for e in read_events(os.path.join(out, "events.jsonl"))
                if e["event"] == "frame_timing"] for out in outs]
     assert status[0] == status[1] and len(status[0]) == 9
+
+
+def test_checkpoint_flag_writes_and_resumes(png_folder, tmp_path):
+    """The CLI over the first 5 frames with ``--checkpoint`` writes it; over
+    all 9 it resumes, skips the 5 and ends where a straight run ends."""
+    folder, K = png_folder
+    head = tmp_path / "head"
+    head.mkdir()
+    for name in sorted(os.listdir(folder))[:5]:
+        os.symlink(os.path.join(folder, name), head / name)
+    args = ["--device", "cpu", "--features", "500", "--size", f"{W}x{H}", "--fx", str(K[0, 0]),
+            "--cx", str(K[0, 2]), "--cy", str(K[1, 2])]
+    ck = str(tmp_path / "state.npz")
+    first = run.main(args + ["--images", str(head), "--out", str(tmp_path / "a"),
+                             "--checkpoint", ck])
+    assert os.path.exists(ck) and first["frames"] == 5 and first["resumed_frames"] == 0
+    resumed = run.main(args + ["--images", folder, "--out", str(tmp_path / "b"),
+                               "--checkpoint", ck])
+    assert resumed["frames"] == 4 and resumed["resumed_frames"] == 5
+    straight = run.main(args + ["--images", folder, "--out", str(tmp_path / "c")])
+    for key in ("num_keyframes", "num_points", "num_observations"):
+        assert resumed[key] == straight[key], key
+    with open(tmp_path / "b" / "trajectory.txt") as fb, \
+            open(tmp_path / "c" / "trajectory.txt") as fc:
+        assert fb.read() == fc.read()
