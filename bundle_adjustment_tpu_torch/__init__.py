@@ -15,6 +15,10 @@ counterpart that a reader can find:
                 the frame-pipeline orchestrator.
 - ``utils``   — event log, PCD writer, trajectory metrics, a numpy-only
                 synthetic renderer.
+- ``parallel`` — torch.distributed: the device mesh, the point-sharded
+                Schur BA, window consensus, sharded and ring matching.
+- ``native``  — the C++ host runtime (``csrc/ba_host.cpp``, built with g++
+                at first use): the observation table's mirror, voxel export.
 - ``convert`` — carries JAX-side state (as numpy) into the port's tensors.
 
 The package imports torch and numpy only.  Every entry point takes an

@@ -88,6 +88,7 @@ def map_store(jmap, device="cuda") -> Map:
     for name in _MAP_ARRAYS:
         setattr(m, name, np.array(getattr(jmap, name)))
     m._n_pts, m._n_obs = int(jmap._n_pts), int(jmap._n_obs)
+    m.refill_native()
     m.next_keyframe_id = int(jmap.next_keyframe_id)
     m.next_map_point_id = int(jmap.next_map_point_id)
     return m

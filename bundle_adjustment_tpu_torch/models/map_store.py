@@ -1,7 +1,13 @@
 """Structure-of-arrays world model: keyframes, map points, observations
-(port of ``bundle_adjustment_tpu.models.map_store`` with the numpy
-observation table only, like ``Map(use_native=False)``; the ctypes native
-mirror is not ported yet).
+(port of ``bundle_adjustment_tpu.models.map_store``).
+
+The numpy observation table is the source of truth.  With ``use_native``
+(the default, as in the JAX package) a C++ mirror of it
+(``native.NativeObsTable``) holds a per-keyframe row index, and
+``gather_window`` reads a window's rows from it instead of scanning the
+whole table.  Every method that changes the table updates the mirror;
+``refill_native`` rebuilds it from the arrays after they were set directly
+(a checkpoint restore, ``convert.map_store``).
 
 Points die by culling (``cull_points``) and by loop-closure fusion
 (``merge_points``); their observations die with them, and every reader of
@@ -24,6 +30,7 @@ import numpy as np
 import torch
 
 from bundle_adjustment_tpu_torch import device as device_mod
+from bundle_adjustment_tpu_torch import native
 from bundle_adjustment_tpu_torch.ops import ba
 from bundle_adjustment_tpu_torch.ops.lie import so3_exp_np, so3_log_np
 
@@ -56,10 +63,13 @@ class Keyframe:
 
 
 class Map:
-    """The world model: host numpy arrays, descriptor banks on ``device``."""
+    """The world model: host numpy arrays, descriptor banks on ``device``;
+    with ``use_native`` the C++ mirror of the observation table (its build
+    failing raises)."""
 
-    def __init__(self, device="cuda"):
+    def __init__(self, device="cuda", use_native: bool = True):
         self.device = device_mod.resolve(device)
+        self._native = native.NativeObsTable() if use_native else None
         self.keyframes: dict[int, Keyframe] = {}
         self.next_keyframe_id = 0
         self.next_map_point_id = 0
@@ -145,6 +155,8 @@ class Map:
         dead = np.zeros(self._n_pts, bool)
         dead[mp_ids] = True
         self._obs_alive[: self._n_obs][dead[self._obs_mp[: self._n_obs]]] = False
+        if self._native is not None:
+            self._native.kill_mps(np.flatnonzero(dead))
         for kf in self.keyframes.values():
             kf.kp_to_mp[dead[kf.kp_to_mp] & (kf.kp_to_mp >= 0)] = -1
 
@@ -181,6 +193,21 @@ class Map:
         self._obs_alive[sl] = True
         self._n_obs += n
         self.keyframes[kf_id].kp_to_mp[kp_idxs] = mp_ids
+        if self._native is not None:
+            self._native.append(np.full(n, kf_id, np.int64), mp_ids, kp_idxs, uvs)
+
+    def refill_native(self):
+        """Rebuild the C++ mirror from the numpy table (after its arrays were
+        set directly, as a checkpoint restore does)."""
+        if self._native is None:
+            return
+        n = self._n_obs
+        self._native = native.NativeObsTable()
+        self._native.append(self._obs_kf[:n], self._obs_mp[:n], self._obs_kp[:n],
+                            self._obs_uv[:n])
+        dead = np.flatnonzero(~self._obs_alive[:n])
+        if len(dead):
+            self._native.kill_rows(dead)
 
     @property
     def num_observations(self) -> int:
@@ -232,6 +259,8 @@ class Map:
         # keyframes with a row of src_mp (live or dead) can point at it
         self._pt_alive[src_mp] = False
         self._obs_alive[rows] = False
+        if self._native is not None:
+            self._native.kill_rows(rows)
         for k in np.unique(self._obs_kf[rows]):
             kp_to_mp = self.keyframes[int(k)].kp_to_mp
             kp_to_mp[kp_to_mp == src_mp] = -1
@@ -263,9 +292,16 @@ class Map:
         for i, k in enumerate(window_kf_ids):
             kf_pos.setdefault(k, i)
 
-        alive = self._obs_alive[: self._n_obs]
-        in_win = np.isin(self._obs_kf[: self._n_obs], window_kf_ids) & alive
-        obs_rows = np.flatnonzero(in_win)
+        if self._native is not None:
+            # each keyframe once: the mirror returns a keyframe's rows as many
+            # times as it is named, and a repeat-padded window names its last
+            # keyframe again (the JAX package passes the window as it is, and
+            # its gather repeats those rows when the table has room for them)
+            obs_rows = np.sort(self._native.gather_window(np.unique(window_kf_ids)))
+        else:
+            alive = self._obs_alive[: self._n_obs]
+            in_win = np.isin(self._obs_kf[: self._n_obs], window_kf_ids) & alive
+            obs_rows = np.flatnonzero(in_win)
         okf = self._obs_kf[obs_rows]
         omp = self._obs_mp[obs_rows]
         ouv = self._obs_uv[obs_rows]
@@ -330,6 +366,8 @@ class Map:
         """Remove observation-table rows (post-BA outlier pruning) and clear
         the kp->mp back-pointers they set."""
         self._obs_alive[obs_rows] = False
+        if self._native is not None:
+            self._native.kill_rows(obs_rows)
         for r in obs_rows:
             kf = self.keyframes[self._obs_kf[r]]
             if kf.kp_to_mp[self._obs_kp[r]] == self._obs_mp[r]:

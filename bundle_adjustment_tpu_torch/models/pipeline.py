@@ -26,7 +26,13 @@ solver.  A window above ``pcg_min_cameras`` cameras (global and full BA over
 a long chain) takes the matrix-free PCG camera solve: on the card the
 global-BA kernels (``ops/ba_global_kernel``), elsewhere the grid PCG solver
 (``_solve_pcg``).  The shape is the only gate: a kernel that fails to build
-or launch raises.  Configurations that need a module not ported yet raise
+or launch raises.  With ``mesh_shape`` over more than one rank every BA
+window is point-sharded over the ranks of torch.distributed
+(``_solve_sharded``, ``parallel/dist_ba``) before K3 and K4 are considered,
+as in the JAX package; a world with fewer ranks than ``mesh_shape`` asks
+for raises.  ``run_partitioned_global_ba`` solves overlapping windows on a
+("win", "pt") mesh with sim(3) consensus.  Configurations that need a
+module not ported yet (the cv2 features, ``debug``) raise
 ``NotImplementedError`` naming it; none of them quietly takes another path.
 
 Random draws: the JAX pipeline draws RANSAC sample uniforms from
@@ -52,11 +58,13 @@ from bundle_adjustment_tpu_torch.config import PipelineConfig
 from bundle_adjustment_tpu_torch.models import frontend, loop_closure, relocalize
 from bundle_adjustment_tpu_torch.models.keyframe import decide_from_metrics, decide_keyframe
 from bundle_adjustment_tpu_torch.models.map_store import Keyframe, Map
+from bundle_adjustment_tpu_torch.native import voxel_downsample_native
 from bundle_adjustment_tpu_torch.ops import (ba, ba_global_kernel, ba_grid, ba_kernel, hamming, orb,
                                              ransac,
                                              triangulation)
 from bundle_adjustment_tpu_torch.ops.lie import rotation_angle, so3_exp_np, so3_hat, so3_log_np
 from bundle_adjustment_tpu_torch.ops.projection import epipolar_errors_px
+from bundle_adjustment_tpu_torch.parallel import dist_ba, mesh as mesh_mod
 from bundle_adjustment_tpu_torch.utils.event_log import EventLog
 from bundle_adjustment_tpu_torch.utils.io import write_pcd
 
@@ -95,14 +103,12 @@ class Draws:
 def _unported(cfg: PipelineConfig, dev: torch.device) -> Optional[str]:
     """The first configuration switch the port cannot run yet, with what
     it needs, or None."""
-    if tuple(cfg.mesh_shape) != (1, 1):
-        return "mesh_shape != (1, 1) needs parallel/ (dist_ba), not ported yet"
     if cfg.features_source != "orb_tpu":
-        return f"features_source={cfg.features_source!r} needs the cv2 feature path, not ported"
+        return (f"features_source={cfg.features_source!r} needs the cv2 feature path "
+                "(ROADMAP Queue 1 item 9), not ported yet")
     if cfg.debug:
-        return "debug=True needs utils/viz (matplotlib/cv2 plots), not ported yet"
-    if cfg.export_voxel > 0:
-        return "export_voxel > 0 needs the native voxel downsampler, not ported yet"
+        return ("debug=True needs utils/viz (matplotlib/cv2 plots, ROADMAP Queue 1 item 9), "
+                "not ported yet")
     return None
 
 
@@ -159,6 +165,14 @@ class VisualOdometryPipeline:
         why = _unported(config, self.device)
         if why is not None:
             raise NotImplementedError(why)
+        n_ranks = int(np.prod(config.mesh_shape))
+        if n_ranks > mesh_mod.world_size():
+            # the JAX package takes the single-device solve when it has too
+            # few devices; that would hide that the sharded path never ran
+            raise ValueError(f"mesh_shape={tuple(config.mesh_shape)} asks for {n_ranks} ranks; "
+                             f"the world has {mesh_mod.world_size()} (torch.distributed "
+                             f"{'is' if torch.distributed.is_initialized() else 'is not'} "
+                             "initialized)")
         if self.device.type == "cuda":
             device_mod.set_float32_numerics()
         self.cfg = config
@@ -175,6 +189,9 @@ class VisualOdometryPipeline:
         self._front_state = None
         self._front_state_kf = -1
         self._front_dirty = False
+        #: the ("win", "pt") mesh of the point-sharded window solves, made
+        #: at the first one when ``mesh_shape`` asks for more than one rank
+        self._mesh = None
         #: reads of device tensors on the host made by this object
         self.host_reads = 0
 
@@ -795,6 +812,95 @@ class VisualOdometryPipeline:
         return self._solve_window(window, all_ids, global_ba=global_ba,
                                   refine_kf_id=refine_kf_id)
 
+    def partition_problems(self, window_kf_ids, n_pt: int):
+        """The window problems of ``run_partitioned_global_ba``: each window
+        repeat-padded and gathered at the full capacities, in the shard
+        layout for ``n_pt`` point shards when that is more than one, all of
+        one shape (every shard padded to the fullest shard of any window,
+        where the JAX package gives up on the partition and runs the full
+        BA).  Returns (problems, mp_ids per window), or None when a window
+        has nothing to solve."""
+        problems, mp_lists = [], []
+        for ids in window_kf_ids:
+            uniq = list(dict.fromkeys(int(k) for k in ids))
+            gathered = self.map.gather_window(
+                uniq + [uniq[-1]] * (len(ids) - len(uniq)), self.K, self.cfg.ba.max_points,
+                self.cfg.ba.max_obs, pad_to_max=True)
+            if gathered is None:
+                return None
+            problems.append(gathered[0])
+            mp_lists.append(gathered[1])
+        if n_pt > 1:
+            cap = -(-self.cfg.ba.max_obs // n_pt)
+            for _ in range(2):   # the second pass pads every window to the fullest shard
+                sharded = [dist_ba.shard_problem(p, n_pt, min_obs_capacity=cap)
+                           for p in problems]
+                cap = max(p.uv.shape[0] // n_pt for p in sharded)
+            problems = sharded
+        return problems, mp_lists
+
+    def run_partitioned_global_ba(self, n_windows: int, mesh=None, overlap: int = 2,
+                                  consensus_rounds: int = 1) -> Optional[dict]:
+        """Global BA as ``n_windows`` overlapping keyframe windows solved at
+        once over a ("win", "pt") mesh of ranks, then reconciled by the sim(3)
+        pose-graph consensus (``parallel/dist_ba.solve_windows_consensus``);
+        every rank of the world calls it and ends with the same map.  The
+        default mesh puts ``world // n_windows`` ranks on "pt".  Each window's
+        points are mapped by its sim(3) into the global frame and written
+        back, the first window that holds a point winning.
+        ``consensus_rounds`` > 1 solves again from the reconciled poses."""
+        all_ids = self.map.sorted_kf_ids()
+        if len(all_ids) < n_windows * 2:
+            self.log.lba_skipped("Not enough keyframes for partitioned BA.")
+            return None
+        if mesh is None:
+            mesh = mesh_mod.make_mesh(n_windows, max(mesh_mod.world_size() // n_windows, 1),
+                                      self.device.type)
+        shape = mesh_mod.shape(mesh)
+        parts = dist_ba.partition_windows(len(all_ids), n_windows, overlap)
+        window_kf_ids = [np.asarray(all_ids)[w] for w in parts]
+
+        t0 = time.perf_counter()
+        result = None
+        for rnd in range(max(1, consensus_rounds)):
+            gathered = self.partition_problems(window_kf_ids, shape["pt"])
+            if gathered is None:
+                self.log.lba_skipped("Empty window in partitioned BA.")
+                return None
+            problems, mp_lists = gathered
+            poses, sim3s, (rvs, tvs, ptss, stats) = dist_ba.solve_windows_consensus(
+                problems, window_kf_ids, mesh,
+                n_fixed=max(1, min(self.cfg.ba.n_fixed, len(window_kf_ids[0]) - 1)),
+                max_iterations=self.cfg.ba.max_iterations,
+                huber_delta=self.cfg.ba.huber_delta)
+
+            for kf_id, (rv, tv) in poses.items():
+                kf = self.map.keyframes[int(kf_id)]
+                kf.R = so3_exp_np(np.asarray(rv, np.float64))
+                kf.t = np.asarray(tv, np.float64)
+            written = set()
+            for w, mp_ids in enumerate(mp_lists):
+                s, Rg, tg = sim3s[w]
+                pts_w = ptss[w].reshape(-1, 3)[: len(mp_ids)]
+                pts_w = (s * pts_w) @ np.asarray(Rg).T + np.asarray(tg)
+                fresh = [i for i, mp in enumerate(mp_ids) if mp not in written]
+                if fresh:
+                    self.map._pts[mp_ids[fresh]] = pts_w[fresh]
+                    written.update(int(mp_ids[i]) for i in fresh)
+
+            self._front_dirty = True
+            init = float(np.sum(stats.initial_sq))
+            final = float(np.sum(stats.final_sq))
+            result = {"diverged": False, "initial": init, "final": final,
+                      "windows": n_windows, "mesh": shape, "rounds": rnd + 1}
+
+        elapsed = time.perf_counter() - t0
+        result["elapsed_s"] = elapsed
+        self.log.lba(all_ids[-1], result["initial"], result["final"],
+                     int(np.max(stats.iterations)), result["final"] >= result["initial"],
+                     elapsed, global_ba=True)
+        return result
+
     def run_full_ba(self, max_iterations: Optional[int] = None) -> Optional[dict]:
         """Full BA over all keyframes, the newest included."""
         all_ids = self.map.sorted_kf_ids()
@@ -802,6 +908,13 @@ class VisualOdometryPipeline:
             return None
         return self._solve_window(all_ids, all_ids, global_ba=True,
                                   max_iterations=max_iterations)
+
+    def _grid(self, problem):
+        """The grid layout of ``problem``, its capacity drops logged."""
+        return ba_grid.from_flat(problem, on_drop=lambda n: self.log.emit(
+            "capacity_drop",
+            f"    -> Grid layout dropped {n} observations (max_slots cap)",
+            dropped_obs=int(n)))
 
     def _solve_window(self, window, all_ids, global_ba: bool = False,
                       refine_kf_id: Optional[int] = None,
@@ -832,16 +945,19 @@ class VisualOdometryPipeline:
             xtol=self.cfg.ba.xtol,
         )
         t0 = time.perf_counter()
-        grid = ba_grid.from_flat(problem, on_drop=lambda n: self.log.emit(
-            "capacity_drop",
-            f"    -> Grid layout dropped {n} observations (max_slots cap)",
-            dropped_obs=int(n)))
-        if len(window) > self.cfg.ba.pcg_min_cameras:
+        n_pt = int(np.prod(self.cfg.mesh_shape))
+        if n_pt > 1:
+            rv, tv, pts, stats, bad_mask = self._solve_sharded(
+                problem, n_fixed, n_pt, len(window), solver_kwargs)
+            if refine_kf_id is not None:
+                self._refine_pose_only(refine_kf_id)
+        elif len(window) > self.cfg.ba.pcg_min_cameras:
             rv, tv, pts, stats, bad_mask = self._solve_pcg(
-                grid, problem, n_fixed, len(window), solver_kwargs)
+                self._grid(problem), problem, n_fixed, len(window), solver_kwargs)
             if refine_kf_id is not None:
                 self._refine_pose_only(refine_kf_id)
         else:
+            grid = self._grid(problem)
             refine_problem = None
             if refine_kf_id is not None:
                 g2 = self.map.gather_window([refine_kf_id], self.K,
@@ -956,6 +1072,31 @@ class VisualOdometryPipeline:
             else:
                 rv, tv, pts, stats = ba_grid.ba_solve_grid_impl(
                     grid, cg_forcing=True, cg_precond_group=cfg.cg_precond_group, **kw)
+        return self._host_result(problem, rv, tv, pts, stats)
+
+    def _solve_sharded(self, problem, n_fixed: int, n_pt: int, n_cams: int,
+                       solver_kwargs: dict):
+        """``mesh_shape`` over more than one rank: the point-sharded Schur
+        solve (``parallel/dist_ba``), taken before K3 and K4 as the JAX
+        package orders it.  Every rank of the (1, n_pt) mesh solves its
+        shard of the points with the cameras replicated, the camera system
+        summed over the ranks; eagerly, since a CUDA graph cannot capture a
+        gloo collective.  Above ``pcg_min_cameras`` cameras the camera
+        system is solved by the flat matrix-free PCG, one ``all_reduce`` per
+        CG iteration.  Returns what ``_solve_pcg`` returns."""
+        if self._mesh is None:
+            self._mesh = mesh_mod.make_mesh(1, n_pt, self.device.type)
+        kw = dict(solver_kwargs, n_fixed=n_fixed)
+        if n_cams > self.cfg.ba.pcg_min_cameras:
+            kw.update(cg_iters=self.cfg.ba.cg_iters, cg_tol=self.cfg.ba.cg_tol)
+        rv, tv, pts, stats = dist_ba.ba_solve_sharded(
+            dist_ba.shard_problem(problem, n_pt), self._mesh, "pt", **kw)
+        # the shard layout keeps every point at its index (blocks of P / n_pt)
+        return self._host_result(problem, rv, tv, pts[: problem.points.shape[0]], stats)
+
+    def _host_result(self, problem, rv, tv, pts, stats):
+        """A solve's (rvecs, tvecs, points, stats) and its post-BA outlier
+        mask over the observations, on the host."""
         if self.cfg.prune_obs_reproj_px > 0:
             r = ba._residuals(rv, tv, pts, problem)
             bad = (problem.obs_mask > 0) & (torch.linalg.norm(r, dim=1)
@@ -986,6 +1127,8 @@ class VisualOdometryPipeline:
         pts, colors = self.map.get_pcd()
         os.makedirs(out, exist_ok=True)
         if len(pts):
+            if self.cfg.export_voxel > 0:
+                pts, colors = voxel_downsample_native(pts, colors, self.cfg.export_voxel)
             write_pcd(os.path.join(out, "final_map_global_ba.pcd"), pts, colors)
 
         traj = self.map.trajectory(self.cfg.consistent_convention)

@@ -12,8 +12,15 @@ nothing on the host; the matrix-free PCG camera solve
 updates masked once the residual test holds, as the reference's
 ``while_loop`` stops, and reads nothing on the host.
 
-Not ported: the ``axis_name`` hook of the sharded solver, which raises
-``NotImplementedError``.
+The point-sharded solve (``parallel/dist_ba``) passes a process group in
+place of the reference's ``axis_name``: each rank holds a shard of the
+points and their observations, the cameras are replicated, and every
+quantity the reference psums (the camera blocks and gradient, the reduced
+system or its matvec, the costs and the point terms of the step norms) is
+summed over the group by ``all_reduce``, so every rank takes the same LM
+decisions.  With ``group=None`` nothing is reduced and the solve is the
+single-rank one, bit for bit.  The collectives run eagerly: a CUDA graph
+cannot capture one of gloo's.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from bundle_adjustment_tpu_torch.ops.lie import so3_exp, so3_exp_and_jac
 
@@ -62,6 +70,16 @@ def _segment_sum(x, idx, n):
     if x.device.type == "cpu":
         return out.index_add_(0, idx.long(), x)
     return out.index_put_((idx.long(),), x, accumulate=True)
+
+
+def _psum(x, group):
+    """``x`` summed over the ranks of ``group`` (``x`` itself for None);
+    ``x`` is a temporary that the reduction overwrites."""
+    if group is None:
+        return x
+    x = x.contiguous()
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    return x
 
 
 def _residuals(rvecs, tvecs, points, p: BAProblem):
@@ -208,8 +226,13 @@ def _pcg_blocked(matvec, b, Minv, iters, tol, live=None):
 
 
 def _solve_normal_equations(rvecs, tvecs, points, p: BAProblem, lam, delta, n_fixed,
-                            cg_iters: int = 0, cg_tol: float = 1e-6):
+                            cg_iters: int = 0, cg_tol: float = 1e-6, group=None):
     """One damped Schur step: returns (d_rvecs, d_tvecs, d_points).
+
+    With ``group`` the points and observations are this rank's shard and the
+    cameras replicated: the point blocks stay local and only the camera
+    system (U, g_c, W V^-1 g_p, and S or each matvec's W V^-1 W^T x and the
+    preconditioner's blocks) is summed over the group.
 
     ``cg_iters`` = 0 solves the reduced camera system densely (the
     (P, C_adj, 6, 3) coupling tensor and a (6C')^2 matrix: right for
@@ -242,16 +265,16 @@ def _solve_normal_equations(rvecs, tvecs, points, p: BAProblem, lam, delta, n_fi
     gc_o = torch.einsum("oki,ok->oi", Jc_w, r)
     gp_o = torch.einsum("oki,ok->oi", Jp_w, r)
 
-    U = _damp(_segment_sum(U_o, cam_adj_c, nC), lam)
+    U = _damp(_psum(_segment_sum(U_o, cam_adj_c, nC), group), lam)
     V = _damp(_segment_sum(V_o, pi, P), lam)
-    g_c = _segment_sum(gc_o, cam_adj_c, nC)
+    g_c = _psum(_segment_sum(gc_o, cam_adj_c, nC), group)
     g_p = _segment_sum(gp_o, pi, P)
     Vinv = _inv3(V)
     Vinv = torch.where(p.point_mask[:, None, None], Vinv, torch.zeros_like(Vinv))
 
     z_p = torch.einsum("pij,pj->pi", Vinv, g_p)
     Wz_o = torch.einsum("oij,oj->oi", Y_o, z_p[pi])
-    b_blocks = -g_c + _segment_sum(Wz_o, cam_adj_c, nC)
+    b_blocks = -g_c + _psum(_segment_sum(Wz_o, cam_adj_c, nC), group)
 
     if cg_iters > 0:
         # Y_o rows of gauge-fixed cameras are zero (Jc was masked), so the
@@ -260,20 +283,22 @@ def _solve_normal_equations(rvecs, tvecs, points, p: BAProblem, lam, delta, n_fi
             y_o = torch.einsum("oij,oi->oj", Y_o, x[cam_adj_c])
             z = torch.einsum("pij,pj->pi", Vinv, _segment_sum(y_o, pi, P))
             w_o = torch.einsum("oij,oj->oi", Y_o, z[pi])
-            return torch.einsum("cij,cj->ci", U, x) - _segment_sum(w_o, cam_adj_c, nC)
+            return torch.einsum("cij,cj->ci", U, x) - _psum(_segment_sum(w_o, cam_adj_c, nC),
+                                                            group)
 
         # block-Jacobi preconditioner: the exact 6x6 diagonal blocks of S (a
         # camera sees a point through at most one observation)
         D_o = torch.einsum("oij,ojk,olk->oil", Y_o, Vinv[pi], Y_o)
         eye6 = torch.eye(6, dtype=U.dtype, device=U.device)
-        Minv = torch.linalg.inv_ex(U - _segment_sum(D_o, cam_adj_c, nC) + 1e-8 * eye6)[0]
+        Minv = torch.linalg.inv_ex(U - _psum(_segment_sum(D_o, cam_adj_c, nC), group)
+                                   + 1e-8 * eye6)[0]
         dc_blocks = _pcg_blocked(matvec, b_blocks, Minv, cg_iters, cg_tol)
     else:
         # dense Schur complement S = blockdiag(U) - W V^-1 W^T
         B = torch.zeros((P, nC, 6, 3), dtype=U.dtype, device=U.device)
         B.index_put_((pi, cam_adj_c), Y_o * cam_ok.to(U.dtype), accumulate=True)
         BV = torch.einsum("pcik,pkl->pcil", B, Vinv)
-        S = -torch.einsum("pcil,pdjl->cidj", BV, B).reshape(n, n)
+        S = -_psum(torch.einsum("pcil,pdjl->cidj", BV, B), group).reshape(n, n)
         idx = torch.arange(nC, device=U.device)
         Ublock = torch.zeros((nC, 6, nC, 6), dtype=U.dtype, device=U.device)
         Ublock[idx, :, idx, :] = U
@@ -294,10 +319,13 @@ def _solve_normal_equations(rvecs, tvecs, points, p: BAProblem, lam, delta, n_fi
 
 
 def _lm_iteration(step, cost_at, rv, tv, pt, lam, cost, b0, blast, *, lambda_up,
-                  lambda_down, lambda_min, lambda_max, ftol, xtol, cg_tol, cg_forcing):
+                  lambda_down, lambda_min, lambda_max, ftol, xtol, cg_tol, cg_forcing,
+                  group=None):
     """One LM iteration of ``lm_loop``: the step, the trial cost,
     accept/reject, lambda and the stop flag.  Returns the new (rv, tv, pt,
-    lam, cost, b0, blast) and ``stop`` (converged or stuck), all tensors."""
+    lam, cost, b0, blast) and ``stop`` (converged or stuck), all tensors.
+    With ``group`` the points are this rank's shard: their terms of the step
+    and parameter norms are summed over it (the cameras are replicated)."""
     if cg_tol is None:
         d_r, d_t, d_p = step(rv, tv, pt, lam)
     else:
@@ -317,9 +345,9 @@ def _lm_iteration(step, cost_at, rv, tv, pt, lam, cost, b0, blast, *, lambda_up,
     new_cost = cost_at(rv2, tv2, pt2)
     accept = new_cost < cost
     step_norm = torch.sqrt(torch.sum(d_r * d_r) + torch.sum(d_t * d_t)
-                           + torch.sum(d_p * d_p))
+                           + _psum(torch.sum(d_p * d_p), group))
     param_norm = torch.sqrt(torch.sum(rv * rv) + torch.sum(tv * tv)
-                            + torch.sum(pt * pt))
+                            + _psum(torch.sum(pt * pt), group))
     converged = accept & (
         ((cost - new_cost) <= ftol * torch.clamp(cost, min=1e-12))
         | (step_norm <= xtol * (param_norm + xtol)))
@@ -335,7 +363,7 @@ def _lm_iteration(step, cost_at, rv, tv, pt, lam, cost, b0, blast, *, lambda_up,
 
 def lm_loop(step, cost_at, sq_at, rv, tv, pt, *, max_iterations, lambda_init,
             lambda_up, lambda_down, lambda_min, lambda_max, ftol, xtol,
-            cg_tol=None, cg_forcing: bool = False, masked: bool = False):
+            cg_tol=None, cg_forcing: bool = False, masked: bool = False, group=None):
     """The LM accept/reject loop shared by the flat and grid solvers (the
     global-BA kernels' solve runs the same iteration as a device body,
     ``ba_global_kernel.GlobalLM``).  ``step(rv, tv, pt, lam) -> (d_r, d_t,
@@ -356,10 +384,12 @@ def lm_loop(step, cost_at, sq_at, rv, tv, pt, *, max_iterations, lambda_init,
     ``max_iterations`` iterations and keeps the state of the last live one
     (each later iteration's updates are masked by the device flag), so the
     result has the bits of the loop that leaves, and ``iterations`` (a
-    device tensor then) counts the live iterations alone."""
+    device tensor then) counts the live iterations alone.  ``group``: the
+    point-sharded solve's process group (``_lm_iteration``); ``cost_at`` and
+    ``sq_at`` then return sums over it."""
     opts = dict(lambda_up=lambda_up, lambda_down=lambda_down, lambda_min=lambda_min,
                 lambda_max=lambda_max, ftol=ftol, xtol=xtol, cg_tol=cg_tol,
-                cg_forcing=cg_forcing)
+                cg_forcing=cg_forcing, group=group)
     init_cost = cost_at(rv, tv, pt)
     init_sq = sq_at(rv, tv, pt)
     lam = torch.full((), lambda_init, dtype=rv.dtype, device=rv.device)
@@ -402,7 +432,7 @@ def ba_solve_impl(
     lambda_max: float = 1e8,
     ftol: float = 1e-5,
     xtol: float = 1e-5,
-    axis_name: str | None = None,
+    group=None,
     cg_iters: int = 0,
     cg_tol: float = 1e-6,
     masked: bool = False,
@@ -412,28 +442,29 @@ def ba_solve_impl(
     divergence-discard rule.  ``cg_iters`` > 0 solves the reduced camera
     system by matrix-free block-Jacobi PCG to the fixed tolerance ``cg_tol``
     (global BA over long keyframe chains).  ``masked``: the LM loop that
-    reads nothing on the host (``lm_loop``), as the pose refine runs it."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "sharded BA (axis_name) needs parallel/dist_ba, not ported yet")
+    reads nothing on the host (``lm_loop``), as the pose refine runs it.
+    ``group``: a process group over which the points and observations are
+    sharded (``parallel/dist_ba.ba_solve_sharded``; the reference's
+    ``axis_name``): every cost and camera-system sum is reduced over it, so
+    each rank returns the same cameras and its own shard's points."""
     p = problem._replace(obs_mask=problem.obs_mask.to(problem.uv.dtype))
 
     def cost_at(rv, tv, pt):
-        return robust_cost(_residuals(rv, tv, pt, p), huber_delta)
+        return _psum(robust_cost(_residuals(rv, tv, pt, p), huber_delta), group)
 
     def sq_at(rv, tv, pt):
         r = _residuals(rv, tv, pt, p)
-        return torch.sum(r * r)
+        return _psum(torch.sum(r * r), group)
 
     def step(rv, tv, pt, lam):
         return _solve_normal_equations(rv, tv, pt, p, lam, huber_delta, n_fixed,
-                                       cg_iters=cg_iters, cg_tol=cg_tol)
+                                       cg_iters=cg_iters, cg_tol=cg_tol, group=group)
 
     return lm_loop(step, cost_at, sq_at, p.rvecs, p.tvecs, p.points,
                    max_iterations=max_iterations, lambda_init=lambda_init,
                    lambda_up=lambda_up, lambda_down=lambda_down,
                    lambda_min=lambda_min, lambda_max=lambda_max, ftol=ftol,
-                   xtol=xtol, masked=masked)
+                   xtol=xtol, masked=masked, group=group)
 
 
 ba_solve = ba_solve_impl

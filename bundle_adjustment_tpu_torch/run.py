@@ -20,8 +20,22 @@ paths on a synthetic sequence before the frame loop (``utils/prewarm``).
 to ``OUT/torch_trace.json`` and the device's busy share into the summary.
 ``--checkpoint PATH`` resumes from PATH when it exists (skipping the source
 frames already consumed) and saves the pipeline there after the frame loop,
-before ``finalize`` (``utils/checkpoint``).  Flags whose module is not
-ported raise ``NotImplementedError`` naming it.
+before ``finalize`` (``utils/checkpoint``).
+
+``--mesh N`` shards bundle adjustment's points over N ranks
+(``mesh_shape=(1, N)``, ``parallel/dist_ba``).  ``--multihost`` joins the
+process group of a ``torchrun`` launch (``env://``); every rank runs the
+same frames, each on ``cuda:{LOCAL_RANK % device_count}`` (or the CPU with
+``--device cpu``), and rank 0 writes the outputs (the others finalize into
+a temporary folder that is removed).  The backend is NCCL when every rank
+has a card of its own and gloo when ranks share one (``parallel/mesh``);
+it is printed and kept in ``summary.json`` with the world size and the
+ranks per card:
+
+    torchrun --nproc-per-node 2 -m bundle_adjustment_tpu_torch.run \
+        --multihost --mesh 2 --preset video --images DIR --out OUT
+
+Flags whose module is not ported raise ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -33,6 +47,7 @@ import itertools
 import json
 import os
 import shutil
+import tempfile
 import time
 
 from bundle_adjustment_tpu_torch import config as cfg_mod
@@ -46,10 +61,9 @@ PRESETS = {
 
 #: flags whose module is not ported: flag -> what it needs
 UNPORTED = {
-    "debug": "utils/viz (matplotlib and cv2 plots), not ported yet",
-    "features_from_cv2": "the cv2 feature path (features_source='cv2'), not ported",
-    "mesh": "parallel/ (dist_ba, BA sharded over several cards), not ported yet",
-    "multihost": "parallel/ over several hosts (torch.distributed), not ported yet",
+    "debug": "utils/viz (matplotlib and cv2 plots; ROADMAP Queue 1 item 9), not ported yet",
+    "features_from_cv2": "the cv2 feature path (features_source='cv2'; ROADMAP Queue 1 "
+                         "item 9), not ported yet",
 }
 
 
@@ -83,12 +97,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-clean", action="store_true",
                    help="keep existing output dir contents")
     p.add_argument("--mesh", type=int, default=None, metavar="N",
-                   help="shard BA over N cards (not ported: raises)")
+                   help="shard bundle adjustment's points over N ranks (mesh_shape=(1, N))")
     p.add_argument("--profile", action="store_true",
                    help="run the frame loop under torch.profiler (trace in "
                         "<out>/torch_trace.json, device busy share in the summary)")
     p.add_argument("--multihost", action="store_true",
-                   help="span several hosts (not ported: raises)")
+                   help="join the process group of a torchrun launch (env://); rank 0 "
+                        "writes the outputs")
     p.add_argument("--checkpoint", default=None,
                    help="resume from this checkpoint when it exists, and save to it "
                         "after the frame loop")
@@ -107,6 +122,8 @@ def _config(args) -> cfg_mod.PipelineConfig:
         overrides["consistent_convention"] = True
     if args.features:
         overrides["num_features"] = args.features
+    if args.mesh:
+        overrides["mesh_shape"] = (1, args.mesh)
     if args.fx is not None:
         w, h = cfg.camera.width, cfg.camera.height
         if args.size:
@@ -140,19 +157,40 @@ def main(argv=None) -> dict:
     import torch
 
     from bundle_adjustment_tpu_torch import device as device_mod
+    from bundle_adjustment_tpu_torch.parallel import mesh as mesh_mod
+
+    dist_info = None
+    if args.multihost:
+        device, dist_info = mesh_mod.init_from_env(args.device)
+    else:
+        device = device_mod.resolve(args.device)
+    try:
+        return _run(args, device, dist_info)
+    finally:
+        if dist_info is not None:
+            torch.distributed.destroy_process_group()
+
+
+def _run(args, device, dist_info) -> dict:
+    """``main`` after the device (and under ``--multihost`` the process
+    group) is set up."""
+    import torch
+
     from bundle_adjustment_tpu_torch.models.pipeline import VisualOdometryPipeline
     from bundle_adjustment_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
     from bundle_adjustment_tpu_torch.utils.event_log import EventLog
     from bundle_adjustment_tpu_torch.utils.io import image_folder_frames, prefetch, video_frames
     from bundle_adjustment_tpu_torch.utils.prewarm import prewarm
 
-    device = device_mod.resolve(args.device)
-    cfg = _config(args)
-    if not args.no_clean and os.path.isdir(args.out):
-        shutil.rmtree(args.out)
-    os.makedirs(args.out, exist_ok=True)
+    lead = dist_info is None or dist_info["rank"] == 0
+    # rank 0 writes the outputs; another rank finalizes into a folder of its own
+    out = args.out if lead else tempfile.mkdtemp(prefix=f"rank{dist_info['rank']}_")
+    cfg = dataclasses.replace(_config(args), output_dir=out)
+    if lead and not args.no_clean and os.path.isdir(out):
+        shutil.rmtree(out)
+    os.makedirs(out, exist_ok=True)
 
-    log = EventLog(os.path.join(args.out, "events.jsonl"), echo=True)
+    log = EventLog(os.path.join(out, "events.jsonl"), echo=lead)
     resumed_frames = 0
     if args.checkpoint and os.path.exists(args.checkpoint):
         pipe = load_checkpoint(args.checkpoint, cfg, log=log, device=device)
@@ -197,9 +235,9 @@ def main(argv=None) -> dict:
             torch.cuda.synchronize(device)
         elapsed = time.perf_counter() - t0
 
-    if args.checkpoint:
+    if args.checkpoint and lead:
         save_checkpoint(pipe, args.checkpoint)
-    summary = pipe.finalize(args.out)
+    summary = pipe.finalize(out)
     summary["frames"] = n_frames
     summary["resumed_frames"] = resumed_frames
     summary["elapsed_s"] = round(elapsed, 3)
@@ -208,14 +246,19 @@ def main(argv=None) -> dict:
     summary["track_step"] = {"captures": len(pipe.track.captures),
                              "replays": pipe.track.replays,
                              "capture_s": [round(c["seconds"], 3) for c in pipe.track.captures]}
+    if dist_info is not None:
+        summary["distributed"] = dist_info
     if args.profile:
-        prof.export_chrome_trace(os.path.join(args.out, "torch_trace.json"))
+        prof.export_chrome_trace(os.path.join(out, "torch_trace.json"))
         summary["profile"] = _device_busy(prof, elapsed)
     log.metric("frames_per_s", summary["frames_per_s"], frames=n_frames)
-    with open(os.path.join(args.out, "summary.json"), "w") as f:
+    with open(os.path.join(out, "summary.json"), "w") as f:
         json.dump(summary, f, indent=2)
-    print(json.dumps(summary))
     log.close()
+    if lead:
+        print(json.dumps(summary))
+    else:
+        shutil.rmtree(out)
     return summary
 
 

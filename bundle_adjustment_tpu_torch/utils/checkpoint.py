@@ -128,6 +128,7 @@ def load_checkpoint(path: str, config, log=None, device="cuda",
     m._obs_uv[:n_obs] = z["obs_uv"]
     m._obs_alive[:n_obs] = z["obs_alive"]
     m._n_obs = n_obs
+    m.refill_native()   # the restore bypasses add_observations
 
     if len(z["kf_ids"]):
         descs = torch.as_tensor(z["kf_desc"], device=pipe.device)

@@ -1,5 +1,6 @@
-"""Host I/O: frame sources and PCD point-cloud files (own copy of
-``bundle_adjustment_tpu.utils.io``'s frame sources and PCD reader/writer).
+"""Host I/O: frame sources, PCD point-cloud files and the voxel-grid
+downsample (own copy of ``bundle_adjustment_tpu.utils.io``'s frame sources,
+PCD reader/writer and ``voxel_downsample``).
 
 The machine with the card has no cv2, so image folders of PNG files are
 decoded here with the standard library: ``read_png`` takes 8-bit gray, RGB
@@ -285,3 +286,24 @@ def read_pcd(path: str):
             [(rgb_u32 >> 16) & 0xFF, (rgb_u32 >> 8) & 0xFF, rgb_u32 & 0xFF], axis=1
         ).astype(np.float64) / 255.0
     return points, colors
+
+
+def voxel_downsample(points: np.ndarray, colors: Optional[np.ndarray], voxel: float):
+    """Average points (and colors) per voxel of edge ``voxel``, voxels sorted
+    by their integer coordinates: the numpy version of
+    ``native.voxel_downsample_native``."""
+    if len(points) == 0:
+        return points, colors
+    keys = np.floor(points / voxel).astype(np.int64)
+    _, inv, counts = np.unique(keys, axis=0, return_inverse=True, return_counts=True)
+    inv = inv.reshape(-1)
+    n_vox = counts.shape[0]
+    acc = np.zeros((n_vox, 3))
+    np.add.at(acc, inv, points)
+    out_pts = acc / counts[:, None]
+    out_colors = None
+    if colors is not None:
+        cacc = np.zeros((n_vox, 3))
+        np.add.at(cacc, inv, colors)
+        out_colors = cacc / counts[:, None]
+    return out_pts, out_colors

@@ -10,7 +10,7 @@ Phases, each of which exits non-zero when it fails:
 1. the card's name and power limit, torch and CUDA versions, TF32 flags;
 2. build every CUDA kernel of the port from ``bundle_adjustment_tpu_torch/csrc``
    with nvcc for sm_90a (one nvcc per source, all at once; the four roles of
-   K4 share one source);
+   K4 share one source), and the host runtime ``csrc/ba_host.cpp`` with g++;
 3. K1, the Hamming 2-NN kernel, against its plain PyTorch version on the
    card at 4000 x 4000 (invalid train slots, planted ties) and at a ragged
    size: exact equality; kernel and plain times from CUDA events, the
@@ -74,8 +74,9 @@ Phases, each of which exits non-zero when it fails:
 11. ``preset_lehman_indoor`` as it ships (1280 x 720, 4000 features, 8
    levels, the default ``BAConfig``, relocalization, culling and loop
    closure on), the launch counters set to 0 just before each part and read
-   just after: (a) 600 frames of the room (``synthetic_sequence(motion=
-   "room")``, rendered on the card, written as PNG files) through
+   just after: (a) the first 300 of 600 frames of the room
+   (``synthetic_sequence(motion="room")``, rendered on the card, written as
+   PNG files; all 600 until PR 9, cut for the script's time limit) through
    ``run.main(["--preset", "lehman_indoor", ...])`` with the camera fitted,
    pipelined: per-frame median and p90, frames per second, keyframes, live
    and culled points, relocalizations, ``loop_reject`` counts by stage,
@@ -83,10 +84,12 @@ Phases, each of which exits non-zero when it fails:
    LM iterations and host reads, peak memory; (a2) the same with
    ``--consistent-convention``, as the JAX package's own long-sequence
    harness runs the preset; each run held to ``LEHMAN_BOUNDS`` (keyframes,
-   ATE, closures), and K1's first launch against a bank of more than 8000
-   descriptors held to the plain version exactly; (b) a closure that always
-   happens: the drifted ring of ``tests/test_loop_closure.py`` with as many
-   keyframes as (a) made, 4000 keypoints each, through ``try_close_loop``:
+   ATE, closures), (a2) to the 280 keyframes and 6 closures it made with
+   the numpy observation table (``LEHMAN_DECISIONS``), and K1's first launch
+   against a bank of more than 8000 descriptors held to the plain version
+   exactly; (b) a closure that always happens: the drifted ring of
+   ``tests/test_loop_closure.py`` with as many keyframes as (a) made over
+   600 frames (542), 4000 keypoints each, through ``try_close_loop``:
    anchor 0, the scale within 0.05 of 1/s, points fused, the polish BA
    through K4, whose four roles on the polish's problem are then held
    against their plain versions in float32 and in float64
@@ -96,7 +99,29 @@ Phases, each of which exits non-zero when it fails:
    held to the plain version exactly); (d) the CLI with ``--checkpoint`` and
    ``--consistent-convention`` over the first 450 frames, then over all
    600: keyframe ids, poses and the loop and relocalization events
-   bit-equal to (a2)'s.
+   bit-equal to (a2)'s;
+12. the native observation table and the parallel paths: (a) on phase 9's
+   200-keyframe map and on (a2)'s final map, ``gather_window`` of every
+   window a drive over it runs (each window BA, pose refine and final
+   window) with the C++ mirror and with the numpy table: equal rows,
+   map-point ids and problems, ms per call of both;
+   ``voxel_downsample_native`` equal to ``utils.io.voxel_downsample`` on
+   (a2)'s cloud; a ``finalize`` with ``export_voxel=0.05`` writes the
+   voxelized PCD.  (b) two ranks on the one card (``parallel.launch.
+   run_ranks``; the backend NCCL would refuse two ranks on one device, so
+   gloo): 1. the main path's last window point-sharded, within 1e-3 of the
+   single-rank plain solve, the ranks bit-equal; 2. ``finalize`` of the
+   200-keyframe map with ``mesh_shape=(1, 2)`` (the flat PCG, one
+   ``all_reduce`` per CG iteration) within 1 % of phase 9's costs; 3.
+   ``run_partitioned_global_ba`` over (win 2, pt 1), bit-equal to the two
+   windows solved alone and reconciled on one rank; 4. ``match_sharded``
+   and ``match_ring`` at 4000 x 16,000 equal to one K1 call (rank 1's ring
+   at equal distances), one and two K1 launches per rank; 5. the CLI with
+   ``--multihost --mesh 2`` over phase 6's frames in two ranks: the ranks
+   bit-equal, keyframes and ATE within phase 6's bounds, K1 and K2 through
+   the graph on each rank.  Prints the backend, world size, ranks per card,
+   each part's seconds and the ``all_reduce`` calls per sharded LM
+   iteration.
 
 ``--kernel-times [--tree DIR]`` only builds and times K1, K3 and K4's setup,
 matvec and cost (``kernel_times``: K3 per LM iteration over a sweep of C' and
@@ -105,7 +130,8 @@ on another commit's tree, for comparing two commits in one call.
 
 The line before the last is the kernels' JSON record (``launches``: the
 main path's, phase 6, for K1 to K3 and the global path's, phase 9, for K4;
-``launches_lehman_indoor``: phase 11's run (a)), the line before that the
+``launches_lehman_indoor``: phase 11's run (a); ``launches_parallel``: rank
+0's in phase 12 (b) 4 and 5), the line before that the
 card's name and power limit; the last line is the ``{"ok": true, ...}``
 record.  Imports nothing of JAX.
 """
@@ -1183,9 +1209,17 @@ def keyframe_state(np, pipe) -> tuple:
 #: package's tools/stress.py defaults), and the frames of the checkpointed
 #: first run of (d)
 LEHMAN_FRAMES, LEHMAN_SEED, LEHMAN_HEAD = 600, 2, 450
+#: run (a)'s frames: the first half of the room (the whole script's time
+#: limit), and the drifted ring's keyframes of (b): (a)'s count over all 600
+#: frames (run 8e)
+LEHMAN_A_FRAMES, RING_KEYFRAMES = 300, 542
+#: what (a2) decided with the numpy observation table (run 8e): keyframes and
+#: closures, which the C++ mirror must leave as they were
+LEHMAN_DECISIONS = {"a2": (280, 6)}
 # phase 11's bounds per CLI run: at most so many keyframes, an ATE of at
-# most so many % of the path extent, at least so many loop closures
-LEHMAN_BOUNDS = {"a": (560, 40.0, 0), "a2": (400, 20.0, 1)}
+# most so many % of the path extent, at least so many loop closures ((a)'s
+# keyframes rescaled with its frames: 560 over 600 until PR 9)
+LEHMAN_BOUNDS = {"a": (280, 40.0, 0), "a2": (400, 20.0, 1)}
 
 
 def event_key(e: dict) -> tuple:
@@ -1352,9 +1386,10 @@ def lehman_indoor_phase(torch, np, work: str) -> dict:
         merges.append(time.perf_counter() - t)
         return n
 
-    def cli_drive(tag: str, extra: list, consistent: bool) -> dict:
-        """Run ``tag``: the CLI over the room's frames with ``extra``
-        arguments; prints its numbers and holds it to ``LEHMAN_BOUNDS[tag]``."""
+    def cli_drive(tag: str, extra: list, consistent: bool, argv=argv, n_frames=len(frames)):
+        """Run ``tag``: the CLI over ``n_frames`` of the room with ``extra``
+        arguments; prints its numbers and holds it to ``LEHMAN_BOUNDS[tag]``
+        (and to ``LEHMAN_DECISIONS[tag]``)."""
         Map.merge_points = timed_merge
         merges.clear()
         orig_k1 = recorded(hamming_kernel, "launch", keep_k1(tag))
@@ -1382,7 +1417,7 @@ def lehman_indoor_phase(torch, np, work: str) -> dict:
         closures = [e for e in events if e["event"] == "loop_closure"]
         plain = [e for e in events if e["event"] == "pcg_plain_solver"]
         polish = a["solves"][: a["solves_before_finalize"]]
-        print(f"lehman_indoor ({tag}), the CLI {' '.join(extra)} over {len(frames)} frames, "
+        print(f"lehman_indoor ({tag}), the CLI {' '.join(extra)} over {n_frames} frames, "
               f"pipelined: {summary['frames_per_s']} frames/s over {summary['elapsed_s']} s, "
               f"run.main {a['seconds']:.1f} s; per-frame wall ms median {np.median(fm):.1f}, "
               f"p90 {np.percentile(fm, 90):.1f}, max {fm.max():.1f}; statuses " + ", ".join(
@@ -1420,7 +1455,7 @@ def lehman_indoor_phase(torch, np, work: str) -> dict:
               f"({sorted({e['why'] for e in plain})})"
               + f"; peak device memory {a['peak'] / 2 ** 20:.1f} MiB; host reads "
               f"{summary['host_reads']}; tracked-frame graph {summary['track_step']}")
-        if summary["frames"] != len(frames) or len(ids) < 3 or pipe.map.num_points <= 100:
+        if summary["frames"] != n_frames or len(ids) < 3 or pipe.map.num_points <= 100:
             fail(f"lehman_indoor ({tag}): {summary['frames']} frames, {len(ids)} keyframes, "
                  f"{pipe.map.num_points} points")
         if not (np.isfinite(traj).all() and math.isfinite(ate)):
@@ -1430,6 +1465,9 @@ def lehman_indoor_phase(torch, np, work: str) -> dict:
             fail(f"lehman_indoor ({tag}): {len(ids)} keyframes (at most {max_kf}), ATE "
                  f"{100 * ate / extent:.2f} % of the path (at most {max_ate} %), "
                  f"{len(closures)} closures (at least {min_closures})")
+        if tag in LEHMAN_DECISIONS and (len(ids), len(closures)) != LEHMAN_DECISIONS[tag]:
+            fail(f"lehman_indoor ({tag}): {len(ids)} keyframes and {len(closures)} closures with "
+                 f"the C++ mirror of the observation table, {LEHMAN_DECISIONS[tag]} before it")
         # finalize's global and full BA: finite; a solve whose cost rose is
         # rejected by the pipeline (the map is kept) and reported here
         final_ba = [e for e in events if e["event"] in ("ba_complete", "ba_diverged")
@@ -1446,12 +1484,19 @@ def lehman_indoor_phase(torch, np, work: str) -> dict:
         for name in ("hamming_knn2", "orb_gather40", "ba_window_lm"):
             if a["launches"][name] <= 0:
                 fail(f"lehman_indoor ({tag}): kernel {name} was not launched")
-        return dict(state=keyframe_state(np, pipe), launches=a["launches"],
+        return dict(state=keyframe_state(np, pipe), launches=a["launches"], map=pipe.map,
                     events=[event_key(e) for e in events if e["event"]
                             in ("relocalization", "loop_closure", "loop_reject")])
 
-    # as it ships: the reference pose convention
-    run_a = cli_drive("a", [], False)
+    # as it ships: the reference pose convention, over the first half of the
+    # room (the script's time limit)
+    folder_a = os.path.join(work, "room_a")
+    os.makedirs(folder_a)
+    for name in sorted(os.listdir(folder))[:LEHMAN_A_FRAMES]:
+        os.symlink(os.path.join(folder, name), os.path.join(folder_a, name))
+    run_a = cli_drive("a", [], False, argv=cli_args(folder_a, K, W, H, preset="lehman_indoor"),
+                      n_frames=LEHMAN_A_FRAMES)
+    run_a.pop("map")
     gc.collect()
     # the JAX package's own long-sequence harness (tools/stress.py) runs the
     # preset with --consistent-convention: PnP poses as extrinsics
@@ -1468,7 +1513,7 @@ def lehman_indoor_phase(torch, np, work: str) -> dict:
 
     # -- (b) a closure that always happens: the drifted ring -----------------
     t0 = time.perf_counter()
-    n_ring = len(run_a["state"][0])
+    n_ring = RING_KEYFRAMES
     ring = VisualOdometryPipeline(cfg, log=EventLog(echo=False), device="cuda")
     new_kf, inv_scale = drifted_ring(np, torch, ring, n_ring, cfg.num_features, LEHMAN_SEED)
     build_s = time.perf_counter() - t0
@@ -1635,10 +1680,503 @@ def lehman_indoor_phase(torch, np, work: str) -> dict:
         fail(f"lehman_indoor: kernels {missing} were not launched in the phase")
     if "jax" in sys.modules:
         fail("the port imported jax")
-    return dict(launches_a=run_a["launches"], total=total)
+    return dict(launches_a=run_a["launches"], total=total, a2_map=run_a2.pop("map"), K=K)
+
+
+# -- phase 12: the native observation table and the parallel paths ----------
+
+#: phase 12's ranks: two on the one card
+PARALLEL_RANKS = 2
+#: the matching of phase 12 (b): queries and bank rows, as phase 11 (c)'s
+#: K1 bank search
+MATCH_Q, MATCH_T = 4000, 16000
+# phase 9's global map, which phase 12 takes again
+N_KF, N_PT, N_OBS = 200, 30000, 120000
+
+
+def synchronize(torch, dev) -> None:
+    torch.cuda.synchronize(dev)
+
+
+def kernel_launches() -> dict:
+    from bundle_adjustment_tpu_torch import kernels
+
+    return dict(kernels.LAUNCHES)
+
+
+def drive_windows(m, window_size: int) -> list:
+    """The windows a drive over ``m``'s keyframes ran, on its final table:
+    every window BA (the ``window_size`` keyframes before the newest, as
+    ``run_local_ba`` takes them at each keyframe), every pose refine (the
+    newest keyframe alone), and finalize's global and full windows."""
+    ids = m.sorted_kf_ids()
+    wins = [ids[max(0, n - window_size - 1): n - 1] for n in range(window_size, len(ids) + 1)]
+    return ([w for w in wins if len(w) >= 2] + [[k] for k in ids] + [ids[:-1], ids])
+
+
+def compare_mirror(torch, np, m, K, windows, max_points: int, max_obs: int) -> dict:
+    """``gather_window`` of every window with the map's C++ mirror and with
+    the numpy table (the mirror set aside): equal rows, map-point ids and
+    problems (bit for bit, on the card), or a failure.  Returns ms per call
+    of both, whole and of the row lookup alone."""
+    from bundle_adjustment_tpu_torch.models.map_store import Map
+
+    mirror = m._native
+    if mirror is None:
+        fail("the map has no native mirror: Map(use_native=True) is the default")
+    whole = {"native": 0.0, "numpy": 0.0}
+    rows_s = {"native": 0.0, "numpy": 0.0}
+    n_obs = m._n_obs
+    for w in windows:
+        cap_p, cap_o = max_points, max_obs
+        if len(w) > 24:   # finalize's windows: every point and observation
+            cap_p, cap_o = max(max_points, m.num_points), max(max_obs, m.num_observations)
+        got = {}
+        for how in ("native", "numpy"):
+            m._native = mirror if how == "native" else None
+            try:
+                t = time.perf_counter()
+                got[how] = m.gather_window(w, K, cap_p, cap_o)
+                whole[how] += time.perf_counter() - t
+                t = time.perf_counter()
+                if how == "native":
+                    np.sort(mirror.gather_window(np.unique(w)))
+                else:
+                    np.flatnonzero(np.isin(m._obs_kf[:n_obs], w) & m._obs_alive[:n_obs])
+                rows_s[how] += time.perf_counter() - t
+            finally:
+                m._native = mirror
+        a, b = got["native"], got["numpy"]
+        if (a is None) != (b is None):
+            fail(f"gather_window({w[:3]}..): the mirror gives {a is None}, numpy {b is None}")
+        if a is None:
+            continue
+        same = (np.array_equal(a[2], b[2]) and np.array_equal(a[1], b[1])
+                and all(bit_equal(torch, x, y) for x, y in zip(a[0], b[0])))
+        if not same:
+            fail(f"gather_window of window {w[:3]}.. ({len(w)} keyframes) differs between "
+                 "the C++ mirror and the numpy table")
+    synchronize(torch, m.device)
+    n = len(windows)
+    return dict(windows=n, native_ms=1e3 * whole["native"] / n, numpy_ms=1e3 * whole["numpy"] / n,
+                native_rows_ms=1e3 * rows_s["native"] / n,
+                numpy_rows_ms=1e3 * rows_s["numpy"] / n, table_rows=n_obs)
+
+
+def parallel_rank(job: dict) -> dict:
+    """One rank of phase 12 (b) 1-4 (``parallel.launch.run_ranks`` on the
+    card): the sharded window BA, finalize of the 200-keyframe map with
+    ``mesh_shape=(1, 2)``, ``run_partitioned_global_ba`` over (win 2, pt 1)
+    (rank 0 also solves the windows alone for the reference) and the
+    sharded and ring matching.  Counts this rank's ``all_reduce`` calls and
+    K1 launches; returns numpy."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from bundle_adjustment_tpu_torch import device as device_mod
+    from bundle_adjustment_tpu_torch import kernels
+    from bundle_adjustment_tpu_torch.config import CameraModel, preset_video
+    from bundle_adjustment_tpu_torch.models.pipeline import VisualOdometryPipeline
+    from bundle_adjustment_tpu_torch.ops import ba, hamming_kernel
+    from bundle_adjustment_tpu_torch.parallel import dist_ba, dist_match, mesh as mesh_mod
+    from bundle_adjustment_tpu_torch.utils.event_log import EventLog
+    from bundle_adjustment_tpu_torch.utils.synthetic import synthetic_global_map
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    device_mod.set_float32_numerics()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out = dict(rank=rank, backend=dist.get_backend(), world_size=world,
+               ranks_per_card=mesh_mod.ranks_per_card("cuda", world), device=str(dev))
+    calls = [0]
+    all_reduce = dist.all_reduce
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return all_reduce(*a, **kw)
+
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    dist.all_reduce = counted
+    try:
+        # 1. the main path's window, point-sharded over the two ranks
+        prob = ba.BAProblem(**{k: torch.as_tensor(v, device=dev)
+                               for k, v in job["window"].items()})
+        mesh_pt = mesh_mod.make_mesh(1, world, "cuda")
+        # twice: the first solve in the process pays its first uses
+        solves = []
+        for _ in range(2):
+            synchronize(torch, dev)
+            calls[0] = 0
+            t = time.perf_counter()
+            rv, tv, pts, st = dist_ba.ba_solve_sharded(dist_ba.shard_problem(prob, world),
+                                                       mesh_pt, "pt", n_fixed=job["n_fixed"])
+            synchronize(torch, dev)
+            solves.append((time.perf_counter() - t, host(rv), host(tv), host(pts)))
+        same = all(np.array_equal(a, b) for a, b in zip(solves[0][1:], solves[1][1:]))
+        out["window"] = dict(first_s=solves[0][0], seconds=solves[1][0], rv=host(rv),
+                             tv=host(tv), pts=host(pts), initial_cost=float(st.initial_cost),
+                             final_cost=float(st.final_cost), iterations=int(st.iterations),
+                             all_reduce=calls[0], repeat_equal=same)
+
+        # 2. finalize of the 200-keyframe map, its solves point-sharded
+        def global_pipe(**change):
+            gmap, gK = synthetic_global_map(job["seed"], C=N_KF, P=N_PT,
+                                            obs_per_pt=4, device=dev)
+            gcam = CameraModel(fx=float(gK[0, 0]), fy=float(gK[1, 1]), cx=float(gK[0, 2]),
+                               cy=float(gK[1, 2]), width=job["W"], height=job["H"])
+            cfg = dataclasses.replace(preset_video(gcam), **change)
+            gpipe = VisualOdometryPipeline(cfg, log=EventLog(echo=False), device=dev)
+            gmap.log = gpipe.log
+            gpipe.map = gmap
+            return gpipe
+
+        gpipe = global_pipe(mesh_shape=(1, world))
+        kernels.reset_launches()
+        synchronize(torch, dev)
+        calls[0] = 0
+        t = time.perf_counter()
+        gpipe.finalize(job["out"] if rank == 0 else tempfile.mkdtemp(prefix="chip_smoke_rank_"))
+        synchronize(torch, dev)
+        ids = gpipe.map.sorted_kf_ids()
+        out["finalize"] = dict(
+            seconds=time.perf_counter() - t, all_reduce=calls[0], launches=kernel_launches(),
+            events=[e for e in gpipe.log.events if e["event"] in ("ba_complete", "ba_diverged")],
+            ids=ids, poses=np.stack([np.r_[gpipe.map.keyframes[k].R.ravel(),
+                                           gpipe.map.keyframes[k].t] for k in ids]),
+            mesh=mesh_mod.shape(gpipe._mesh))
+        del gpipe
+
+        # 3. the partitioned global BA over (win 2, pt 1); rank 0 also
+        # solves each window alone and reconciles them
+        ppipe = global_pipe()
+        ref = None
+        if rank == 0:
+            all_ids = ppipe.map.sorted_kf_ids()
+            parts = dist_ba.partition_windows(len(all_ids), world, 2)
+            window_kf_ids = [np.asarray(all_ids)[w] for w in parts]
+            problems, _ = ppipe.partition_problems(window_kf_ids, 1)
+            n_fixed = max(1, min(ppipe.cfg.ba.n_fixed, len(window_kf_ids[0]) - 1))
+            t = time.perf_counter()
+            sols = [ba.ba_solve_impl(p, n_fixed=n_fixed, max_iterations=ppipe.cfg.ba.max_iterations,
+                                     huber_delta=ppipe.cfg.ba.huber_delta) for p in problems]
+            poses, _ = dist_ba.reconcile_windows_sim3(
+                window_kf_ids, np.stack([host(s[0]) for s in sols]),
+                np.stack([host(s[1]) for s in sols]))
+            synchronize(torch, dev)
+            ref = dict(poses=poses, seconds=time.perf_counter() - t)
+        mesh_win = mesh_mod.make_mesh(world, 1, "cuda")
+        kernels.reset_launches()
+        calls[0] = 0
+        synchronize(torch, dev)
+        t = time.perf_counter()
+        result = ppipe.run_partitioned_global_ba(n_windows=world, mesh=mesh_win, overlap=2)
+        synchronize(torch, dev)
+        ids = ppipe.map.sorted_kf_ids()
+        out["partitioned"] = dict(
+            seconds=time.perf_counter() - t, result=result, ref=ref, all_reduce=calls[0],
+            launches=kernel_launches(), ids=ids,
+            R=np.stack([ppipe.map.keyframes[k].R for k in ids]),
+            t=np.stack([ppipe.map.keyframes[k].t for k in ids]))
+        del ppipe
+
+        # 4. matching: the queries over "win", the bank over "pt"
+        rng = np.random.default_rng(job["seed"])
+        n_q, n_t = MATCH_Q, MATCH_T
+        d1 = torch.as_tensor(rng.integers(0, 2 ** 32, (n_q, 8), dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32), device=dev)
+        d2 = torch.as_tensor(rng.integers(0, 2 ** 32, (n_t, 8), dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32), device=dev)
+        valid2 = torch.as_tensor(rng.random(n_t) > 0.05, device=dev)
+        valid1 = torch.ones(n_q, dtype=torch.bool, device=dev)
+        kernels.reset_launches()
+        synchronize(torch, dev)
+        t = time.perf_counter()
+        sharded = dist_match.match_sharded(d1, d2, valid1, valid2, mesh_win, axis="win")
+        synchronize(torch, dev)
+        sharded_s = time.perf_counter() - t
+        k1_sharded = kernels.LAUNCHES[hamming_kernel.NAME]
+        s = mesh_mod.axis_index(mesh_pt, "pt")
+        block = n_t // world
+        mine = slice(s * block, (s + 1) * block)
+        kernels.reset_launches()
+        synchronize(torch, dev)
+        t = time.perf_counter()
+        ring = dist_match.match_ring(d1, d2[mine].contiguous(), valid2[mine].contiguous(),
+                                     mesh_pt, axis="pt")
+        synchronize(torch, dev)
+        ring_s = time.perf_counter() - t
+        k1_ring = kernels.LAUNCHES[hamming_kernel.NAME]
+        # the reference: one K1 call over the whole bank (not counted)
+        best, idx, second = hamming_kernel.knn2_fused(d1, d2, valid2)
+        mask = (best < 0.75 * second) & (best < 1e9)
+        out["match"] = dict(
+            sharded=[host(x) for x in sharded], ring=[host(x) for x in ring],
+            single=[host(idx), host(mask), host(best)], sharded_s=sharded_s, ring_s=ring_s,
+            k1_sharded=k1_sharded, k1_ring=k1_ring, d1=host(d1) if rank else None,
+            d2=host(d2) if rank else None)
+    finally:
+        dist.all_reduce = all_reduce
+    return out
+
+
+def cli_rank(argv: list) -> dict:
+    """One rank of phase 12 (b) 5: ``run.main(argv)`` with ``--multihost``
+    (the rank joins the group from its environment), the launch counters set
+    to 0 just before and read just after; its keyframe poses and statuses.
+    The CLI's printing goes to a file per rank beside ``--out``."""
+    import numpy as np
+    import torch
+
+    from bundle_adjustment_tpu_torch import kernels
+    from bundle_adjustment_tpu_torch import run as run_mod
+    from bundle_adjustment_tpu_torch.models.pipeline import VisualOdometryPipeline
+
+    rank = int(os.environ["RANK"])
+    out = argv[argv.index("--out") + 1]
+    kept = []
+    orig = recorded(VisualOdometryPipeline, "finalize", lambda a, kw: kept.append(a[0]))
+    try:
+        kernels.reset_launches()
+        t = time.perf_counter()
+        with open(f"{out.rstrip('/')}.rank{rank}.stdout.txt", "w") as fh, \
+                contextlib.redirect_stdout(fh):
+            summary = run_mod.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches = kernel_launches()
+    finally:
+        VisualOdometryPipeline.finalize = orig
+    pipe = kept[0]
+    ids, poses = keyframe_state(np, pipe)
+    return dict(rank=rank, summary=summary, seconds=seconds, launches=launches, ids=ids,
+                poses=poses, frame_idx=[pipe.map.keyframes[k].frame_idx for k in ids],
+                traj=pipe.map.trajectory(pipe.cfg.consistent_convention),
+                statuses=[e["status"] for e in pipe.log.events if e["event"] == "frame_timing"],
+                captures=len(pipe.track.captures), replays=pipe.track.replays)
+
+
+def native_parallel_phase(torch, np, work: str, seed: int, folder: str, K, W: int, H: int,
+                          gt_C, main_window: dict, lehman: dict, global_sq: list) -> dict:
+    """Phase 12 (see the module docstring); ``global_sq`` holds phase 9's
+    final squared costs of its two solves on the same map.  Returns the
+    launches per kernel on rank 0 of the parallel paths ((b) 4 and 5) and
+    the ranks' backend, world size and ranks per card."""
+    from bundle_adjustment_tpu_torch import native
+    from bundle_adjustment_tpu_torch.config import CameraModel, preset_video
+    from bundle_adjustment_tpu_torch.models.pipeline import VisualOdometryPipeline
+    from bundle_adjustment_tpu_torch.ops import ba, hamming_kernel
+    from bundle_adjustment_tpu_torch.parallel import mesh as mesh_mod
+    from bundle_adjustment_tpu_torch.parallel.launch import run_ranks
+    from bundle_adjustment_tpu_torch.utils import io
+    from bundle_adjustment_tpu_torch.utils.event_log import EventLog
+    from bundle_adjustment_tpu_torch.utils.metrics import ate_rmse
+    from bundle_adjustment_tpu_torch.utils.synthetic import synthetic_global_map
+
+    phase_t0 = time.perf_counter()
+    dev = torch.device("cuda")
+
+    # -- (a) the native observation table and the voxel export ---------------
+    t0 = time.perf_counter()
+    gmap, gK = synthetic_global_map(seed, C=N_KF, P=N_PT, obs_per_pt=4, device=dev)
+    a2_map, a2_K = lehman["a2_map"], lehman["K"]
+    for tag, m, mK in (("phase 9's map", gmap, gK), ("(a2)'s final map", a2_map, a2_K)):
+        r = compare_mirror(torch, np, m, mK, drive_windows(m, 5), 8192, 32768)
+        print(f"native (a), {tag} ({m.num_keyframes} keyframes, {r['table_rows']} table rows, "
+              f"{m.num_observations} live): gather_window of {r['windows']} windows (every "
+              f"window BA, pose refine and final window of a drive over it) equal with and "
+              f"without the C++ mirror (rows, map-point ids, problems bit for bit); ms per "
+              f"call: mirror {r['native_ms']:.3f}, numpy table {r['numpy_ms']:.3f}; the row "
+              f"lookup alone {r['native_rows_ms']:.3f} and {r['numpy_rows_ms']:.3f}")
+    pts, cols = a2_map.get_pcd()
+    t = time.perf_counter()
+    p_n, c_n = native.voxel_downsample_native(pts, cols, 0.05)
+    nat_s = time.perf_counter() - t
+    t = time.perf_counter()
+    p_np, c_np = io.voxel_downsample(pts, cols, 0.05)
+    np_s = time.perf_counter() - t
+    o1, o2 = np.lexsort(p_n.T), np.lexsort(p_np.T)
+    if len(p_n) != len(p_np) or not (np.array_equal(p_n[o1], p_np[o2])
+                                     and np.array_equal(c_n[o1], c_np[o2])):
+        fail(f"voxel_downsample_native differs from io.voxel_downsample on (a2)'s cloud: "
+             f"{len(p_n)} and {len(p_np)} voxels")
+    print(f"native (a): voxel_downsample at 0.05 of (a2)'s {len(pts)} points: {len(p_n)} "
+          f"voxels, the C++ one equal to the numpy one (sorted), {1e3 * nat_s:.1f} ms and "
+          f"{1e3 * np_s:.1f} ms")
+    gcam = CameraModel(fx=float(gK[0, 0]), fy=float(gK[1, 1]), cx=float(gK[0, 2]),
+                       cy=float(gK[1, 2]), width=W, height=H)
+    vpipe = VisualOdometryPipeline(dataclasses.replace(preset_video(gcam), export_voxel=0.05),
+                                   log=EventLog(echo=False), device=dev)
+    gmap.log = vpipe.log
+    vpipe.map = gmap
+    vout = os.path.join(work, "voxel_export")
+    vpipe.finalize(vout)
+    want, _ = native.voxel_downsample_native(*vpipe.map.get_pcd(), 0.05)
+    got, _ = io.read_pcd(os.path.join(vout, "final_map_global_ba.pcd"))
+    if got.shape != want.shape or not np.allclose(got, want, rtol=1e-6, atol=1e-5):
+        fail(f"finalize with export_voxel=0.05 wrote {got.shape} points, the voxels are "
+             f"{want.shape}")
+    print(f"native (a): finalize with export_voxel=0.05 wrote {len(got)} voxels of "
+          f"{vpipe.map.num_points} points ({os.path.getsize(os.path.join(vout, 'final_map_global_ba.pcd'))} "
+          f"bytes); (a) {time.perf_counter() - t0:.1f} s")
+    del vpipe, gmap, a2_map
+    lehman.pop("a2_map")
+    gc.collect()
+
+    # -- (b) two ranks on the one card ---------------------------------------
+    t0 = time.perf_counter()
+    pout = os.path.join(work, "parallel_finalize")
+    prob_np = main_window["problem"]
+    job = dict(window=prob_np, n_fixed=main_window["n_fixed"], seed=seed, W=W, H=H, out=pout)
+    res = run_ranks(parallel_rank, PARALLEL_RANKS, job, timeout=400.0)
+    spawn_s = time.perf_counter() - t0
+    r0, r1 = res
+    print(f"parallel (b): {r0['world_size']} ranks on {r0['device']} and {r1['device']}, "
+          f"backend {r0['backend']}, {r0['ranks_per_card']} ranks per card; parts 1-4 in "
+          f"{spawn_s:.1f} s with the processes' start")
+    if r0["backend"] != mesh_mod.backend_for("cuda", PARALLEL_RANKS):
+        fail(f"the ranks took {r0['backend']}")
+
+    # 1. the window against the single-rank plain solve on the card
+    prob = ba.BAProblem(**{k: torch.as_tensor(v, device=dev) for k, v in prob_np.items()})
+    single_s = []
+    for _ in range(2):
+        synchronize(torch, dev)
+        t = time.perf_counter()
+        rv1, tv1, pts1, st1 = ba.ba_solve_impl(prob, n_fixed=main_window["n_fixed"])
+        synchronize(torch, dev)
+        single_s.append(time.perf_counter() - t)
+    w0, w1 = r0["window"], r1["window"]
+    rel = abs(w0["final_cost"] - float(st1.final_cost)) / max(float(st1.final_cost), 1.0)
+    P_w = prob_np["points"].shape[0]
+    per_it = (w0["all_reduce"] - 4) / max(w0["iterations"], 1)
+    print(f"parallel (b) 1: the main path's last window (C={prob_np['rvecs'].shape[0]}, "
+          f"n_fixed={main_window['n_fixed']}, P={P_w}, O={prob_np['uv'].shape[0]}) point-sharded "
+          f"over 2 ranks: cost {w0['initial_cost']:.2f} -> {w0['final_cost']:.4f} in "
+          f"{w0['iterations']} LM iterations, {1e3 * w0['seconds']:.1f} ms (the first solve in "
+          f"the process {1e3 * w0['first_s']:.1f} ms; the two bit-equal: "
+          f"{w0['repeat_equal']}); the single-rank plain solve {float(st1.initial_cost):.2f} -> "
+          f"{float(st1.final_cost):.4f} in {int(st1.iterations)}, {1e3 * single_s[1]:.1f} ms "
+          f"({1e3 * single_s[0]:.1f} the first time); relative gap {rel:.2e}; "
+          f"all_reduce calls {w0['all_reduce']} ({per_it:.1f} per LM iteration beside the "
+          "initial and final costs and the points' exchange)")
+    if rel > 1e-3:
+        fail(f"parallel (b) 1: the sharded window's cost is {rel:.2e} from the single-rank one")
+    if not all(np.array_equal(w0[k], w1[k]) for k in ("rv", "tv", "pts")) \
+            or w0["final_cost"] != w1["final_cost"]:
+        fail("parallel (b) 1: the two ranks' solutions differ")
+
+    # 2. finalize of the 200-keyframe map, sharded
+    f0, f1 = r0["finalize"], r1["finalize"]
+    print(f"parallel (b) 2: finalize of the {N_KF}-keyframe map with mesh_shape=(1, 2) "
+          f"(mesh {f0['mesh']}): " + "; ".join(
+              f"{e['event']} {e['initial_cost']:.1f} -> {e['final_cost']:.1f} in "
+              f"{e['iterations']} LM iterations, {e['elapsed_s']:.2f} s" for e in f0["events"])
+          + f"; all_reduce calls {f0['all_reduce']} "
+          f"({(f0['all_reduce'] - 8) / max(sum(e['iterations'] for e in f0['events']), 1):.1f} "
+          f"per LM iteration beside each solve's costs and exchange); launches "
+          f"{f0['launches']}; {f0['seconds']:.2f} s")
+    if len(f0["events"]) != 2 or any(e["event"] != "ba_complete" for e in f0["events"]):
+        fail(f"parallel (b) 2: expected two completed solves: {f0['events']}")
+    if len(global_sq) != 2:
+        fail(f"parallel (b) 2: phase 9's costs are missing: {global_sq}")
+    for e, ref in zip(f0["events"], global_sq):
+        if not abs(e["final_cost"] - ref) <= 1e-2 * ref:
+            fail(f"parallel (b) 2: squared cost {e['final_cost']} not within 1 % of phase "
+                 f"9's {ref}")
+    if f0["ids"] != f1["ids"] or not np.array_equal(f0["poses"], f1["poses"]):
+        fail("parallel (b) 2: the two ranks' maps differ after finalize")
+    if any(f0["launches"][k] for k in f0["launches"]):
+        fail(f"parallel (b) 2: the sharded solves launched kernels {f0['launches']}")
+
+    # 3. the partitioned global BA against the windows alone on one rank
+    p0, p1 = r0["partitioned"], r1["partitioned"]
+    from bundle_adjustment_tpu_torch.ops.lie import so3_exp_np
+
+    same_ref = all(np.array_equal(p0["R"][i], so3_exp_np(p0["ref"]["poses"][k][0]))
+                   and np.array_equal(p0["t"][i], p0["ref"]["poses"][k][1])
+                   for i, k in enumerate(p0["ids"]))
+    print(f"parallel (b) 3: run_partitioned_global_ba over (win 2, pt 1): "
+          f"{json.dumps(p0['result'])}; all_reduce calls {p0['all_reduce']}; "
+          f"{p0['seconds']:.2f} s (the two windows alone on rank 0: "
+          f"{p0['ref']['seconds']:.2f} s); poses {'bit-equal to' if same_ref else 'DIFFERENT from'} "
+          "the windows solved alone and reconciled on one rank")
+    if not same_ref or p0["result"] is None or p0["result"]["diverged"]:
+        fail("parallel (b) 3: the partitioned BA differs from the windows solved alone")
+    if not (np.array_equal(p0["R"], p1["R"]) and np.array_equal(p0["t"], p1["t"])):
+        fail("parallel (b) 3: the two ranks' maps differ")
+
+    # 4. the sharded and ring matching against one K1 call
+    m0, m1 = r0["match"], r1["match"]
+    single = m0["single"]
+    d1, d2 = m1["d1"].view(np.uint8), m1["d2"].view(np.uint8)
+
+    def dist_at(idx):
+        return np.unpackbits(d1 ^ d2[idx.astype(np.int64)], axis=1).sum(1)
+
+    for tag, m in (("rank 0", m0), ("rank 1", m1)):
+        for what, got in (("sharded", m["sharded"]), ("ring", m["ring"])):
+            exact = all(np.array_equal(a, b) for a, b in zip(got, single))
+            if what == "ring" and tag == "rank 1" and not exact:
+                # rank 1 folds the blocks from its own: a tie between blocks
+                # may name the other copy; the distances and masks are exact
+                exact = (np.array_equal(got[2], single[2]) and np.array_equal(got[1], single[1])
+                         and np.array_equal(dist_at(got[0])[single[2] < 1e9],
+                                            single[2][single[2] < 1e9]))
+            if not exact:
+                fail(f"parallel (b) 4: match_{what} on {tag} differs from one K1 call")
+    print(f"parallel (b) 4: {MATCH_Q} x {MATCH_T}: match_sharded (queries over 'win') and "
+          f"match_ring (bank over 'pt', blocks through host memory under gloo) equal one K1 "
+          f"call on both ranks (rank 1's ring at equal distances); K1 launches per rank "
+          f"{m0['k1_sharded']} and {m0['k1_ring']}, {m1['k1_sharded']} and {m1['k1_ring']}; "
+          f"{1e3 * m0['sharded_s']:.1f} and {1e3 * m0['ring_s']:.1f} ms on rank 0")
+    if (m0["k1_sharded"], m0["k1_ring"], m1["k1_sharded"], m1["k1_ring"]) != (1, 2, 1, 2):
+        fail("parallel (b) 4: expected one K1 launch per rank sharded and two in the ring")
+
+    # 5. the CLI over phase 6's frames, two ranks with --multihost --mesh 2
+    t0 = time.perf_counter()
+    out = os.path.join(work, "multihost")
+    argv = cli_args(folder, K, W, H) + ["--multihost", "--mesh", "2", "--out", out]
+    c0, c1 = run_ranks(cli_rank, PARALLEL_RANKS, argv, timeout=400.0, join=False)
+    cli_s = time.perf_counter() - t0
+    gt = np.stack([gt_C[f] for f in c0["frame_idx"]])
+    ate = ate_rmse(c0["traj"], gt, with_scale=True)
+    extent = float(np.linalg.norm(gt.max(0) - gt.min(0)))
+    print(f"parallel (b) 5: the CLI --multihost --mesh 2 over {len(c0['statuses'])} frames in "
+          f"two ranks ({cli_s:.1f} s with the processes' start; run.main {c0['seconds']:.1f} "
+          f"and {c1['seconds']:.1f} s): summary {c0['summary'].get('distributed')}; statuses "
+          f"{''.join(s[0] for s in c0['statuses'])}; {len(c0['ids'])} keyframes; ATE "
+          f"{ate:.4f} over an extent of {extent:.3f}; launches rank 0 {c0['launches']}, rank 1 "
+          f"{c1['launches']}; graph captures {c0['captures']}, {c1['captures']}, replays "
+          f"{c0['replays']}, {c1['replays']}")
+    if c0["ids"] != c1["ids"] or not np.array_equal(c0["poses"], c1["poses"]) \
+            or c0["statuses"] != c1["statuses"]:
+        fail("parallel (b) 5: the two ranks' trajectories differ")
+    if len(c0["ids"]) < 3 or not ate <= 0.25 * extent:
+        fail(f"parallel (b) 5: {len(c0['ids'])} keyframes, ATE {ate} of {extent}")
+    for c in (c0, c1):
+        if c["replays"] <= 0 or c["launches"]["hamming_knn2"] < c["replays"] \
+                or c["launches"]["orb_gather40"] < c["replays"]:
+            fail(f"parallel (b) 5: rank {c['rank']}: K1 and K2 not launched through the "
+                 f"graph: {c['launches']}, {c['replays']} replays")
+    if c0["summary"].get("distributed", {}).get("world_size") != PARALLEL_RANKS:
+        fail(f"parallel (b) 5: summary {c0['summary'].get('distributed')}")
+    with open(os.path.join(out, "summary.json")) as fh:
+        if json.load(fh)["distributed"]["backend"] != r0["backend"]:
+            fail("parallel (b) 5: summary.json lacks the backend")
+    launches = {k: m0["k1_sharded"] + m0["k1_ring"] if k == hamming_kernel.NAME else 0
+                for k in c0["launches"]}
+    for k, v in c0["launches"].items():
+        launches[k] += v
+    print(f"native and parallel: rank 0's launches on the parallel paths {launches} "
+          f"(phase {time.perf_counter() - phase_t0:.1f} s)")
+    return dict(launches=launches, backend=r0["backend"], world_size=r0["world_size"],
+                ranks_per_card=r0["ranks_per_card"])
 
 
 def main() -> int:
+    script_t0 = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=40)
     ap.add_argument("--seed", type=int, default=0)
@@ -1671,7 +2209,7 @@ def main() -> int:
         return 0
 
     from bundle_adjustment_tpu_torch import device as device_mod
-    from bundle_adjustment_tpu_torch import kernels
+    from bundle_adjustment_tpu_torch import kernels, native
     from bundle_adjustment_tpu_torch import run as run_mod
     from bundle_adjustment_tpu_torch.config import CAMERA_LEHMAN, CameraModel, preset_video
     from bundle_adjustment_tpu_torch.models.pipeline import VisualOdometryPipeline
@@ -1711,6 +2249,10 @@ def main() -> int:
           "shared memory per kernel in ptxas's lines above")
     print(f"K3 launches one cluster of "
           f"{kernels.library_const(ba_kernel.NAME, 'ba_window_lm_cluster_size')} CTAs")
+    t0 = time.perf_counter()
+    native.build()
+    print(f"built the host runtime {native.SOURCE.name} with g++ in "
+          f"{time.perf_counter() - t0:.2f} s")
 
     # -- 3./4./5. kernels against their plain versions -----------------------
     gen = torch.Generator(device=dev)
@@ -1972,9 +2514,15 @@ def main() -> int:
           " ms; LM iterations and bound ms " + "; ".join(f"{i}, {b:.5f}" for i, b in k3_work)
           + f"; device time per recorded launch under the profiler in three passes: "
           + ", ".join(shown(ms, n, len(k3_calls)) for ms, n in dev_k3))
+    # the main path's last window BA, for phase 12's sharded solve
+    win_ids = pipe.map.sorted_kf_ids()[-(cfg.ba.window_size + 1):-1]
+    problem_w = pipe.map.gather_window(win_ids, pipe.K, cfg.ba.max_points, cfg.ba.max_obs)[0]
+    main_window = dict(problem={k: getattr(problem_w, k).cpu().numpy()
+                                for k in problem_w._fields},
+                       n_fixed=max(1, min(cfg.ba.n_fixed, len(win_ids) - 1)))
     # the clones, and the pipelines with their graphs' memory pools, stay out
     # of the later phases' peak memory
-    del k1_calls, k3_calls, rec, runs, main_run, pipe
+    del k1_calls, k3_calls, rec, runs, main_run, pipe, problem_w
     gc.collect()
 
     # -- 7. the earlier path: the grid solver -------------------------------
@@ -2014,7 +2562,6 @@ def main() -> int:
     gc.collect()
 
     # -- 9. the global path at full width -------------------------------------
-    N_KF, N_PT, N_OBS = 200, 30000, 120000
 
     def global_pipe():
         gmap, gK = synthetic_global_map(args.seed, C=N_KF, P=N_PT, obs_per_pt=4, device="cuda")
@@ -2155,6 +2702,11 @@ def main() -> int:
     gc.collect()
     lehman = lehman_indoor_phase(torch, np, work)
 
+    # -- 12. the native observation table and the parallel paths ------------
+    gc.collect()
+    parallel = native_parallel_phase(torch, np, work, args.seed, folder, K, W, H, gt_C,
+                                     main_window, lehman, [e["final_cost"] for e in g1["events"]])
+
     if args.profile:
         # the CLI over the first N frames under torch.profiler
         pfolder = os.path.join(work, "frames_profiled")
@@ -2175,25 +2727,32 @@ def main() -> int:
              source="bundle_adjustment_tpu_torch/csrc/hamming_knn2.cu",
              replaces="bundle_adjustment_tpu/ops/hamming_pallas.py:87",
              launches=launches["hamming_knn2"], library_ms=None, **k1,
-             launches_lehman_indoor=lehman["launches_a"]["hamming_knn2"]),
+             launches_lehman_indoor=lehman["launches_a"]["hamming_knn2"],
+             launches_parallel=parallel["launches"]["hamming_knn2"]),
         dict(name="orb_gather40", route="cuda",
              source="bundle_adjustment_tpu_torch/csrc/orb_gather.cu",
              replaces="bundle_adjustment_tpu/ops/orb_pallas.py:97",
              launches=launches["orb_gather40"], library_ms=None, **k2,
-             launches_lehman_indoor=lehman["launches_a"]["orb_gather40"]),
+             launches_lehman_indoor=lehman["launches_a"]["orb_gather40"],
+             launches_parallel=parallel["launches"]["orb_gather40"]),
         dict(name="ba_window_lm", route="cuda",
              source="bundle_adjustment_tpu_torch/csrc/ba_window_lm.cu",
              replaces="bundle_adjustment_tpu/ops/ba_pallas.py:521",
              launches=launches["ba_window_lm"], library_ms=None, **k3,
-             launches_lehman_indoor=lehman["launches_a"]["ba_window_lm"]),
+             launches_lehman_indoor=lehman["launches_a"]["ba_window_lm"],
+             launches_parallel=parallel["launches"]["ba_window_lm"]),
     ] + [
         dict(name=role, route="cuda",
              source="bundle_adjustment_tpu_torch/csrc/ba_global_pcg.cu",
              replaces=f"bundle_adjustment_tpu/ops/ba_global_pallas.py:{line}",
              launches=g_launches[role], library_ms=None, **k4[role],
-             launches_lehman_indoor=lehman["launches_a"][role])
+             launches_lehman_indoor=lehman["launches_a"][role],
+             launches_parallel=parallel["launches"][role])
         for role, line in zip(K4_ROLES, (339, 522, 583, 621))
     ]}
+    print(f"parallel paths: backend {parallel['backend']}, world size "
+          f"{parallel['world_size']}, {parallel['ranks_per_card']} ranks per card")
+    print(f"chip_smoke.py: {time.perf_counter() - script_t0:.1f} s in all")
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -130,7 +130,10 @@ def test_inv3_of_an_overflowing_block_matches_the_jitted_solve():
 def test_unported_solver_options_raise(window):
     """The PCG camera solve (``cg_iters > 0``) is ported: it lands on the
     dense solve's optimum (final cost within 2 %, as the JAX package's
-    ``test_pcg_matches_dense_window``).  The sharded solver's hook is not."""
+    ``test_pcg_matches_dense_window``).  So is the sharded solver's hook: a
+    process group in place of ``axis_name`` (``parallel/dist_ba``,
+    ``tests/test_torch_parallel.py``); with none the solve is the
+    single-rank one, bit for bit, and ``axis_name`` is no argument of it."""
     pt = _port(window)
     dense = tba.ba_solve(pt, n_fixed=1, max_iterations=30)
     pcg = tba.ba_solve(pt, n_fixed=1, max_iterations=30, cg_iters=200, cg_tol=1e-8)
@@ -140,7 +143,11 @@ def test_unported_solver_options_raise(window):
     pcg = tbg.ba_solve_grid(grid, n_fixed=1, max_iterations=30, cg_iters=200, cg_tol=1e-8,
                             cg_forcing=False)
     assert float(pcg[3].final_cost) <= 1.02 * float(dense[3].final_cost)
-    with pytest.raises(NotImplementedError, match="parallel"):
+    grouped = tba.ba_solve(pt, n_fixed=1, max_iterations=30, group=None)
+    for a, b in zip(dense[:3], grouped[:3]):
+        assert torch.equal(a, b)
+    assert float(grouped[3].final_cost) == float(dense[3].final_cost)
+    with pytest.raises(TypeError, match="axis_name"):
         tba.ba_solve(pt, n_fixed=1, axis_name="x")
 
 

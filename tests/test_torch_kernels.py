@@ -949,3 +949,46 @@ def test_relocalization_on_the_card(card, threshold):
     assert pipe.map.num_keyframes == n_kf + 1
     kf = pipe.map.keyframes[r["kf_id"]]
     assert np.isfinite(kf.R).all() and np.isfinite(kf.t).all() and kf.desc.is_cuda
+
+
+@pytest.mark.cuda
+def test_the_native_mirror_on_a_card_map(card):
+    """The C++ mirror of the observation table (the default ``Map``) gives
+    the numpy table's windows, problems on the card included, on a map of
+    60 keyframes and 6000 points."""
+    m, K = synthetic_global_map(1, C=60, P=6000, device="cuda")
+    assert m._native is not None
+    ids = m.sorted_kf_ids()
+    windows = [ids[i: i + 6] for i in range(0, 55, 5)] + [[k] for k in ids[::7]] + [ids]
+    for w in windows:
+        got = m.gather_window(w, K, 8192, 32768)
+        mirror, m._native = m._native, None
+        try:
+            want = m.gather_window(w, K, 8192, 32768)
+        finally:
+            m._native = mirror
+        np.testing.assert_array_equal(got[2], want[2])
+        np.testing.assert_array_equal(got[1], want[1])
+        for k in want[0]._fields:
+            assert getattr(got[0], k).device.type == "cuda"
+            assert torch.equal(getattr(got[0], k), getattr(want[0], k)), k
+
+
+@pytest.mark.cuda
+def test_gloo_collectives_of_cuda_tensors_in_two_ranks(card):
+    """Two ranks on one card take gloo (NCCL refuses two ranks on a device);
+    gloo reduces and broadcasts CUDA tensors, and the exchange of parts
+    gives their bits, a -0.0 included."""
+    import torch_ranks
+    from bundle_adjustment_tpu_torch.parallel.launch import run_ranks
+    from bundle_adjustment_tpu_torch.parallel.mesh import backend_for
+
+    if torch.cuda.device_count() == 1:
+        assert backend_for("cuda", 2) == "gloo"
+    res = run_ranks(torch_ranks.collectives_on_the_card, 2, device_type="cuda", timeout=120.0)
+    want_z = np.array([[-0.0, 1.5, -2.25], [-0.0, 3.0, -4.5]], np.float32)
+    for r in res:
+        assert r["backend"] == backend_for("cuda", 2) and r["device"].startswith("cuda")
+        np.testing.assert_array_equal(r["x"], 2 * np.arange(6) + 1)
+        np.testing.assert_array_equal(r["y"], [2.0, 2.0, 2.0])
+        assert r["z"].tobytes() == want_z.tobytes()

@@ -10,7 +10,8 @@
 - a kernel wrapper takes its plain version only for a CPU tensor;
 - every configuration not ported yet raises ``NotImplementedError`` naming
   the missing module; the default configuration is not one, and neither is
-  a BA window above ``pcg_min_cameras`` cameras.
+  a BA window above ``pcg_min_cameras`` cameras, ``mesh_shape`` (which
+  raises when the world has fewer ranks) or ``export_voxel``.
 """
 
 import ast
@@ -31,6 +32,7 @@ from bundle_adjustment_tpu_torch.models import frontend, pipeline
 from bundle_adjustment_tpu_torch.ops import ba, ba_global_kernel, ba_kernel, hamming_kernel, \
     orb_kernel
 from bundle_adjustment_tpu_torch.ops.ba_grid import BAProblemGrid
+from bundle_adjustment_tpu_torch.parallel import launch, mesh
 from bundle_adjustment_tpu_torch.utils import prewarm
 from bundle_adjustment_tpu_torch.utils.synthetic import synthetic_global_map, synthetic_window
 
@@ -108,6 +110,10 @@ def test_default_device_raises_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         run.main(["--images", str(REPO / "no_such_folder"), "--out", str(REPO / "no_such_out")])
     assert not (REPO / "no_such_out").exists()
+    with pytest.raises(RuntimeError, match="cuda"):
+        mesh.default_mesh()
+    with pytest.raises(RuntimeError, match="cuda"):
+        launch.run_ranks(print, 2)
     # the CPU is used when asked for
     assert pipeline.VisualOdometryPipeline(PipelineConfig(camera=CAM), device="cpu")
     assert frontend.TrackStep("cpu")
@@ -146,10 +152,8 @@ def test_lehman_indoor_switches_build(change):
 
 
 @pytest.mark.parametrize("change,needs", [
-    (dict(mesh_shape=(2, 1)), "parallel"),
     (dict(features_source="cv2"), "cv2"),
     (dict(debug=True), "viz"),
-    (dict(export_voxel=0.05), "voxel"),
 ])
 def test_unported_configurations_raise(change, needs):
     cfg = dataclasses.replace(PipelineConfig(camera=CAM), **change)
@@ -157,13 +161,39 @@ def test_unported_configurations_raise(change, needs):
         pipeline.VisualOdometryPipeline(cfg, device="cpu")
 
 
+@pytest.mark.parametrize("change,ranks,built", [
+    (dict(mesh_shape=(2, 1)), 2, True),
+    (dict(export_voxel=0.05), 1, True),
+    (dict(mesh_shape=(2, 1)), 1, False),
+], ids=["mesh_shape", "export_voxel", "mesh_shape-larger-than-the-world"])
+def test_ported_configurations_build(change, ranks, built):
+    """``mesh_shape`` and ``export_voxel`` are ported: neither is refused on
+    the card or the CPU; a pipeline with ``mesh_shape=(2, 1)`` builds in two
+    gloo ranks, and in a world of one rank it raises (the JAX package
+    would solve on one device instead)."""
+    import torch_ranks
+    from bundle_adjustment_tpu_torch.parallel.launch import run_ranks
+
+    cfg = dataclasses.replace(PipelineConfig(camera=CAM), **change)
+    assert pipeline._unported(cfg, torch.device("cuda")) is None
+    if ranks > 1:
+        assert run_ranks(torch_ranks.build_pipeline, ranks, cfg, device_type="cpu",
+                         timeout=120.0) == ["built"] * 2
+    elif built:
+        assert pipeline.VisualOdometryPipeline(cfg, device="cpu").cfg.export_voxel == 0.05
+    else:
+        with pytest.raises(ValueError, match="the world has 1"):
+            pipeline.VisualOdometryPipeline(cfg, device="cpu")
+
+
 def test_pallas_ba_and_big_windows_raise():
     """The default configuration (use_pallas_ba=True, the window LM kernel
     K3) is ported: nothing refuses it on the card or on the CPU, and the
     kernel's wrapper refuses a tensor that is on neither.  A window wider
     than pcg_min_cameras is ported too: 25 cameras solve on the CPU through
-    the PCG camera solve, whatever use_pallas_ba says.  What still raises is
-    the sharded solver's axis_name."""
+    the PCG camera solve, whatever use_pallas_ba says.  The sharded solver's
+    ``axis_name`` is a process group now: with none the solve is the
+    single-rank one, bit for bit."""
     cfg = PipelineConfig(camera=CAM)
     assert cfg.ba.use_pallas_ba
     assert pipeline._unported(cfg, torch.device("cuda")) is None
@@ -184,7 +214,11 @@ def test_pallas_ba_and_big_windows_raise():
         # the event that names a card window the kernels did not take is the card's
         assert not [e for e in pipe.log.events if e["event"] == "pcg_plain_solver"]
     problem = pipe.map.gather_window(list(range(n)), pipe.K, 8192, 32768)[0]
-    with pytest.raises(NotImplementedError, match="parallel"):
+    one = ba.ba_solve(problem, n_fixed=1, max_iterations=4)
+    grouped = ba.ba_solve(problem, n_fixed=1, max_iterations=4, group=None)
+    for a, b in zip(one[:3], grouped[:3]):
+        assert torch.equal(a, b)
+    with pytest.raises(TypeError, match="axis_name"):
         ba.ba_solve(problem, n_fixed=1, axis_name="pt")
 
 

@@ -9,7 +9,9 @@
   RGB and RGBA files written by cv2 and by this file's encoder with each of
   the five row filters, and reads a PNG folder with cv2 hidden; video and
   other images raise naming cv2 where it is hidden;
-- the CLI's flags whose module is not ported raise naming it;
+- the CLI's flags whose module is not ported raise naming it; ``--mesh 2``
+  and ``--multihost`` run in two gloo ranks on the CPU (``--mesh 2`` in one
+  process raises: the world has one rank);
 - ``--checkpoint`` writes a checkpoint after the frame loop and resumes from
   it, skipping the frames consumed, to the straight run's trajectory;
 - ``read_pcd`` reads back what ``write_pcd`` writes, as the JAX package's
@@ -152,13 +154,58 @@ def test_read_pcd_round_trips_write_pcd(tmp_path, binary, with_colors):
 
 
 @pytest.mark.parametrize("flag,needs", [
-    (["--debug"], "viz"), (["--features-from-cv2"], "cv2"), (["--mesh", "2"], "parallel"),
-    (["--multihost"], "parallel"),
+    (["--debug"], "viz"), (["--features-from-cv2"], "cv2"),
 ])
 def test_unported_flags_raise_by_name(tmp_path, flag, needs):
     with pytest.raises(NotImplementedError, match=needs):
         run.main(["--device", "cpu", "--images", str(tmp_path), "--out", str(tmp_path / "o")]
                  + flag)
+
+
+def test_mesh_flag_without_the_ranks_raises(png_folder, tmp_path):
+    """``--mesh 2`` in one process: the world has one rank, and the port
+    raises where the JAX package would quietly solve on one device."""
+    folder, K = png_folder
+    with pytest.raises(ValueError, match="2 ranks; the world has 1"):
+        run.main(["--device", "cpu", "--images", folder, "--out", str(tmp_path / "o"),
+                  "--mesh", "2"])
+
+
+@pytest.mark.parametrize("flags", [["--multihost"], ["--multihost", "--mesh", "2"]],
+                         ids=["multihost", "multihost-mesh2"])
+def test_multihost_flags_run_in_two_ranks(png_folder, tmp_path, flags):
+    """The CLI in two gloo ranks on the CPU, each started with torchrun's
+    environment (``parallel.launch.run_ranks(join=False)``): both ranks run
+    the frames and end bit-equal; rank 0 alone writes the outputs, and its
+    ``summary.json`` records the backend, the world size and the ranks per
+    card.  With ``--mesh 2`` every BA is point-sharded over the two ranks;
+    without it the run equals a single-process run bit for bit."""
+    import torch_ranks
+    from bundle_adjustment_tpu_torch.parallel.launch import run_ranks
+
+    folder, K = png_folder
+    args = ["--device", "cpu", "--images", folder, "--features", "500", "--size", f"{W}x{H}",
+            "--fx", str(K[0, 0]), "--cx", str(K[0, 2]), "--cy", str(K[1, 2])]
+    out = str(tmp_path / "out")
+    res = run_ranks(torch_ranks.cli, 2, args + ["--out", out] + flags, device_type="cpu",
+                    timeout=120.0, join=False)
+    assert res[0]["state"][0] == res[1]["state"][0]
+    np.testing.assert_array_equal(res[0]["state"][1], res[1]["state"][1])
+    np.testing.assert_array_equal(res[0]["state"][2], res[1]["state"][2])
+    for rank, r in enumerate(res):
+        assert r["summary"]["distributed"] == {"backend": "gloo", "world_size": 2,
+                                               "rank": rank, "ranks_per_card": 0}
+        assert r["summary"]["frames"] == 9 and r["summary"]["num_keyframes"] >= 3
+    with open(os.path.join(out, "summary.json")) as fh:
+        assert json.load(fh)["distributed"]["rank"] == 0
+    assert sorted(os.listdir(out)) == ["events.jsonl", "final_map_global_ba.pcd",
+                                       "summary.json", "trajectory.txt"]
+    if "--mesh" not in flags:
+        single = run.main(args + ["--out", str(tmp_path / "single")])
+        assert single["num_keyframes"] == res[0]["summary"]["num_keyframes"]
+        with open(os.path.join(out, "trajectory.txt")) as fa, \
+                open(tmp_path / "single" / "trajectory.txt") as fb:
+            assert fa.read() == fb.read()
 
 
 def test_track_step_takes_its_own_uniforms():
