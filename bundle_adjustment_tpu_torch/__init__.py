@@ -13,8 +13,9 @@ counterpart that a reader can find:
                 sources in ``csrc/``, built at first use by ``kernels.py``.
 - ``models``  — the map store, keyframe policy, fused tracked-frame step and
                 the frame-pipeline orchestrator.
-- ``utils``   — event log, PCD writer, trajectory metrics, a numpy-only
-                synthetic renderer.
+- ``utils``   — event log and its analytics, PNG and PCD files, the debug
+                plots and overlays drawn with torch (``viz``), trajectory
+                metrics, the synthetic renderer.
 - ``parallel`` — torch.distributed: the device mesh, the point-sharded
                 Schur BA, window consensus, sharded and ring matching.
 - ``native``  — the C++ host runtime (``csrc/ba_host.cpp``, built with g++

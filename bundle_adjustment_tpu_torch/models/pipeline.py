@@ -31,9 +31,14 @@ window is point-sharded over the ranks of torch.distributed
 (``_solve_sharded``, ``parallel/dist_ba``) before K3 and K4 are considered,
 as in the JAX package; a world with fewer ranks than ``mesh_shape`` asks
 for raises.  ``run_partitioned_global_ba`` solves overlapping windows on a
-("win", "pt") mesh with sim(3) consensus.  Configurations that need a
-module not ported yet (the cv2 features, ``debug``) raise
-``NotImplementedError`` naming it; none of them quietly takes another path.
+("win", "pt") mesh with sim(3) consensus.  ``features_source="cv2"`` takes
+OpenCV's ORB on the host through the staged path (the constructor raises
+naming cv2 where it is not installed).  ``debug`` draws the JAX package's
+debug artifacts with ``utils/viz`` on the pipeline's device (trajectory
+plots, match, keypoint and depth overlays per keyframe, the sparsity spy of
+every BA window, the map after each window BA) and, where cv2 is installed,
+the three overlay videos; it changes no decision.  ``finalize`` always
+writes the final trajectory plots.
 
 Random draws: the JAX pipeline draws RANSAC sample uniforms from
 ``PRNGKey(0)`` (split once per essential or PnP RANSAC call) and from
@@ -44,6 +49,7 @@ seeded ``torch.Generator``s.  A test can replay the JAX schedule through it.
 
 from __future__ import annotations
 
+import glob
 import json
 import os
 import time
@@ -65,8 +71,13 @@ from bundle_adjustment_tpu_torch.ops import (ba, ba_global_kernel, ba_grid, ba_k
 from bundle_adjustment_tpu_torch.ops.lie import rotation_angle, so3_exp_np, so3_hat, so3_log_np
 from bundle_adjustment_tpu_torch.ops.projection import epipolar_errors_px
 from bundle_adjustment_tpu_torch.parallel import dist_ba, mesh as mesh_mod
+from bundle_adjustment_tpu_torch.utils import viz
 from bundle_adjustment_tpu_torch.utils.event_log import EventLog
-from bundle_adjustment_tpu_torch.utils.io import write_pcd
+from bundle_adjustment_tpu_torch.utils.io import _cv2, read_png, write_pcd
+
+#: the debug overlay videos: (folder of per-keyframe PNGs, video file)
+DEBUG_VIDEOS = (("debug_keyframes", "keypoint_video.mp4"), ("debug_matches", "match_video.mp4"),
+                ("debug_depth", "depth_video.mp4"))
 
 
 def bgr_to_gray(frame_bgr: np.ndarray) -> np.ndarray:
@@ -98,18 +109,6 @@ class Draws:
         g = torch.Generator(device=self.device)
         g.manual_seed((self.seed + 1) * 1_000_003 + int(frame_idx))
         return torch.rand(shape, generator=g, device=self.device, out=out)
-
-
-def _unported(cfg: PipelineConfig, dev: torch.device) -> Optional[str]:
-    """The first configuration switch the port cannot run yet, with what
-    it needs, or None."""
-    if cfg.features_source != "orb_tpu":
-        return (f"features_source={cfg.features_source!r} needs the cv2 feature path "
-                "(ROADMAP Queue 1 item 9), not ported yet")
-    if cfg.debug:
-        return ("debug=True needs utils/viz (matplotlib/cv2 plots, ROADMAP Queue 1 item 9), "
-                "not ported yet")
-    return None
 
 
 def _build_lba_refine_fn(use_kernel: bool, n_fixed: int, opts: tuple,
@@ -162,9 +161,11 @@ class VisualOdometryPipeline:
     def __init__(self, config: PipelineConfig, log: Optional[EventLog] = None,
                  device="cuda", draws=None):
         self.device = device_mod.resolve(device)
-        why = _unported(config, self.device)
-        if why is not None:
-            raise NotImplementedError(why)
+        if config.features_source not in ("orb_tpu", "cv2"):
+            raise ValueError(f"features_source={config.features_source!r}: 'orb_tpu' or 'cv2'")
+        if config.features_source == "cv2":
+            self._cv2_orb = _cv2("features_source='cv2' (OpenCV's ORB)").ORB_create(
+                nfeatures=config.num_features)
         n_ranks = int(np.prod(config.mesh_shape))
         if n_ranks > mesh_mod.world_size():
             # the JAX package takes the single-device solve when it has too
@@ -185,6 +186,7 @@ class VisualOdometryPipeline:
         self.draws = draws if draws is not None else Draws(0, self.device)
         self._lost_frames = 0
         self._last_loop_kf = -(10 ** 9)   # the loop-closure cooldown's last closure
+        self._last_debug_frame = None     # the last keyframe's frame, with ``debug``
         self.track = frontend.TrackStep(self.device)
         self._front_state = None
         self._front_state_kf = -1
@@ -198,6 +200,8 @@ class VisualOdometryPipeline:
     # -- pipeline ----------------------------------------------------------
 
     def _extract(self, gray: np.ndarray) -> orb.Keypoints:
+        if self.cfg.features_source == "cv2":
+            return self._extract_cv2(gray)
         return orb.extract(
             torch.as_tensor(gray, device=self.device),
             num_features=self.cfg.num_features,
@@ -207,6 +211,37 @@ class VisualOdometryPipeline:
             height=gray.shape[0],
             width=gray.shape[1],
         )
+
+    def _extract_cv2(self, gray: np.ndarray) -> orb.Keypoints:
+        """OpenCV's ORB keypoints and descriptors on the host (the JAX
+        package's feature injection), padded to the static capacity and
+        uploaded: the reference's detector in front of the port's matcher,
+        pose and BA."""
+        kps, des = self._cv2_orb.detectAndCompute(gray, None)
+        N = self.cfg.num_features
+        xy = np.zeros((N, 2), np.float32)
+        d8 = np.zeros((N, 32), np.uint8)
+        valid = np.zeros(N, bool)
+        resp = np.zeros(N, np.float32)
+        ang = np.zeros(N, np.float32)
+        size = np.zeros(N, np.float32)
+        lvl = np.zeros(N, np.int32)
+        if kps:
+            n = min(len(kps), N)
+            xy[:n] = [k.pt for k in kps[:n]]
+            d8[:n] = des[:n]
+            valid[:n] = True
+            resp[:n] = [k.response for k in kps[:n]]
+            ang[:n] = np.radians([k.angle for k in kps[:n]])
+            size[:n] = [k.size for k in kps[:n]]
+            lvl[:n] = [k.octave for k in kps[:n]]
+        dev = self.device
+        return orb.Keypoints(
+            xy=torch.as_tensor(xy, device=dev), response=torch.as_tensor(resp, device=dev),
+            angle=torch.as_tensor(ang, device=dev), size=torch.as_tensor(size, device=dev),
+            level=torch.as_tensor(lvl, device=dev),
+            desc=hamming.pack_u8_to_u32(torch.as_tensor(d8, device=dev)),
+            valid=torch.as_tensor(valid, device=dev))
 
     def _host(self, t: torch.Tensor) -> np.ndarray:
         """``t`` on the host as numpy: one host read, counted."""
@@ -228,7 +263,8 @@ class VisualOdometryPipeline:
 
     def _fusable(self) -> bool:
         return (self.cfg.fused_frontend and self.cfg.pnp_first
-                and self.cfg.pnp_scale and self.map.num_keyframes > 0)
+                and self.cfg.pnp_scale and self.map.num_keyframes > 0
+                and self.cfg.features_source == "orb_tpu")
 
     def _ensure_front_state(self) -> int:
         """Refresh the device mirror of the last keyframe if stale: copied
@@ -676,11 +712,48 @@ class VisualOdometryPipeline:
         if self.cfg.cull_enabled:
             self._cull_points()
 
+        if self.cfg.debug:
+            self._debug_keyframe(frame_bgr, last_kf, new_kf, kp_xy, np.asarray(kp.valid),
+                                 match_idx, slots)
+        self._last_debug_frame = frame_bgr.copy() if self.cfg.debug else None
+
         if self.cfg.export_pcd_series:
             pts_w, colors = self.map.get_pcd()
             if len(pts_w):
                 write_pcd(os.path.join(self.cfg.output_dir, "pcd_series",
                                        f"frame_{new_kf.kf_id:05d}.pcd"), pts_w, colors)
+
+    def _debug_keyframe(self, frame_bgr, last_kf: Keyframe, new_kf: Keyframe, kp_xy,
+                        kp_valid, match_idx, slots):
+        """The JAX package's per-keyframe debug artifacts, drawn on the
+        pipeline's device: the 2-D and 3-D trajectory plots, the matches
+        against the last keyframe's frame, the keypoints, and the tracked
+        keypoints coloured by depth.  Each drawing reads its image back
+        once (counted in ``host_reads``)."""
+        out, dev, kf = self.cfg.output_dir, self.device, new_kf.kf_id
+        traj = self.map.trajectory(self.cfg.consistent_convention)
+        viz.plot_and_save_trajectory_2d(traj, os.path.join(out, "trajectory_2d"),
+                                        f"kf{kf:04d}", device=dev)
+        rots = [self.map.keyframes[k].R for k in self.map.sorted_kf_ids()]
+        viz.plot_and_save_trajectory_3d(traj, rots, os.path.join(out, "trajectory_3d"),
+                                        f"kf{kf:04d}", device=dev)
+        viz.draw_matches(
+            self._last_debug_frame if self._last_debug_frame is not None else frame_bgr,
+            last_kf.xy[slots], frame_bgr, kp_xy[match_idx[slots]],
+            os.path.join(out, "debug_matches", f"matches_{kf:04d}.png"), device=dev)
+        viz.draw_keypoints(frame_bgr, kp_xy[kp_valid],
+                           os.path.join(out, "debug_keyframes", f"keyframe_{kf:04d}.png"),
+                           device=dev)
+        drawn = 4
+        tracked_now = np.flatnonzero(new_kf.kp_to_mp >= 0)
+        if len(tracked_now):
+            X = self.map.points()[new_kf.kp_to_mp[tracked_now]]
+            depths = X @ new_kf.R[2] + new_kf.t[2]
+            viz.draw_depth_overlay(frame_bgr, new_kf.xy[tracked_now], depths,
+                                   os.path.join(out, "debug_depth", f"depth_{kf:04d}.png"),
+                                   device=dev)
+            drawn += 1
+        self.host_reads += drawn
 
     def _covisibility_reobserve(self, new_kf: Keyframe, exclude_id: int):
         """Reprojection-verified re-observations of map points seen by recent
@@ -929,6 +1002,12 @@ class VisualOdometryPipeline:
             self.log.lba_skipped("No points in the local window.")
             return None
         problem, mp_ids, obs_rows = gathered
+        if self.cfg.debug:
+            viz.plot_and_save_sparsity(
+                problem.cam_idx, problem.pnt_idx, len(window), len(mp_ids),
+                os.path.join(self.cfg.output_dir, "debug_sparsity"),
+                f"kf{window[0]:04d}_{window[-1]:04d}", device=self.device)
+            self.host_reads += 1
 
         last_opt = self.map.keyframes[window[-1]]
         E_before = (last_opt.R.copy(), last_opt.t.copy())
@@ -1022,6 +1101,10 @@ class VisualOdometryPipeline:
                 kf.R = R_rel @ R_a
                 kf.t = R_rel @ t_a + t_rel
 
+        if self.cfg.debug:
+            pts_w, colors = self.map.get_pcd()
+            write_pcd(os.path.join(self.cfg.output_dir, "lba_steps",
+                                   f"map_after_lba_kf_{window[0]:04d}.pcd"), pts_w, colors)
         return {
             "diverged": False,
             "initial": float(stats.initial_sq),
@@ -1115,9 +1198,37 @@ class VisualOdometryPipeline:
 
     # -- finalization ------------------------------------------------------
 
+    def _write_debug_videos(self, out: str) -> list:
+        """The keypoint, match and depth overlay videos (mp4v, 5 frames/s)
+        from the per-keyframe debug images, through cv2's ``VideoWriter``.
+        Where cv2 is not installed none is written: a ``debug_videos_skipped``
+        event names cv2 and the files, which are returned."""
+        names = [name for _, name in DEBUG_VIDEOS]
+        try:
+            cv2 = _cv2("the debug videos (" + ", ".join(names) + ")")
+        except ImportError as e:
+            self.log.emit("debug_videos_skipped", f"    -> Debug videos not written: {e}",
+                          needs="cv2", files=names)
+            return names
+        for sub, name in DEBUG_VIDEOS:
+            paths = sorted(glob.glob(os.path.join(out, sub, "*.png")))
+            if not paths:
+                continue
+            h, w = read_png(paths[0]).shape[:2]
+            vw = cv2.VideoWriter(os.path.join(out, name), cv2.VideoWriter_fourcc(*"mp4v"), 5,
+                                 (w, h))
+            for p in paths:
+                img = read_png(p)
+                if img.shape[:2] == (h, w):
+                    vw.write(img)
+            vw.release()
+        return []
+
     def finalize(self, out_dir: Optional[str] = None) -> dict:
         """Global BA + full BA, then the outputs in ``out_dir``:
-        final_map_global_ba.pcd, trajectory.txt, events.jsonl, summary.json."""
+        final_map_global_ba.pcd, with ``debug`` the overlay videos, the final
+        2-D and 3-D trajectory plots, trajectory.txt, events.jsonl,
+        summary.json."""
         out = out_dir or self.cfg.output_dir
         result = self.run_global_ba()
         if self.cfg.final_full_ba:
@@ -1131,7 +1242,15 @@ class VisualOdometryPipeline:
                 pts, colors = voxel_downsample_native(pts, colors, self.cfg.export_voxel)
             write_pcd(os.path.join(out, "final_map_global_ba.pcd"), pts, colors)
 
+        skipped = self._write_debug_videos(out) if self.cfg.debug else []
         traj = self.map.trajectory(self.cfg.consistent_convention)
+        viz.plot_and_save_trajectory_2d(traj, os.path.join(out, "trajectory_2d"), "final",
+                                        device=self.device)
+        rots = [self.map.keyframes[k].R for k in self.map.sorted_kf_ids()]
+        viz.plot_and_save_trajectory_3d(traj, rots, os.path.join(out, "trajectory_3d"), "final",
+                                        device=self.device)
+        self.host_reads += 2
+
         with open(os.path.join(out, "trajectory.txt"), "w") as f:
             f.write("# frame_idx kf_id cx cy cz wx wy wz\n")
             for k, c in zip(self.map.sorted_kf_ids(), traj):
@@ -1147,6 +1266,8 @@ class VisualOdometryPipeline:
             "device": str(self.device),
             "global_ba": result,
         }
+        if skipped:
+            summary["debug_videos_skipped"] = skipped
         events_path = os.path.join(out, "events.jsonl")
         if not (self.log.path and os.path.abspath(self.log.path)
                 == os.path.abspath(events_path)):

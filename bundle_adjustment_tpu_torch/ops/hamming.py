@@ -37,6 +37,14 @@ def unpack_bits(descriptors_u32: torch.Tensor) -> torch.Tensor:
     return bits.reshape(*descriptors_u32.shape[:-1], 256).to(torch.float32)
 
 
+def hamming_matrix_popcount(d1_u32: torch.Tensor, d2_u32: torch.Tensor) -> torch.Tensor:
+    """Direct popcount(XOR) distance matrix, int32 (N1, N2); O(N1 N2) memory,
+    a test oracle."""
+    from bundle_adjustment_tpu_torch.ops.ann import popcount32
+
+    return popcount32(d1_u32[:, None, :] ^ d2_u32[None, :, :]).sum(-1).to(torch.int32)
+
+
 def hamming_matrix(d1_u32: torch.Tensor, d2_u32: torch.Tensor) -> torch.Tensor:
     """distance = |a| + |b| - 2 a.b over unpacked bits, float32 (N1, N2).
     Every term is an integer <= 256, so the float32 product is exact."""

@@ -35,7 +35,12 @@ ranks per card:
     torchrun --nproc-per-node 2 -m bundle_adjustment_tpu_torch.run \
         --multihost --mesh 2 --preset video --images DIR --out OUT
 
-Flags whose module is not ported raise ``NotImplementedError`` naming it.
+``--debug`` writes the JAX package's debug artifacts (per-keyframe
+trajectory plots and overlays, the sparsity spy of every BA window, the map
+after each window BA), drawn on the pipeline's device, and the overlay
+videos where cv2 is installed (where it is not, a ``debug_videos_skipped``
+event and summary field name them).  ``--features-from-cv2`` takes OpenCV's
+ORB features (needs cv2).
 """
 
 from __future__ import annotations
@@ -59,14 +64,6 @@ PRESETS = {
     "lehman_indoor": cfg_mod.preset_lehman_indoor,
 }
 
-#: flags whose module is not ported: flag -> what it needs
-UNPORTED = {
-    "debug": "utils/viz (matplotlib and cv2 plots; ROADMAP Queue 1 item 9), not ported yet",
-    "features_from_cv2": "the cv2 feature path (features_source='cv2'; ROADMAP Queue 1 "
-                         "item 9), not ported yet",
-}
-
-
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--preset", choices=sorted(PRESETS), default="video")
@@ -78,7 +75,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the pipeline runs (default: the card; raises where there is none)")
     p.add_argument("--debug", action="store_true",
-                   help="per-keyframe debug artifacts (not ported: raises)")
+                   help="per-keyframe debug artifacts (plots, overlays, sparsity spies, "
+                        "videos where cv2 is installed)")
     p.add_argument("--pcd-series", action="store_true",
                    help="write a per-keyframe PCD series")
     p.add_argument("--consistent-convention", action="store_true",
@@ -86,7 +84,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "reference-parity one (see config.py)")
     p.add_argument("--features", type=int, default=None)
     p.add_argument("--features-from-cv2", action="store_true",
-                   help="cv2.ORB features (not ported: raises)")
+                   help="cv2.ORB features (needs cv2)")
     p.add_argument("--fx", type=float, default=None,
                    help="override camera intrinsics (use with --fy/--cx/--cy)")
     p.add_argument("--fy", type=float, default=None)
@@ -117,11 +115,14 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _config(args) -> cfg_mod.PipelineConfig:
     cfg = PRESETS[args.preset]()
-    overrides = {"output_dir": args.out, "export_pcd_series": args.pcd_series}
+    overrides = {"output_dir": args.out, "debug": args.debug,
+                 "export_pcd_series": args.pcd_series}
     if args.consistent_convention:
         overrides["consistent_convention"] = True
     if args.features:
         overrides["num_features"] = args.features
+    if args.features_from_cv2:
+        overrides["features_source"] = "cv2"
     if args.mesh:
         overrides["mesh_shape"] = (1, args.mesh)
     if args.fx is not None:
@@ -148,9 +149,6 @@ def _device_busy(prof, wall_s: float) -> dict:
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    for flag, needs in UNPORTED.items():
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag.replace('_', '-')} needs {needs}")
     if not (args.images or args.video):
         raise SystemExit("provide --video or --images")
 

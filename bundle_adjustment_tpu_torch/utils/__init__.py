@@ -1,1 +1,2 @@
-"""Event log, PCD writer, trajectory metrics, synthetic renderer."""
+"""Event log and its analytics, PNG and PCD files, debug plots and overlays,
+trajectory metrics, synthetic renderer."""

@@ -9,7 +9,7 @@ Here every event is (a) appended as one JSON line to ``events.jsonl`` —
 the machine contract — and (b) optionally printed as a human line using the
 same vocabulary (frame ids, inlier ratios, keyframe trigger reasons, LBA
 improvement %) so log-scraping habits from the reference carry over.
-``bundle_adjustment_tpu.utils.analyze_log`` consumes either form.
+``bundle_adjustment_tpu_torch.utils.analyze_log`` consumes either form.
 """
 
 from __future__ import annotations

@@ -1,14 +1,16 @@
-"""Host I/O: frame sources, PCD point-cloud files and the voxel-grid
+"""Host I/O: frame sources, PNG and PCD files and the voxel-grid
 downsample (own copy of ``bundle_adjustment_tpu.utils.io``'s frame sources,
 PCD reader/writer and ``voxel_downsample``).
 
-The machine with the card has no cv2, so image folders of PNG files are
-decoded here with the standard library: ``read_png`` takes 8-bit gray, RGB
-and RGBA PNGs without interlace (``zlib`` and the five PNG row filters) and
-returns the BGR array that ``cv2.imread(path, cv2.IMREAD_COLOR)`` returns,
-byte for byte (gray replicated to three channels, alpha dropped).  Any
-other image, a PNG of another kind included, and any video go through cv2
-where it is installed and raise ``ImportError`` naming it where it is not.
+The machine with the card has no cv2, so PNG files are read and written
+here with the standard library: ``read_png`` takes 8-bit gray, RGB and RGBA
+PNGs without interlace (``zlib`` and the five PNG row filters) and returns
+the BGR array that ``cv2.imread(path, cv2.IMREAD_COLOR)`` returns, byte for
+byte (gray replicated to three channels, alpha dropped); ``write_png``
+writes 8-bit BGR as ``cv2.imwrite`` does (RGB, zlib level 1), with text
+chunks, which ``read_png_text`` reads back.  Any other image, a PNG of
+another kind included, and any video go through cv2 where it is installed
+and raise ``ImportError`` naming it where it is not.
 """
 
 from __future__ import annotations
@@ -27,13 +29,17 @@ _PNG_CHANNELS = {0: 1, 2: 3, 6: 4}
 _IMAGE_EXTENSIONS = (".png", ".jpg", ".jpeg", ".bmp")
 
 
-def _cv2(what: str):
+#: what a reader's ``_cv2`` error adds
+_PNG_HINT = "; folders of 8-bit gray, RGB or RGBA PNG files are read without it"
+
+
+def _cv2(what: str, hint: str = ""):
+    """The cv2 module; raises ``ImportError`` naming cv2 and ``what`` needs
+    it where it is not installed."""
     try:
         import cv2
     except ImportError as e:
-        raise ImportError(f"{what} needs cv2 (OpenCV), which is not installed; "
-                          "folders of 8-bit gray, RGB or RGBA PNG files are read "
-                          "without it") from e
+        raise ImportError(f"{what} needs cv2 (OpenCV), which is not installed{hint}") from e
     return cv2
 
 
@@ -128,6 +134,55 @@ def read_png(path: str) -> np.ndarray:
     return np.ascontiguousarray(pix[:, :, 2::-1])
 
 
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def write_png(path: str, bgr: np.ndarray, text: Optional[dict] = None) -> None:
+    """``bgr`` (H, W, 3) uint8 as an 8-bit RGB PNG, every row under the Up
+    filter, zlib level 1 (``cv2.imwrite``'s default compression), creating
+    the folder.  ``text``: keyword -> value pairs written as ``tEXt`` chunks
+    (``iTXt``, UTF-8, for a value outside Latin-1)."""
+    bgr = np.asarray(bgr)
+    if bgr.dtype != np.uint8 or bgr.ndim != 3 or bgr.shape[2] != 3:
+        raise ValueError(f"write_png takes (H, W, 3) uint8, got {bgr.shape} {bgr.dtype}")
+    h, w = bgr.shape[:2]
+    rgb = bgr[:, :, ::-1].reshape(h, -1)
+    up = np.diff(rgb, axis=0, prepend=np.zeros_like(rgb[:1]))      # uint8, wraps
+    rows = np.concatenate([np.full((h, 1), 2, np.uint8), up], axis=1)
+    chunks = [_png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))]
+    for key, value in (text or {}).items():
+        try:
+            chunks.append(_png_chunk(b"tEXt", key.encode("latin-1") + b"\0"
+                                     + str(value).encode("latin-1")))
+        except UnicodeEncodeError:
+            chunks.append(_png_chunk(b"iTXt", key.encode("latin-1") + b"\0\0\0\0\0"
+                                     + str(value).encode("utf-8")))
+    chunks += [_png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)), _png_chunk(b"IEND", b"")]
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as fh:
+        fh.write(_PNG_SIGNATURE + b"".join(chunks))
+
+
+def read_png_text(path: str) -> dict:
+    """The ``tEXt`` and uncompressed ``iTXt`` chunks of a PNG file as a
+    keyword -> value dict."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    out = {}
+    for kind, body in _png_chunks(data):
+        if kind == b"tEXt":
+            key, _, value = body.partition(b"\0")
+            out[key.decode("latin-1")] = value.decode("latin-1")
+        elif kind == b"iTXt":
+            key, _, rest = body.partition(b"\0")
+            if rest[:1] == b"\0":      # not compressed: skip method, language, translated key
+                value = rest[2:].split(b"\0", 2)[2]
+                out[key.decode("latin-1")] = value.decode("utf-8")
+    return out
+
+
 def read_image(path: str) -> Optional[np.ndarray]:
     """BGR uint8 of an image file, as ``cv2.imread(path, cv2.IMREAD_COLOR)``:
     PNGs that ``read_png`` takes are decoded here, anything else by cv2
@@ -140,14 +195,14 @@ def read_image(path: str) -> Optional[np.ndarray]:
             what = f"reading {e}"
     else:
         what = f"reading {path} (not a PNG file)"
-    cv2 = _cv2(what)
+    cv2 = _cv2(what, _PNG_HINT)
     return cv2.imread(path, cv2.IMREAD_COLOR)
 
 
 def video_frames(path: str, start: int = 0, end: Optional[int] = None) -> Iterator[np.ndarray]:
     """Yield BGR frames of a video from frame ``start`` up to ``end``
     (exclusive), decoded by cv2."""
-    cv2 = _cv2(f"video_frames ({path})")
+    cv2 = _cv2(f"video_frames ({path})", _PNG_HINT)
     cap = cv2.VideoCapture(path)
     if not cap.isOpened():
         raise FileNotFoundError(f"cannot open video: {path}")

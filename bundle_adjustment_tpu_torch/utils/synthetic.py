@@ -392,3 +392,17 @@ def synthetic_global_map(seed: int, C: int = 200, P: int = 30000, obs_per_pt: in
             kp_valid=np.ones(len(rows), bool), frame_idx=c))
         m.add_observations(c, mp_ids[pr["pnt_idx"][rows]], np.arange(len(rows)), xy)
     return m, pr["K"].astype(np.float64)
+
+
+def write_video(frames, path: str, fps: int = 15):
+    """Write frames to an mp4 through cv2's ``VideoWriter`` (mp4v), as the
+    JAX package's ``write_video`` does; raises naming cv2 where it is not
+    installed."""
+    from bundle_adjustment_tpu_torch.utils.io import _cv2
+
+    cv2 = _cv2(f"write_video ({path})")
+    h, w = frames[0].shape[:2]
+    out = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
+    for f in frames:
+        out.write(f)
+    out.release()

@@ -31,8 +31,8 @@ Phases, each of which exits non-zero when it fails:
    solve against ``solve_plain``; two launches and two solves bit-equal;
    times per launch from CUDA events;
 6. the main path through its CLI: the port's rendered strafe sequence
-   at 1280 x 720, written as a folder of PNG files (a standard-library
-   encoder here, the port's own decoder in the run), through
+   at 1280 x 720, written as a folder of PNG files (the port's
+   standard-library encoder and decoder, ``utils/io``), through
    ``run.main(["--preset", "video", "--images", ...])`` with the camera
    fitted to the render (``preset_video``: 4000 features, 8 levels, the
    default ``BAConfig``), pipelined (``process_stream``), ``--no-pipelined``
@@ -123,6 +123,27 @@ Phases, each of which exits non-zero when it fails:
    each part's seconds and the ``all_reduce`` calls per sharded LM
    iteration.
 
+13. ``--debug``, the run's plots, log analytics and the cv2 features: (a)
+   the CLI with ``--debug`` over phase 6's 40 frames, the launch counters set
+   to 0 just before and read just after: every artifact the JAX package's
+   debug run writes (``debug_keyframes/``, ``debug_matches/``,
+   ``debug_depth/``, ``debug_sparsity/``, ``trajectory_2d/``,
+   ``trajectory_3d/``, ``lba_steps/``; the three videos, or where cv2 is
+   not installed the ``debug_videos_skipped`` event and summary field that
+   name them), each PNG decoded by ``utils/io.read_png`` at its size, a ring
+   pixel changed at every drawn keypoint, ``trajectory.txt`` bit-equal to
+   phase 6's, K1, K2 and K3 launched; (b) ``utils/analyze_log`` over (a)'s
+   ``events.jsonl``: its counts equal those tallied from the events, the
+   plot written; (c) ``features_source="cv2"``: without cv2 the
+   constructor raises naming it, with cv2 12 frames through the staged
+   path with K1 launched; (d) one line of JSON: the host ms per keyframe of
+   the debug drawing and encoding in (a) (each call timed to a
+   synchronise), per window of the sparsity spy and the map PCD, of the
+   videos, the wall ms per keyframe added against phase 6's run, and the
+   last keyframe's drawing redone alone: host ms (the PNG encoding's share
+   apart), device ms under the profiler, two draws' files equal, and its
+   overlays drawn on the card and on the CPU within one intensity level.
+
 ``--kernel-times [--tree DIR]`` only builds and times K1, K3 and K4's setup,
 matvec and cost (``kernel_times``: K3 per LM iteration over a sweep of C' and
 P as well; K4a, K4b and K4d at the global path's shape) on this checkout or
@@ -131,7 +152,8 @@ on another commit's tree, for comparing two commits in one call.
 The line before the last is the kernels' JSON record (``launches``: the
 main path's, phase 6, for K1 to K3 and the global path's, phase 9, for K4;
 ``launches_lehman_indoor``: phase 11's run (a); ``launches_parallel``: rank
-0's in phase 12 (b) 4 and 5), the line before that the
+0's in phase 12 (b) 4 and 5; ``launches_debug``: phase 13 (a)), the line
+before that the
 card's name and power limit; the last line is the ``{"ok": true, ...}``
 record.  Imports nothing of JAX.
 """
@@ -142,6 +164,7 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import importlib.util
 import json
 import math
 import os
@@ -988,28 +1011,6 @@ def kernel_times(torch, seed: int, dev) -> dict:
     return out
 
 
-def write_png(path: str, bgr) -> None:
-    """``bgr`` (H, W, 3) uint8 as an RGB PNG, every row under the Up filter,
-    with the standard library (the card machine has no cv2)."""
-    import struct
-    import zlib
-
-    import numpy as np
-
-    rgb = bgr[:, :, ::-1].reshape(bgr.shape[0], -1)
-    up = np.diff(rgb, axis=0, prepend=np.zeros_like(rgb[:1]))      # uint8, wraps
-    rows = np.concatenate([np.full((rgb.shape[0], 1), 2, np.uint8), up], axis=1)
-
-    def chunk(kind, body):
-        return (struct.pack(">I", len(body)) + kind + body
-                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
-
-    with open(path, "wb") as fh:
-        fh.write(b"\x89PNG\r\n\x1a\n"
-                 + chunk(b"IHDR", struct.pack(">IIBBBBB", bgr.shape[1], bgr.shape[0], 8, 2, 0, 0, 0))
-                 + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + chunk(b"IEND", b""))
-
-
 def cli_args(folder: str, K, W: int, H: int, preset: str = "video") -> list:
     """``run.main``'s arguments for ``preset`` with the camera fitted to the
     render."""
@@ -1019,9 +1020,12 @@ def cli_args(folder: str, K, W: int, H: int, preset: str = "video") -> list:
 
 
 def write_pngs(folder: str, frames) -> None:
-    """``frames`` as ``folder``/00000.png, ... (zlib releases the interpreter
-    lock: eight threads)."""
+    """``frames`` as ``folder``/00000.png, ... with the port's standard-library
+    encoder (no cv2 needed; zlib releases the interpreter lock: eight
+    threads)."""
     from concurrent.futures import ThreadPoolExecutor
+
+    from bundle_adjustment_tpu_torch.utils.io import write_png
 
     os.makedirs(folder, exist_ok=True)
     with ThreadPoolExecutor(8) as pool:
@@ -2175,6 +2179,284 @@ def native_parallel_phase(torch, np, work: str, seed: int, folder: str, K, W: in
                 ranks_per_card=r0["ranks_per_card"])
 
 
+# -- phase 13: --debug, the run's plots, log analytics, cv2 features --------
+
+#: what a ``--debug`` run writes beside the plain outputs, as the JAX
+#: package's does: folder -> (file prefix, canvas size (H, W) or None for the
+#: frame's size, or "pair" for two frames side by side)
+DEBUG_ARTIFACTS = {"debug_keyframes": ("keyframe_", None), "debug_matches": ("matches_", "pair"),
+                   "debug_depth": ("depth_", None), "debug_sparsity": ("sparsity_", (600, 600)),
+                   "trajectory_2d": ("trajectory_2d_", (800, 800)),
+                   "trajectory_3d": ("trajectory_3d_", (900, 900)),
+                   "lba_steps": ("map_after_lba_kf_", None)}
+DEBUG_VIDEOS = ("keypoint_video.mp4", "match_video.mp4", "depth_video.mp4")
+
+
+def timed_calls(torch, spent: list, module, name: str, when=lambda a, kw: True):
+    """Replace ``module.name`` by a function that adds the host ms of each
+    call for which ``when`` holds, from a synchronise before it to one after
+    it, to ``spent``; returns the original, to be put back."""
+    orig = getattr(module, name)
+
+    def call(*a, **kw):
+        if not when(a, kw):
+            return orig(*a, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*a, **kw)
+        torch.cuda.synchronize()
+        spent.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    setattr(module, name, call)
+    return orig
+
+
+def keyframe_drawing(torch, np, pipe, frames_dir: str, out: str) -> dict:
+    """The debug drawing of one keyframe, redone on the run's last keyframe
+    into ``out``: ``_debug_keyframe`` (the two trajectory plots, the match,
+    keypoint and depth overlays) and the sparsity spy of the last window,
+    once to warm up and then under torch.profiler.  Returns the host ms
+    (to a synchronise) and the device ms (the CUDA kernels' and copies'
+    time in the profile), and the host ms of the PNG files' encoding and
+    writing in the unprofiled draw."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bundle_adjustment_tpu_torch.utils import io, viz
+
+    ids = pipe.map.sorted_kf_ids()
+    last, prev = pipe.map.keyframes[ids[-1]], pipe.map.keyframes[ids[-2]]
+    names = sorted(os.listdir(frames_dir))
+    frame = io.read_png(os.path.join(frames_dir, names[last.frame_idx]))
+    prev_frame = io.read_png(os.path.join(frames_dir, names[prev.frame_idx]))
+    n = int(min(prev.kp_valid.sum(), last.kp_valid.sum()))
+    cfg = pipe.cfg
+    pipe.cfg = dataclasses.replace(cfg, output_dir=out)
+    problem, mp_ids, _ = pipe.map.gather_window(ids[-6:-1], pipe.K, cfg.ba.max_points,
+                                                cfg.ba.max_obs)
+
+    def draw():
+        pipe._last_debug_frame = prev_frame
+        pipe._debug_keyframe(frame, prev, last, last.xy, last.kp_valid, np.arange(len(last.xy)),
+                             np.arange(n))
+        viz.plot_and_save_sparsity(problem.cam_idx, problem.pnt_idx, 5, len(mp_ids),
+                                   os.path.join(out, "debug_sparsity"), "redo", device="cuda")
+        torch.cuda.synchronize()
+
+    def pngs():
+        found = {}
+        for root, _, files in os.walk(out):
+            for f in files:
+                with open(os.path.join(root, f), "rb") as fh:
+                    found[os.path.join(root, f)] = fh.read()
+        return found
+
+    encode = []
+    try:
+        draw()
+        first = pngs()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            draw()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        orig = timed_calls(torch, encode, viz, "write_png")
+        try:
+            t0 = time.perf_counter()
+            draw()
+            bare_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            viz.write_png = orig
+    finally:
+        pipe.cfg = cfg
+    if pngs() != first:
+        fail("debug (d): two draws of one keyframe on the card give other files")
+    # the same overlays drawn on the CPU: the same float32 formulas, so a pixel
+    # may differ only where a last-bit difference flips its rounding
+    kp = last.xy[last.kp_valid]
+    depths = pipe.map.points()[last.kp_to_mp[last.kp_to_mp >= 0]] @ last.R[2] + last.t[2]
+    gaps = {}
+    for name, draw_one in (
+            ("keypoints", lambda d, path: viz.draw_keypoints(frame, kp, path, device=d)),
+            ("matches", lambda d, path: viz.draw_matches(prev_frame, prev.xy[:n], frame,
+                                                         last.xy[:n], path, device=d)),
+            ("depth", lambda d, path: viz.draw_depth_overlay(
+                frame, last.xy[last.kp_to_mp >= 0], depths, path, device=d))):
+        imgs = []
+        for d in ("cuda", "cpu"):
+            draw_one(d, os.path.join(out, f"{name}_{d}.png"))
+            imgs.append(io.read_png(os.path.join(out, f"{name}_{d}.png")).astype(np.int16))
+        diff = np.abs(imgs[0] - imgs[1])
+        gaps[name] = (int(diff.max()), int((diff > 0).any(2).sum()))
+        if diff.max() > 1:
+            fail(f"debug (d): {name} drawn on the card and on the CPU differ by up to "
+                 f"{diff.max()} levels at {(diff > 0).any(2).sum()} pixels")
+    dev_us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+    return dict(host_ms=bare_ms, profiled_host_ms=host_ms, device_ms=dev_us / 1e3,
+                encode_ms=sum(encode), images=len(encode), keypoints=int(last.kp_valid.sum()),
+                points=len(mp_ids), card_vs_cpu=gaps)
+
+
+def debug_phase(torch, np, work: str, folder: str, K, W: int, H: int, plain: dict) -> dict:
+    """Phase 13 (see the module docstring).  ``plain``: phase 6's pipelined
+    run (its output folder, keyframes and run seconds).  Returns the debug
+    run's launches per kernel."""
+    from bundle_adjustment_tpu_torch import kernels
+    from bundle_adjustment_tpu_torch.config import CameraModel, preset_video
+    from bundle_adjustment_tpu_torch.models import pipeline as pipeline_mod
+    from bundle_adjustment_tpu_torch.models.pipeline import VisualOdometryPipeline
+    from bundle_adjustment_tpu_torch.utils import analyze_log, io, viz
+    from bundle_adjustment_tpu_torch.utils.event_log import EventLog, read_events
+
+    phase_t0 = time.perf_counter()
+
+    # -- (a) the CLI with --debug over phase 6's frames -----------------------
+    spent = {"keyframe": [], "sparsity": [], "lba_steps": [], "videos": []}
+    originals = [
+        (VisualOdometryPipeline, "_debug_keyframe",
+         timed_calls(torch, spent["keyframe"], VisualOdometryPipeline, "_debug_keyframe")),
+        (viz, "plot_and_save_sparsity",
+         timed_calls(torch, spent["sparsity"], viz, "plot_and_save_sparsity")),
+        (pipeline_mod, "write_pcd",
+         timed_calls(torch, spent["lba_steps"], pipeline_mod, "write_pcd",
+                     lambda a, kw: "lba_steps" in a[0])),
+        (VisualOdometryPipeline, "_write_debug_videos",
+         timed_calls(torch, spent["videos"], VisualOdometryPipeline, "_write_debug_videos")),
+    ]
+    try:
+        r = run_cli(torch, cli_args(folder, K, W, H) + ["--out", os.path.join(work, "debug"),
+                                                        "--debug"])
+    finally:
+        for mod, name, orig in originals:
+            setattr(mod, name, orig)
+    out, pipe, launches = r["out"], r["pipe"], r["launches"]
+    with open(os.path.join(out, "trajectory.txt")) as fa, \
+            open(os.path.join(plain["out"], "trajectory.txt")) as fb:
+        if fa.read() != fb.read():
+            fail("debug (a): trajectory.txt differs from phase 6's run without --debug")
+    n_kf = pipe.map.num_keyframes
+    names = sorted(os.listdir(folder))
+    checked = 0
+    for sub, (prefix, size) in DEBUG_ARTIFACTS.items():
+        path = os.path.join(out, sub)
+        files = sorted(os.listdir(path)) if os.path.isdir(path) else []
+        if not files or not all(f.startswith(prefix) for f in files):
+            fail(f"debug (a): {sub}/ holds {files[:5]}, expected {prefix}* files")
+        for f in files:
+            if not f.endswith(".png"):
+                continue
+            want = (H, 2 * W) if size == "pair" else size or (H, W)
+            img = io.read_png(os.path.join(path, f))
+            if img.shape != want + (3,):
+                fail(f"debug (a): {sub}/{f} decodes to {img.shape}, expected {want}")
+            checked += 1
+    kf_files = sorted(os.listdir(os.path.join(out, "debug_keyframes")))
+    if len(kf_files) != n_kf - 1:
+        fail(f"debug (a): {len(kf_files)} keyframe overlays for {n_kf} keyframes")
+    all_differ, rings = 0, 0
+    offsets = np.asarray([[3, 0], [-3, 0], [0, 3], [0, -3]])
+    for f in kf_files:
+        kf = pipe.map.keyframes[int(f[len("keyframe_"):-4])]
+        drawn = io.read_png(os.path.join(out, "debug_keyframes", f))
+        frame = io.read_png(os.path.join(folder, names[kf.frame_idx]))
+        c = np.round(kf.xy[kf.kp_valid]).astype(np.int64)
+        p = (c[:, None, :] + offsets[None]).reshape(-1, 2)
+        inside = ((p >= 0) & (p < [W, H])).all(1)
+        differ = np.zeros(len(p), bool)
+        differ[inside] = (drawn[p[inside, 1], p[inside, 0]]
+                          != frame[p[inside, 1], p[inside, 0]]).any(1)
+        differ = differ.reshape(-1, 4)
+        if not differ.any(1).all():
+            fail(f"debug (a): {f}: {int((~differ.any(1)).sum())} of {len(c)} keypoints with "
+                 "no ring pixel changed")
+        all_differ += int(differ.all(1).sum())
+        rings += len(c)
+    events = read_events(os.path.join(out, "events.jsonl"))
+    skipped = [e for e in events if e["event"] == "debug_videos_skipped"]
+    videos = [v for v in DEBUG_VIDEOS if os.path.isfile(os.path.join(out, v))]
+    if skipped:
+        if videos or skipped[0]["needs"] != "cv2" or sorted(skipped[0]["files"]) \
+                != sorted(DEBUG_VIDEOS) or r["summary"].get("debug_videos_skipped") is None:
+            fail(f"debug (a): the videos' absence is not announced as expected: {skipped}")
+    elif len(videos) != 3:
+        fail(f"debug (a): videos {videos} and no debug_videos_skipped event")
+    for name in ("hamming_knn2", "orb_gather40", "ba_window_lm"):
+        if launches[name] <= 0:
+            fail(f"debug (a): kernel {name} was not launched")
+    spent_kf = statistics.mean(spent["keyframe"]) if spent["keyframe"] else float("nan")
+    print(f"debug (a): the CLI with --debug over {len(names)} frames: {n_kf} keyframes, "
+          f"trajectory.txt bit-equal to phase 6's; {checked} PNGs decoded at their sizes; "
+          f"at {rings} drawn keypoints a ring pixel changed ({all_differ} with all four); "
+          + (f"videos not written (no cv2), announced for {skipped[0]['files']}" if skipped
+             else f"videos {videos}")
+          + f"; launches {launches}; run.main {r['seconds']:.2f} s, {r['summary']['elapsed_s']} s "
+          f"for the frames (phase 6 pipelined: {plain['elapsed_s']} s)")
+
+    # -- (b) analyze_log over (a)'s events ------------------------------------
+    png = os.path.join(work, "analysis.png")
+    summary = analyze_log.analyze_and_plot(analyze_log.load_events(
+        os.path.join(out, "events.jsonl")), png, device="cuda")
+    reasons = {}
+    for e in events:
+        if e["event"] == "keyframe_trigger":
+            reasons[e["reason"]] = reasons.get(e["reason"], 0) + 1
+    tally = dict(frames=sum(e["event"] == "frame" for e in events), keyframes=sum(reasons.values()),
+                 trigger_reasons=reasons, ba_runs=sum(e["event"] == "ba_complete" for e in events),
+                 ba_divergences=sum(e["event"] == "ba_diverged" for e in events))
+    if {k: summary[k] for k in tally} != tally or tally["keyframes"] != n_kf \
+            or tally["frames"] != len(names):
+        fail(f"debug (b): analyze_log's counts {summary} differ from the events' {tally}")
+    if io.read_png(png).shape != (880, 1320, 3):
+        fail("debug (b): the analysis plot is not 1320 x 880")
+    print(f"debug (b): analyze_log over (a)'s events equals the tally {tally}; plot written")
+
+    # -- (c) features_source="cv2" --------------------------------------------
+    cam = CameraModel(fx=float(K[0, 0]), fy=float(K[1, 1]), cx=float(K[0, 2]), cy=float(K[1, 2]),
+                      width=W, height=H)
+    cfg_cv2 = dataclasses.replace(preset_video(cam), features_source="cv2")
+    found = {m: importlib.util.find_spec(m) is not None for m in ("cv2", "matplotlib")}
+    print(f"debug (c): installed on this machine: {found}")
+    if not found["cv2"]:
+        try:
+            VisualOdometryPipeline(cfg_cv2, log=EventLog(echo=False), device="cuda")
+        except ImportError as e:
+            if "cv2" not in str(e):
+                fail(f"debug (c): the constructor's error does not name cv2: {e}")
+            print(f"debug (c): no cv2 here; the constructor raises: {e}")
+        else:
+            fail("debug (c): features_source='cv2' built without cv2")
+        cv2_launches = None
+    else:
+        pipe_cv2 = VisualOdometryPipeline(cfg_cv2, log=EventLog(echo=False), device="cuda")
+        kernels.reset_launches()
+        st = drive(torch, pipe_cv2, [io.read_png(os.path.join(folder, n)) for n in names[:12]])
+        cv2_launches = dict(kernels.LAUNCHES)
+        if cv2_launches["hamming_knn2"] <= 0 or pipe_cv2.track.replays:
+            fail(f"debug (c): cv2 features: K1 not launched or the graph replayed: "
+                 f"{cv2_launches}")
+        print(f"debug (c): cv2 features over 12 frames, staged: statuses "
+              f"{''.join(x[0] for x in st['statuses'])}, launches {cv2_launches}")
+
+    # -- (d) what the debug drawing costs per keyframe ------------------------
+    redo = keyframe_drawing(torch, np, pipe, folder, os.path.join(work, "debug_redo"))
+    added = (r["summary"]["elapsed_s"] - plain["elapsed_s"]) * 1e3 / max(n_kf - 1, 1)
+    per_window = statistics.mean(spent["sparsity"]) if spent["sparsity"] else 0.0
+    print("debug (d): " + json.dumps(dict(
+        keyframes=n_kf, in_run_host_ms_per_keyframe=round(spent_kf, 3),
+        sparsity_host_ms_per_window=round(per_window, 3), windows=len(spent["sparsity"]),
+        lba_steps_host_ms_per_window=round(statistics.mean(spent["lba_steps"]), 3)
+        if spent["lba_steps"] else None,
+        videos_host_ms=round(sum(spent["videos"]), 3),
+        added_wall_ms_per_keyframe_vs_phase6=round(added, 3),
+        redo_host_ms=round(redo["host_ms"], 3), redo_png_encode_host_ms=round(redo["encode_ms"], 3),
+        redo_images=redo["images"], redo_device_ms=round(redo["device_ms"], 3),
+        redo_keypoints=redo["keypoints"],
+        card_vs_cpu_max_level_and_pixels=redo["card_vs_cpu"])))
+    print(f"debug: phase {time.perf_counter() - phase_t0:.1f} s")
+    return dict(launches=launches, cv2_launches=cv2_launches)
+
+
 def main() -> int:
     script_t0 = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2520,6 +2802,9 @@ def main() -> int:
     main_window = dict(problem={k: getattr(problem_w, k).cpu().numpy()
                                 for k in problem_w._fields},
                        n_fixed=max(1, min(cfg.ba.n_fixed, len(win_ids) - 1)))
+    # phase 13's comparison: the trajectory (the three runs are bit-equal) and
+    # the frames' seconds of a run that did not pay the process's first uses
+    plain = dict(out=out_dir, elapsed_s=runs["pipelined again"]["summary"]["elapsed_s"])
     # the clones, and the pipelines with their graphs' memory pools, stay out
     # of the later phases' peak memory
     del k1_calls, k3_calls, rec, runs, main_run, pipe, problem_w
@@ -2707,6 +2992,10 @@ def main() -> int:
     parallel = native_parallel_phase(torch, np, work, args.seed, folder, K, W, H, gt_C,
                                      main_window, lehman, [e["final_cost"] for e in g1["events"]])
 
+    # -- 13. --debug, analyze_log, cv2 features ------------------------------
+    gc.collect()
+    debug = debug_phase(torch, np, work, folder, K, W, H, plain)
+
     if args.profile:
         # the CLI over the first N frames under torch.profiler
         pfolder = os.path.join(work, "frames_profiled")
@@ -2728,26 +3017,30 @@ def main() -> int:
              replaces="bundle_adjustment_tpu/ops/hamming_pallas.py:87",
              launches=launches["hamming_knn2"], library_ms=None, **k1,
              launches_lehman_indoor=lehman["launches_a"]["hamming_knn2"],
-             launches_parallel=parallel["launches"]["hamming_knn2"]),
+             launches_parallel=parallel["launches"]["hamming_knn2"],
+             launches_debug=debug["launches"]["hamming_knn2"]),
         dict(name="orb_gather40", route="cuda",
              source="bundle_adjustment_tpu_torch/csrc/orb_gather.cu",
              replaces="bundle_adjustment_tpu/ops/orb_pallas.py:97",
              launches=launches["orb_gather40"], library_ms=None, **k2,
              launches_lehman_indoor=lehman["launches_a"]["orb_gather40"],
-             launches_parallel=parallel["launches"]["orb_gather40"]),
+             launches_parallel=parallel["launches"]["orb_gather40"],
+             launches_debug=debug["launches"]["orb_gather40"]),
         dict(name="ba_window_lm", route="cuda",
              source="bundle_adjustment_tpu_torch/csrc/ba_window_lm.cu",
              replaces="bundle_adjustment_tpu/ops/ba_pallas.py:521",
              launches=launches["ba_window_lm"], library_ms=None, **k3,
              launches_lehman_indoor=lehman["launches_a"]["ba_window_lm"],
-             launches_parallel=parallel["launches"]["ba_window_lm"]),
+             launches_parallel=parallel["launches"]["ba_window_lm"],
+             launches_debug=debug["launches"]["ba_window_lm"]),
     ] + [
         dict(name=role, route="cuda",
              source="bundle_adjustment_tpu_torch/csrc/ba_global_pcg.cu",
              replaces=f"bundle_adjustment_tpu/ops/ba_global_pallas.py:{line}",
              launches=g_launches[role], library_ms=None, **k4[role],
              launches_lehman_indoor=lehman["launches_a"][role],
-             launches_parallel=parallel["launches"][role])
+             launches_parallel=parallel["launches"][role],
+             launches_debug=debug["launches"][role])
         for role, line in zip(K4_ROLES, (339, 522, 583, 621))
     ]}
     print(f"parallel paths: backend {parallel['backend']}, world size "

@@ -204,3 +204,15 @@ def test_wrapper_checks_its_inputs():
     with pytest.raises(ValueError):
         hamming_kernel.knn2_fused(d, d, torch.ones(3, dtype=torch.bool))
 
+
+
+@pytest.mark.parametrize("n1,n2", [(130, 200), (64, 1), (5, 2)])
+def test_hamming_matrix_popcount_matches_jax(n1, n2):
+    """The popcount(XOR) oracle equals the JAX package's exactly, as int32,
+    and equals the bit-product distance matrix."""
+    d1, d2, _ = _case(n1 * 7 + n2, n1, n2)
+    want = np.asarray(jham.hamming_matrix_popcount(jnp.asarray(d1), jnp.asarray(d2)))
+    got = tham.hamming_matrix_popcount(_port(d1), _port(d2))
+    assert got.dtype == torch.int32 and got.shape == (n1, n2)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), tham.hamming_matrix(_port(d1), _port(d2)).numpy())

@@ -3,15 +3,19 @@
 - no module of ``bundle_adjustment_tpu_torch``, and none of the ``chip_*.py``
   scripts, imports ``jax`` or anything of the JAX package
   (a source scan, and a fresh interpreter that imports every module and
-  finds no ``jax`` loaded);
+  finds no ``jax`` loaded); none imports matplotlib, and cv2 is imported
+  only by ``utils/io._cv2`` (a source scan; importing every module loads
+  neither);
 - every entry point's default device is ``"cuda"`` (the pipeline, the
-  tracked-frame step, the CLI's ``run.main`` and ``prewarm`` among them),
+  tracked-frame step, the CLI's ``run.main``, ``prewarm`` and the drawing
+  of ``utils/viz`` among them),
   and without a card it raises instead of running on the CPU;
 - a kernel wrapper takes its plain version only for a CPU tensor;
-- every configuration not ported yet raises ``NotImplementedError`` naming
-  the missing module; the default configuration is not one, and neither is
-  a BA window above ``pcg_min_cameras`` cameras, ``mesh_shape`` (which
-  raises when the world has fewer ranks) or ``export_voxel``.
+- every configuration of the JAX package builds: ``debug`` and
+  ``features_source="cv2"`` on the CPU (and raise on the default device
+  without a card), relocalization, culling and loop closure, a BA window
+  above ``pcg_min_cameras`` cameras, ``mesh_shape`` (which raises when the
+  world has fewer ranks) and ``export_voxel``.
 """
 
 import ast
@@ -33,7 +37,7 @@ from bundle_adjustment_tpu_torch.ops import ba, ba_global_kernel, ba_kernel, ham
     orb_kernel
 from bundle_adjustment_tpu_torch.ops.ba_grid import BAProblemGrid
 from bundle_adjustment_tpu_torch.parallel import launch, mesh
-from bundle_adjustment_tpu_torch.utils import prewarm
+from bundle_adjustment_tpu_torch.utils import prewarm, viz
 from bundle_adjustment_tpu_torch.utils.synthetic import synthetic_global_map, synthetic_window
 
 # Several pytest workers share the cores: more torch threads per worker
@@ -69,12 +73,36 @@ def test_no_jax_import_in_source(path):
         assert not bad, f"{path.name}:{node.lineno} imports {bad}"
 
 
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))
+def test_no_matplotlib_and_cv2_only_through_io(path):
+    """The card machine has neither: no module imports matplotlib, and cv2
+    is imported only inside ``utils/io._cv2``, which raises naming it."""
+    tree = ast.parse(path.read_text())
+    funcs = {}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.FunctionDef):
+            for inner in ast.walk(node):
+                funcs.setdefault(id(inner), node.name)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        top = {n.split(".")[0] for n in names}
+        assert "matplotlib" not in top, f"{path.name}:{node.lineno} imports matplotlib"
+        if "cv2" in top:
+            assert path == PKG / "utils" / "io.py" and funcs.get(id(node)) == "_cv2", \
+                f"{path.name}:{node.lineno} imports cv2 outside utils/io._cv2"
+
+
 def test_importing_every_module_loads_no_jax():
     mods = [m.name for m in pkgutil.walk_packages([str(PKG)], "bundle_adjustment_tpu_torch.")]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-            "       or m.startswith('bundle_adjustment_tpu.')]\n"
+            "       or m.startswith('bundle_adjustment_tpu.') or m in ('cv2', 'matplotlib')]\n"
             "assert not bad, bad\n"
             "print(len(sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -114,6 +142,12 @@ def test_default_device_raises_without_a_card(monkeypatch):
         mesh.default_mesh()
     with pytest.raises(RuntimeError, match="cuda"):
         launch.run_ranks(print, 2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        viz.draw_keypoints(np.zeros((4, 4, 3), np.uint8), np.zeros((0, 2)),
+                           str(REPO / "no_such_out" / "k.png"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        viz.plot_and_save_trajectory_2d(np.zeros((2, 3)), str(REPO / "no_such_out"), "t")
+    assert not (REPO / "no_such_out").exists()
     # the CPU is used when asked for
     assert pipeline.VisualOdometryPipeline(PipelineConfig(camera=CAM), device="cpu")
     assert frontend.TrackStep("cpu")
@@ -144,21 +178,24 @@ def test_lehman_indoor_switches_build(change):
     and the three together, build a pipeline on the CPU, and the card is
     the default."""
     cfg = dataclasses.replace(PipelineConfig(camera=CAM), **change)
-    assert pipeline._unported(cfg, torch.device("cuda")) is None
     pipe = pipeline.VisualOdometryPipeline(cfg, device="cpu")
     assert pipe._last_loop_kf < 0 and pipe.device.type == "cpu"
     with pytest.raises(RuntimeError, match="cuda"):
         pipeline.VisualOdometryPipeline(cfg)
 
 
-@pytest.mark.parametrize("change,needs", [
-    (dict(features_source="cv2"), "cv2"),
-    (dict(debug=True), "viz"),
-])
-def test_unported_configurations_raise(change, needs):
+@pytest.mark.parametrize("change", [dict(debug=True), dict(features_source="cv2")],
+                         ids=["debug", "features_source-cv2"])
+def test_debug_and_cv2_features_build(change, monkeypatch):
+    """``debug`` and the cv2 features are ported: each builds a pipeline on
+    the CPU, and on the default device without a card it raises."""
     cfg = dataclasses.replace(PipelineConfig(camera=CAM), **change)
-    with pytest.raises(NotImplementedError, match=needs):
-        pipeline.VisualOdometryPipeline(cfg, device="cpu")
+    pipe = pipeline.VisualOdometryPipeline(cfg, device="cpu")
+    assert pipe.device.type == "cpu" and pipe.cfg == cfg
+    assert pipe._fusable() is False       # no keyframe yet; never in cv2 mode
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="cuda"):
+        pipeline.VisualOdometryPipeline(cfg)
 
 
 @pytest.mark.parametrize("change,ranks,built", [
@@ -175,7 +212,6 @@ def test_ported_configurations_build(change, ranks, built):
     from bundle_adjustment_tpu_torch.parallel.launch import run_ranks
 
     cfg = dataclasses.replace(PipelineConfig(camera=CAM), **change)
-    assert pipeline._unported(cfg, torch.device("cuda")) is None
     if ranks > 1:
         assert run_ranks(torch_ranks.build_pipeline, ranks, cfg, device_type="cpu",
                          timeout=120.0) == ["built"] * 2
@@ -196,8 +232,6 @@ def test_pallas_ba_and_big_windows_raise():
     single-rank one, bit for bit."""
     cfg = PipelineConfig(camera=CAM)
     assert cfg.ba.use_pallas_ba
-    assert pipeline._unported(cfg, torch.device("cuda")) is None
-    assert pipeline._unported(cfg, torch.device("cpu")) is None
     w = synthetic_window(0, C=3, n_pts=30, P=32)
     g = BAProblemGrid(**{k: torch.as_tensor(v, device="meta") for k, v in w.items()})
     with pytest.raises(ValueError, match="device"):

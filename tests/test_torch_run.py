@@ -9,7 +9,10 @@
   RGB and RGBA files written by cv2 and by this file's encoder with each of
   the five row filters, and reads a PNG folder with cv2 hidden; video and
   other images raise naming cv2 where it is hidden;
-- the CLI's flags whose module is not ported raise naming it; ``--mesh 2``
+- ``--debug`` and ``--features-from-cv2`` map to the configuration as the
+  JAX CLI maps them; a ``--debug`` run writes the JAX package's debug
+  artifact names and the plain run's ``trajectory.txt`` bit for bit, and
+  with cv2 hidden announces the videos it could not write; ``--mesh 2``
   and ``--multihost`` run in two gloo ranks on the CPU (``--mesh 2`` in one
   process raises: the world has one rank);
 - ``--checkpoint`` writes a checkpoint after the frame loop and resumes from
@@ -21,6 +24,7 @@
 
 import json
 import os
+import re
 import struct
 import sys
 import zlib
@@ -153,13 +157,80 @@ def test_read_pcd_round_trips_write_pcd(tmp_path, binary, with_colors):
         assert c is None and cj is None
 
 
-@pytest.mark.parametrize("flag,needs", [
-    (["--debug"], "viz"), (["--features-from-cv2"], "cv2"),
-])
-def test_unported_flags_raise_by_name(tmp_path, flag, needs):
-    with pytest.raises(NotImplementedError, match=needs):
-        run.main(["--device", "cpu", "--images", str(tmp_path), "--out", str(tmp_path / "o")]
-                 + flag)
+def test_debug_and_cv2_flags_map_to_the_config(tmp_path):
+    """``--debug`` and ``--features-from-cv2`` set ``debug`` and
+    ``features_source="cv2"``, as the JAX CLI maps them."""
+    args = run.build_parser().parse_args(["--images", str(tmp_path), "--debug",
+                                          "--features-from-cv2"])
+    cfg = run._config(args)
+    assert cfg.debug and cfg.features_source == "cv2"
+    cfg = run._config(run.build_parser().parse_args(["--images", str(tmp_path)]))
+    assert not cfg.debug and cfg.features_source == "orb_tpu"
+
+
+#: what the JAX package's ``debug=True`` run writes beside the plain outputs
+#: (``bundle_adjustment_tpu/models/pipeline.py``: ``_add_new_keyframe``,
+#: ``_solve_window``, ``_write_debug_videos``, ``finalize``), each folder
+#: with its file-name pattern
+DEBUG_ARTIFACTS = {
+    "debug_keyframes": r"keyframe_\d{4}\.png", "debug_matches": r"matches_\d{4}\.png",
+    "debug_depth": r"depth_\d{4}\.png", "debug_sparsity": r"sparsity_kf\d{4}_\d{4}\.png",
+    "trajectory_2d": r"trajectory_2d_(kf\d{4}|final)\.png",
+    "trajectory_3d": r"trajectory_3d_(kf\d{4}|final)\.png",
+    "lba_steps": r"map_after_lba_kf_\d{4}\.pcd",
+}
+DEBUG_VIDEOS = ["depth_video.mp4", "keypoint_video.mp4", "match_video.mp4"]
+
+
+@pytest.mark.parametrize("cv2_installed", [True, False], ids=["cv2", "no-cv2"])
+def test_debug_run_writes_the_jax_artifacts(png_folder, tmp_path, monkeypatch, cv2_installed):
+    """The CLI with ``--debug`` on the CPU writes every artifact name the
+    JAX package's debug run writes, each PNG readable at its size, one
+    keyframe overlay per keyframe after the first, and ``trajectory.txt``
+    bit-equal to the run without ``--debug``.  With cv2 hidden the videos
+    are not written: a ``debug_videos_skipped`` event names cv2 and the
+    files, and so does ``summary.json``."""
+    folder, K = png_folder
+    args = ["--device", "cpu", "--images", folder, "--features", "500", "--size", f"{W}x{H}",
+            "--fx", str(K[0, 0]), "--cx", str(K[0, 2]), "--cy", str(K[1, 2])]
+    plain, debug = str(tmp_path / "plain"), str(tmp_path / "debug")
+    a = run.main(args + ["--out", plain])
+    if not cv2_installed:
+        monkeypatch.setitem(sys.modules, "cv2", None)
+    b = run.main(args + ["--out", debug, "--debug"])
+    with open(os.path.join(plain, "trajectory.txt")) as fa, \
+            open(os.path.join(debug, "trajectory.txt")) as fb:
+        assert fa.read() == fb.read()
+    for key in ("num_keyframes", "num_points", "num_observations"):
+        assert a[key] == b[key], key
+    names = set(os.listdir(debug))
+    assert set(DEBUG_ARTIFACTS) <= names
+    for sub, pattern in DEBUG_ARTIFACTS.items():
+        files = sorted(os.listdir(os.path.join(debug, sub)))
+        assert files and all(re.fullmatch(pattern, f) for f in files), (sub, files)
+        for f in files:
+            if f.endswith(".png"):
+                img = io.read_png(os.path.join(debug, sub, f))
+                assert img.shape[0] in (H, 600, 800, 900), (sub, f, img.shape)
+    n_kf = b["num_keyframes"]
+    assert len(os.listdir(os.path.join(debug, "debug_keyframes"))) == n_kf - 1
+    assert len(os.listdir(os.path.join(debug, "debug_matches"))) == n_kf - 1
+    assert io.read_png(os.path.join(debug, "debug_matches", "matches_0001.png")).shape \
+        == (H, 2 * W, 3)
+    # the plain run writes the final plots too, as the JAX finalize does
+    assert sorted(os.listdir(os.path.join(plain, "trajectory_2d"))) == ["trajectory_2d_final.png"]
+    assert sorted(os.listdir(os.path.join(plain, "trajectory_3d"))) == ["trajectory_3d_final.png"]
+    skipped = [e for e in read_events(os.path.join(debug, "events.jsonl"))
+               if e["event"] == "debug_videos_skipped"]
+    if cv2_installed:
+        assert DEBUG_VIDEOS == sorted(n for n in names if n.endswith(".mp4"))
+        assert not skipped and "debug_videos_skipped" not in b
+    else:
+        assert not [n for n in names if n.endswith(".mp4")]
+        assert len(skipped) == 1 and skipped[0]["needs"] == "cv2"
+        assert sorted(skipped[0]["files"]) == DEBUG_VIDEOS
+        with open(os.path.join(debug, "summary.json")) as fh:
+            assert sorted(json.load(fh)["debug_videos_skipped"]) == DEBUG_VIDEOS
 
 
 def test_mesh_flag_without_the_ranks_raises(png_folder, tmp_path):
@@ -199,7 +270,8 @@ def test_multihost_flags_run_in_two_ranks(png_folder, tmp_path, flags):
     with open(os.path.join(out, "summary.json")) as fh:
         assert json.load(fh)["distributed"]["rank"] == 0
     assert sorted(os.listdir(out)) == ["events.jsonl", "final_map_global_ba.pcd",
-                                       "summary.json", "trajectory.txt"]
+                                       "summary.json", "trajectory.txt", "trajectory_2d",
+                                       "trajectory_3d"]
     if "--mesh" not in flags:
         single = run.main(args + ["--out", str(tmp_path / "single")])
         assert single["num_keyframes"] == res[0]["summary"]["num_keyframes"]
