@@ -58,6 +58,10 @@
 // before it reads anything, so its launch and CTA placement overlap the
 // first's tail.
 //
+// Any number of slots D: the per-point passes loop over a point's slots at
+// run time and nothing is sized by D; the per-tile passes see live pairs,
+// not slots.  A pair index d*P + p is an int (bad_shape bounds D*P).
+//
 // A slot is dead when its mask is 0 or its camera index lies outside [0, C):
 // it is skipped, adds exact zeros as the masked one-hot does, and whatever
 // sits in its cam_slot is never used as an index.  Gauge-fixed cameras
@@ -620,11 +624,12 @@ cost_kernel(const float* __restrict__ camc, const float* __restrict__ pt,
   float m[kCostPairs], uvd[kCostPairs][2] = {}, X[kCostPairs][3] = {};
 #pragma unroll
   for (int k = 0; k < kCostPairs; ++k) {
-    const int i = first + k * stride;
+    // 64-bit: first + stride may pass INT_MAX when D * P is near it
+    const long long i = (long long)first + (long long)k * stride;
     m[k] = 0.0f;
     c[k] = 0;
     if (i < n) {
-      const int d = i / P, p = i - d * P;
+      const int d = (int)(i / P), p = (int)(i - (long long)d * P);
       m[k] = mask[i];
       c[k] = slot[i];
       uvd[k][0] = uv[i + (size_t)d * P];

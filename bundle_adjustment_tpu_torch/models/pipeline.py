@@ -1073,7 +1073,8 @@ class VisualOdometryPipeline:
         # divergence rejection on the raw squared cost
         diverged = float(stats.final_sq) >= float(stats.initial_sq)
         self.log.lba(window[-1], float(stats.initial_sq), float(stats.final_sq),
-                     int(stats.iterations), diverged, elapsed, global_ba=global_ba)
+                     int(stats.iterations), diverged, elapsed, global_ba=global_ba,
+                     stop=None if stats.stop is None else ba.STOP_TESTS[int(stats.stop)])
         if diverged:
             return {"diverged": True, "initial": float(stats.initial_sq),
                     "final": float(stats.final_sq), "elapsed_s": elapsed}
@@ -1129,7 +1130,29 @@ class VisualOdometryPipeline:
         that the kernels do not take on the card leaves a
         ``pcg_plain_solver`` event saying why.  Returns (rvecs, tvecs,
         points, stats and the post-BA outlier mask over the observations) on
-        the host."""
+        the host.
+
+        What reaches here: ``finalize``'s global and full BA (C = every
+        keyframe) and a loop closure's polish (``run_full_ba``); never a
+        ``--mesh`` run, whose solves are sharded first (``_solve_sharded``).
+        The kernels' gate has no bound on D; what bounds a problem is their
+        scratch, 76 bytes per slot of a point (``scratch_bytes``), so the
+        4 GiB ``SCRATCH_LIMIT_BYTES`` admits P * D up to 56.5 million.  The
+        configuration does not bound P * D below that: over a 600-frame drive
+        C is at most 600 keyframes, D at most the observations of the most
+        observed point, and P the map's live points, at most
+        ``num_features`` new ones per keyframe (2.4 million; P is the
+        gathered table's, padded to a power of two).  The drives measured on
+        the card stay under it: ``preset_lehman_indoor`` over 600 room
+        frames at 1280x720 and 4000 features reaches, with
+        ``--consistent-convention``, a closure polish of C = 327, P =
+        262,144, D = 153 (40.1 million, 2.86 GiB) and a ``finalize`` of C =
+        360, P = 262,144, D = 92 (1.73 GiB); as it ships, C = 542, P =
+        88,625, D = 54; at 640x480 and 1500 features (the JAX stress
+        harness's cell) C = 176, P = 32,768, D = 73 at most.  A map past the
+        limit (a drive much longer than 600 frames) takes the plain solver
+        with a ``pcg_plain_solver`` event naming its shape and scratch, as
+        does ``cg_precond_group`` above 1."""
         cfg = self.cfg.ba
         kw = dict(solver_kwargs, n_fixed=n_fixed, cg_iters=cfg.cg_iters, cg_tol=cfg.cg_tol)
         P_g, D_g = grid.cam_slot.shape
@@ -1139,7 +1162,9 @@ class VisualOdometryPipeline:
             if cfg.cg_precond_group != 1:
                 skipped = f"cg_precond_group={cfg.cg_precond_group}"
             elif not ba_global_kernel.kernel_eligible_global(grid, n_fixed):
-                skipped = f"shape C={n_cams} P={P_g} D={D_g} outside the kernels' gate"
+                scratch = ba_global_kernel.scratch_bytes(P_g, D_g, n_cams) / 2 ** 30
+                skipped = (f"shape C={n_cams} P={P_g} D={D_g} outside the kernels' gate "
+                           f"(scratch {scratch:.2f} GiB)")
         if self.device.type == "cuda" and skipped is None:
             rv, tv, pts, stats = ba_global_kernel.solve(grid, cg_forcing=True, **kw)
         else:
@@ -1188,7 +1213,7 @@ class VisualOdometryPipeline:
             bad = torch.zeros(problem.uv.shape[0], dtype=torch.bool, device=rv.device)
         sv = self._host(torch.stack([torch.as_tensor(x, device=rv.device).to(torch.float64)
                                      for x in stats])).astype(np.float64)
-        stats = ba.BAStats(*sv[:4], int(sv[4]), bool(sv[5]))
+        stats = ba.BAStats(*sv[:4], int(sv[4]), bool(sv[5]), int(sv[6]))
         return (self._host(rv).astype(np.float64), self._host(tv).astype(np.float64),
                 self._host(pts).astype(np.float64), stats, self._host(bad))
 

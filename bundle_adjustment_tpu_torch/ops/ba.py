@@ -25,7 +25,7 @@ cannot capture one of gloo's.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -48,6 +48,14 @@ class BAProblem(NamedTuple):
     K: torch.Tensor         # (3, 3)
 
 
+#: the test that ended an LM loop, by its code in ``BAStats.stop``: 0 the
+#: iteration cap, 1 ``ftol`` (an accepted step that lowered the cost by at
+#: most ftol of it), 2 ``xtol`` (an accepted step shorter than xtol of the
+#: parameters' norm, ftol not met), 3 ``stuck`` (a rejected step at
+#: lambda_max)
+STOP_TESTS = ("cap", "ftol", "xtol", "stuck")
+
+
 class BAStats(NamedTuple):
     initial_cost: torch.Tensor   # robust (Huber) cost, 0.5*sum(rho)
     final_cost: torch.Tensor
@@ -55,6 +63,17 @@ class BAStats(NamedTuple):
     final_sq: torch.Tensor
     iterations: torch.Tensor
     accepted: torch.Tensor
+    #: int32 code of ``STOP_TESTS``; None from a solver that does not
+    #: record it (the window LM kernel)
+    stop: Optional[torch.Tensor] = None
+
+
+def stop_code(accept, ftol_met, xtol_met, stuck):
+    """The ``STOP_TESTS`` code of one LM iteration's tests, int32 (0: none
+    held), with no host read."""
+    f = accept & ftol_met
+    x = accept & xtol_met & ~f
+    return f.to(torch.int32) + 2 * x.to(torch.int32) + 3 * stuck.to(torch.int32)
 
 
 def _segment_sum(x, idx, n):
@@ -322,8 +341,9 @@ def _lm_iteration(step, cost_at, rv, tv, pt, lam, cost, b0, blast, *, lambda_up,
                   lambda_down, lambda_min, lambda_max, ftol, xtol, cg_tol, cg_forcing,
                   group=None):
     """One LM iteration of ``lm_loop``: the step, the trial cost,
-    accept/reject, lambda and the stop flag.  Returns the new (rv, tv, pt,
-    lam, cost, b0, blast) and ``stop`` (converged or stuck), all tensors.
+    accept/reject, lambda and the stop test.  Returns the new (rv, tv, pt,
+    lam, cost, b0, blast) and the ``stop_code`` of the test that held (0
+    while the loop goes on), all tensors.
     With ``group`` the points are this rank's shard: their terms of the step
     and parameter norms are summed over it (the cameras are replicated)."""
     if cg_tol is None:
@@ -348,9 +368,8 @@ def _lm_iteration(step, cost_at, rv, tv, pt, lam, cost, b0, blast, *, lambda_up,
                            + _psum(torch.sum(d_p * d_p), group))
     param_norm = torch.sqrt(torch.sum(rv * rv) + torch.sum(tv * tv)
                             + _psum(torch.sum(pt * pt), group))
-    converged = accept & (
-        ((cost - new_cost) <= ftol * torch.clamp(cost, min=1e-12))
-        | (step_norm <= xtol * (param_norm + xtol)))
+    ftol_met = (cost - new_cost) <= ftol * torch.clamp(cost, min=1e-12)
+    xtol_met = step_norm <= xtol * (param_norm + xtol)
     rv = torch.where(accept, rv2, rv)
     tv = torch.where(accept, tv2, tv)
     pt = torch.where(accept, pt2, pt)
@@ -358,7 +377,7 @@ def _lm_iteration(step, cost_at, rv, tv, pt, lam, cost, b0, blast, *, lambda_up,
     lam = torch.where(accept, torch.clamp(lam * lambda_down, min=lambda_min),
                       torch.clamp(lam * lambda_up, max=lambda_max))
     stuck = (~accept) & (lam >= lambda_max)
-    return (rv, tv, pt, lam, cost, b0, blast), converged | stuck
+    return (rv, tv, pt, lam, cost, b0, blast), stop_code(accept, ftol_met, xtol_met, stuck)
 
 
 def lm_loop(step, cost_at, sq_at, rv, tv, pt, *, max_iterations, lambda_init,
@@ -378,9 +397,11 @@ def lm_loop(step, cost_at, sq_at, rv, tv, pt, *, max_iterations, lambda_init,
     accept/reject guards the inexact steps.  Without it every step gets
     ``cg_tol``.
 
-    The loop leaves at the stop flag (converged or stuck), which it reads on
-    the host once per iteration.  With ``masked`` it reads nothing on the
-    host, as the reference's ``while_loop`` on the device: it runs
+    The loop leaves at the stop test (converged or stuck), which it reads on
+    the host once per iteration; ``BAStats.stop`` says which test it was
+    (``STOP_TESTS``: the cap when none held).  With ``masked`` it reads
+    nothing on the host, as the reference's ``while_loop`` on the device: it
+    runs
     ``max_iterations`` iterations and keeps the state of the last live one
     (each later iteration's updates are masked by the device flag), so the
     result has the bits of the loop that leaves, and ``iterations`` (a
@@ -395,14 +416,15 @@ def lm_loop(step, cost_at, sq_at, rv, tv, pt, *, max_iterations, lambda_init,
     lam = torch.full((), lambda_init, dtype=rv.dtype, device=rv.device)
     b0 = blast = torch.full((), -1.0, dtype=rv.dtype, device=rv.device)
     state = (rv, tv, pt, lam, init_cost, b0, blast)
+    stop = torch.zeros((), dtype=torch.int32, device=rv.device)
     if masked:
-        done = torch.zeros((), dtype=torch.bool, device=rv.device)
         iterations = torch.zeros((), dtype=torch.int32, device=rv.device)
         for _ in range(max_iterations):
-            new, stop = _lm_iteration(step, cost_at, *state, **opts)
+            new, code = _lm_iteration(step, cost_at, *state, **opts)
+            done = stop > 0
             state = tuple(torch.where(done, a, b) for a, b in zip(state, new))
             iterations = iterations + (~done).to(torch.int32)
-            done = done | stop
+            stop = torch.where(done, stop, code)
     else:
         it = 0
         while it < max_iterations:
@@ -415,7 +437,7 @@ def lm_loop(step, cost_at, sq_at, rv, tv, pt, *, max_iterations, lambda_init,
     stats = BAStats(
         initial_cost=init_cost, final_cost=cost, initial_sq=init_sq,
         final_sq=sq_at(rv, tv, pt), iterations=iterations,
-        accepted=cost < init_cost,
+        accepted=cost < init_cost, stop=stop,
     )
     return rv, tv, pt, stats
 

@@ -61,16 +61,19 @@ backsub's dp, the cost's per-CTA partials, counter and output) are
 allocated with it, so no role allocates on the card: each returns the
 index's buffers, which its next call overwrites.
 
-The shape gate.  ``1 <= D <= 12`` is the range the slot loops are held to,
-as on the TPU; ``0 <= n_fixed < C``; and the memory that lives between the
-passes of one LM iteration (``scratch_bytes``: per slot of a point 18 floats
-of Y and its entry in the pair list; per point V^-1, z_p, the matvec's z and
-dp, 15 floats; 54 floats per segment of the tile plan, at most one per tile
-and one per camera; 2 floats per CTA of the cost) stays within
-``SCRATCH_LIMIT_BYTES`` = 4 GiB, which also keeps a pair index inside an
-int32.  The TPU gate's ``C <= 8192`` and its
-tile planner (``_plan``, ``_vmem_bytes``, the live-chunk tables) answer VMEM
-limits and are not kept.
+The shape gate.  ``D >= 1`` slots per point, ``0 <= n_fixed < C``,
+``P >= 1``; the memory that lives between the passes of one LM iteration
+(``scratch_bytes``: per slot of a point 18 floats of Y and its entry in the
+pair list; per point V^-1, z_p, the matvec's z and dp, 15 floats; 54 floats
+per segment of the tile plan, at most one per tile and one per camera; 2
+floats per CTA of the cost) within ``SCRATCH_LIMIT_BYTES`` = 4 GiB; and a
+pair index d*P + p inside an int32 (``D * P < 2**31``, the kernels'
+``bad_shape``), which the scratch limit already implies (76 bytes per slot
+of a point).  No bound on D: the per-point passes loop over a point's slots
+at run time and the per-tile passes see pairs, not slots, so a point of 91
+live slots is one thread's loop of 91.  The TPU gate's ``D <= 12`` and
+``C <= 8192`` and its tile planner (``_plan``, ``_vmem_bytes``, the
+live-chunk tables) answer VMEM limits and are not kept.
 """
 
 from __future__ import annotations
@@ -93,7 +96,6 @@ MATVEC = "ba_global_matvec"
 BACKSUB = "ba_global_backsub"
 COST = "ba_global_cost"
 
-MAX_SLOTS = 12
 SCRATCH_LIMIT_BYTES = 4 << 30
 #: pairs per tile of the per-camera sums (``camera_index``)
 PAIR_TILE = 768
@@ -164,7 +166,7 @@ def scratch_bytes(P: int, D: int, C: int = 1) -> int:
 
 def eligible_shape_global(C: int, P: int, D: int, n_fixed: int = 1) -> bool:
     """Whether the kernels take a problem of this shape (module docstring)."""
-    if not (1 <= D <= MAX_SLOTS and 0 <= n_fixed < C and P >= 1):
+    if not (D >= 1 and 0 <= n_fixed < C and P >= 1 and D * P < 2 ** 31):
         return False
     return scratch_bytes(P, D, C) <= SCRATCH_LIMIT_BYTES
 
@@ -172,6 +174,48 @@ def eligible_shape_global(C: int, P: int, D: int, n_fixed: int = 1) -> bool:
 def kernel_eligible_global(grid: BAProblemGrid, n_fixed: int = 1) -> bool:
     P, D = grid.cam_slot.shape
     return eligible_shape_global(grid.rvecs.shape[0], P, D, n_fixed)
+
+
+def role_work(g: BAProblemGrid, n_fixed: int) -> dict:
+    """role -> (bytes, operations) of one launch on the grid ``g``, counted
+    from its shapes and masks.  Bytes: every input read once, every output
+    written once (scratch rows are neither).  Operations (a multiply and an
+    add count one each):
+
+    * setup, per live slot: residual 29, Huber weights 6, projection Jacobian
+      8, point Jacobian 30, dXc/dr 45, camera Jacobian 30, V 36, g_p 18
+      (202); per live slot of an adjustable camera: Y 108, U's upper triangle
+      126, g_c 36, Y z_p 30, Y V^-1 90, the preconditioner's upper triangle
+      105, the 54 adds of the camera sum; per point: damping and the 3x3
+      inverse 50, z_p 15;
+    * matvec, per live slot of an adjustable camera: Y^T x 36, Y z 30, the 6
+      adds of the camera sum; per point V^-1 q 15;
+    * backsub, per live slot of an adjustable camera 36; per point 21;
+    * cost, per live slot: residual and rho 35."""
+    C = g.rvecs.shape[0]
+    P, D = g.cam_slot.shape
+    c_adj = C - n_fixed
+    live = (g.mask > 0) & (g.cam_slot >= 0) & (g.cam_slot < C)
+    L = float(live.sum())
+    La = float((live & (g.cam_slot >= n_fixed)).sum())
+    grid_b = P * D * (4 + 4)                  # cam_slot, mask
+    index_b = P * D * 4 + (c_adj + 1) * 4     # pairs, offsets
+    y_b = 18 * D * P * 4
+    return {
+        SETUP: (
+            C * 39 * 4 + P * 12 + grid_b + P * D * 8 + P * 4 + 32 + index_b
+            + y_b + 9 * P * 4 + c_adj * 54 * 4,
+            L * 202 + La * (108 + 126 + 36 + 30 + 90 + 105 + 54) + P * 65),
+        MATVEC: (
+            y_b + 6 * P * 4 + grid_b + index_b + 2 * c_adj * 24,
+            La * (36 + 30 + 6) + P * 15),
+        BACKSUB: (
+            y_b + 9 * P * 4 + grid_b + c_adj * 24 + 3 * P * 4,
+            La * 36 + P * 21),
+        COST: (
+            C * 12 * 4 + P * 12 + grid_b + P * D * 8 + 32 + 8,
+            L * 35),
+    }
 
 
 class CameraIndex(NamedTuple):
@@ -544,9 +588,10 @@ def _plan_args(index: CameraIndex):
 #: flag); ``SOLVES`` takes each solve's share
 COUNTERS = {"host_reads": 0}
 #: one record per solve, newest last: LM iterations, host reads, graph
-#: replays, the live CG iterations as a device tensor (reading it is the
-#: caller's host read), and host seconds of the first iteration, the
-#: capture and the replays, each up to its read of the stop flag
+#: replays, the live CG iterations and the stop code (``ba.STOP_TESTS``) as
+#: device tensors (reading them is the caller's host read), and host
+#: seconds of the first iteration, the capture and the replays, each up to
+#: its read of the stop flag
 SOLVES = collections.deque(maxlen=64)
 
 
@@ -666,8 +711,9 @@ _PLAIN = _Roles(setup_plain, matvec_plain, backsub_plain, cost_plain)
 
 class GlobalLM:
     """One global solve: its layout, ``camera_index`` (on the card), the LM
-    state as tensors (``state``: rv, tv, ptT, lambda, cost, b0, blast, done,
-    the live CG iterations) and ``body``, one LM iteration that updates the
+    state as tensors (``state``: rv, tv, ptT, lambda, cost, b0, blast, the
+    ``ba.stop_code`` of the test that ended the loop, the live CG
+    iterations) and ``body``, one LM iteration that updates the
     state in place and reads nothing on the host.  ``run`` loops; ``solve``
     is ``GlobalLM(...).run()``."""
 
@@ -704,7 +750,7 @@ class GlobalLM:
             rv=rv, tv=tv, ptT=ptT, lam=torch.full((), lambda_init, dtype=_F32, device=dev),
             cost=init[0].clone(), b0=torch.full((), -1.0, dtype=_F32, device=dev),
             blast=torch.full((), -1.0, dtype=_F32, device=dev),
-            done=torch.zeros((), dtype=torch.bool, device=dev),
+            stop=torch.zeros((), dtype=_I32, device=dev),
             cg_live=torch.zeros((), dtype=_I32, device=dev))
         self.reads_before = reads
 
@@ -716,7 +762,7 @@ class GlobalLM:
     def body(self):
         """One LM iteration, ``ba.lm_loop``'s, on the state in place: the
         forcing tolerance, setup, the camera algebra, masked CG, backsub,
-        the trial cost, accept/reject, lambda, b0/blast and the stop flag."""
+        the trial cost, accept/reject, lambda, b0/blast and the stop code."""
         s, o, lay, roles, n_fixed, index = (self.state, self.opts, self.lay, self.roles,
                                             self.n_fixed, self.index)
         rv, tv, ptT, lam, cost_, b0, blast = (s[k] for k in ("rv", "tv", "ptT", "lam", "cost",
@@ -757,9 +803,8 @@ class GlobalLM:
                                + torch.sum(dpT * dpT))
         param_norm = torch.sqrt(torch.sum(rv * rv) + torch.sum(tv * tv)
                                 + torch.sum(ptT * ptT))
-        converged = accept & (
-            ((cost_ - new_cost) <= o["ftol"] * torch.clamp(cost_, min=1e-12))
-            | (step_norm <= o["xtol"] * (param_norm + o["xtol"])))
+        ftol_met = (cost_ - new_cost) <= o["ftol"] * torch.clamp(cost_, min=1e-12)
+        xtol_met = step_norm <= o["xtol"] * (param_norm + o["xtol"])
         rv.copy_(torch.where(accept, rv2, rv))
         tv.copy_(torch.where(accept, tv2, tv))
         ptT.copy_(torch.where(accept, pt2, ptT))
@@ -767,7 +812,7 @@ class GlobalLM:
         lam.copy_(torch.where(accept, torch.clamp(lam * o["lambda_down"], min=o["lambda_min"]),
                               torch.clamp(lam * o["lambda_up"], max=o["lambda_max"])))
         stuck = (~accept) & (lam >= o["lambda_max"])
-        s["done"].copy_(converged | stuck)
+        s["stop"].copy_(ba_flat.stop_code(accept, ftol_met, xtol_met, stuck))
 
     def warm_up(self):
         """The body once, eagerly, on the stream that captures it, as a
@@ -799,7 +844,7 @@ class GlobalLM:
             else:
                 self.body()
             n += 1
-            stop = _host_bool(self.state["done"])
+            stop = _host_bool(self.state["stop"])
             t1 = time.perf_counter()
             seconds["replay_s" if graph is not None else "first_s"] += t1 - t0
             t0 = t1
@@ -813,11 +858,11 @@ class GlobalLM:
         final_sq = self._cost(s["rv"], s["tv"], s["ptT"])[1].clone()
         SOLVES.append(dict(lm_iterations=n, graph_replays=replays,
                            host_reads=COUNTERS["host_reads"] - self.reads_before,
-                           cg_iterations=s["cg_live"], **seconds))
+                           cg_iterations=s["cg_live"], stop=s["stop"], **seconds))
         stats = ba_flat.BAStats(
             initial_cost=self.initial[0], final_cost=s["cost"], initial_sq=self.initial[1],
             final_sq=final_sq, iterations=torch.tensor(n, dtype=torch.int32),
-            accepted=s["cost"] < self.initial[0])
+            accepted=s["cost"] < self.initial[0], stop=s["stop"])
         return s["rv"], s["tv"], s["ptT"].T.contiguous(), stats
 
 

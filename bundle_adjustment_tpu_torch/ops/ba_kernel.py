@@ -33,9 +33,13 @@ not move in that step and adds nothing to the camera system, as ``ba._inv3``
 does and as the jitted JAX solve does.
 
 The shape gate.  ``6 * (C - n_fixed) <= 48`` bounds the in-kernel
-Gauss-Jordan (the system and its right-hand side sit in shared memory) and
-``D <= 12`` the per-point slot loop, as on the TPU; ``C <= 16`` bounds the
-camera state in shared memory.  The TPU gate's ``P <= 2048`` and its 10 MB
+Gauss-Jordan (the system and its right-hand side sit in shared memory);
+``C <= 16`` bounds the camera state in shared memory.  D has no bound but
+``P * D < 2**31`` (a slot index): the per-point passes loop over a point's
+slots at run time, and a second slot of one camera adds to that camera's
+coupling block (a keyframe that sees a point through several keypoints, as
+the long drive's windows do past 12 slots).  The TPU gate's ``D <= 12``
+answered its VMEM plan and is not kept.  The TPU gate's ``P <= 2048`` and its 10 MB
 estimate are Mosaic's and are not kept: one thread-block cluster of
 16 CTAs splits the points between them, and what must survive
 between the kernel's phases (per point: one 6x3 coupling block per
@@ -59,7 +63,6 @@ from bundle_adjustment_tpu_torch.ops.lie import so3_exp, so3_exp_and_jac
 NAME = "ba_window_lm"
 
 MAX_SYSTEM = 48          # 6 * adjustable cameras
-MAX_SLOTS = 12           # D
 MAX_CAMERAS = 16         # C, fixed ones included
 SCRATCH_LIMIT_BYTES = 32 << 20
 
@@ -74,7 +77,7 @@ def eligible_shape(C: int, P: int, D: int, n_fixed: int = 1) -> bool:
     c_adj = C - n_fixed
     if n_fixed < 0 or c_adj < 1 or 6 * c_adj > MAX_SYSTEM:
         return False
-    if C > MAX_CAMERAS or not 1 <= D <= MAX_SLOTS or P < 1:
+    if C > MAX_CAMERAS or D < 1 or P < 1 or P * D >= 2 ** 31:
         return False
     return 4 * scratch_floats(C, P, n_fixed) <= SCRATCH_LIMIT_BYTES
 
@@ -210,12 +213,14 @@ def lm_solve_plain(
     ftol: float = 1e-5,
     xtol: float = 1e-5,
 ):
-    """The plain PyTorch version of the kernel.  Returns
-    (rvecs, tvecs, points, BAStats), as ``ba_grid.ba_solve_grid_impl``."""
+    """The plain PyTorch version of the kernel, in float32 (in float64 for
+    float64 inputs: a reference for the float32 versions' rounding).
+    Returns (rvecs, tvecs, points, BAStats), as
+    ``ba_grid.ba_solve_grid_impl``."""
     C = grid.rvecs.shape[0]
     if not 1 <= C - n_fixed:
         raise ValueError(f"no adjustable camera: C={C}, n_fixed={n_fixed}")
-    f32 = torch.float32
+    f32 = torch.float64 if grid.rvecs.dtype == torch.float64 else torch.float32
     p = grid._replace(rvecs=grid.rvecs.to(f32), tvecs=grid.tvecs.to(f32),
                       points=grid.points.to(f32), uv=grid.uv.to(f32),
                       mask=grid.mask.to(f32), K=grid.K.to(f32))

@@ -287,6 +287,6 @@ def solve_windows_consensus(problems: Sequence[ba.BAProblem],
     ptss = rows[:, layout[3]: layout[4]].reshape(W, P, 3)
     stats = ba.BAStats(initial_cost=sv[:, 0], final_cost=sv[:, 1], initial_sq=sv[:, 2],
                        final_sq=sv[:, 3], iterations=sv[:, 4].astype(np.int32),
-                       accepted=sv[:, 5] > 0.5)
+                       accepted=sv[:, 5] > 0.5, stop=sv[:, 6].astype(np.int32))
     poses, sim3s = reconcile_windows_sim3(window_kf_ids, rvs, tvs)
     return poses, sim3s, (rvs, tvs, ptss, stats)

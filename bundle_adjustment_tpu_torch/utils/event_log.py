@@ -84,15 +84,20 @@ class EventLog:
         )
 
     def lba(self, kf_id: int, initial_cost: float, final_cost: float,
-            iterations: int, diverged: bool, elapsed_s: float, global_ba: bool = False):
+            iterations: int, diverged: bool, elapsed_s: float, global_ba: bool = False,
+            stop: Optional[str] = None):
+        """A BA solve's ``ba_complete`` or ``ba_diverged`` record; ``stop``:
+        the test that ended its LM loop (``ops/ba.STOP_TESTS``), where the
+        solver records it."""
         tag = "Global BA" if global_ba else "LBA"
+        extra = {} if stop is None else {"stop": stop}
         if diverged:
             self.emit(
                 "ba_diverged",
                 f"    -> {tag} Diverged! Cost increased from {initial_cost:.2f} "
                 f"to {final_cost:.2f}. Discarding results.",
                 kf_id=kf_id, initial_cost=float(initial_cost),
-                final_cost=float(final_cost), global_ba=global_ba,
+                final_cost=float(final_cost), global_ba=global_ba, **extra,
             )
         else:
             imp = 100.0 * (initial_cost - final_cost) / (initial_cost + 1e-8)
@@ -103,7 +108,7 @@ class EventLog:
                 kf_id=kf_id, initial_cost=float(initial_cost),
                 final_cost=float(final_cost), improvement=float(imp),
                 iterations=int(iterations), elapsed_s=round(elapsed_s, 4),
-                global_ba=global_ba,
+                global_ba=global_ba, **extra,
             )
 
     def lba_skipped(self, why: str):

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from bundle_adjustment_tpu_torch.ops.lie import so3_exp_np
+from bundle_adjustment_tpu_torch.ops.lie import so3_exp_np, so3_log_np
 
 
 def _box_blur3(img):
@@ -198,44 +198,13 @@ def room_pose(i: int, n_frames: int):
     return R, -R @ C, C
 
 
-def synthetic_sequence(
-    n_frames: int = 20,
-    width: int = 640,
-    height: int = 480,
-    fx: float = 450.0,
-    seed: int = 0,
-    motion: str = "strafe",
-    device=None,
-):
-    """Returns (frames list of (H, W, 3) uint8 BGR, K, gt_positions (N, 3),
-    gt_rotations (N, 3, 3)); extrinsic poses x_cam = R X + t with camera
-    centre C = -R^T t.  ``motion``: "strafe", "orbit" or "room".  The frames
-    are drawn with torch on ``device``, the CPU by default (``render_frame``)."""
-    import torch
-
-    def on_device(planes):
-        return [(torch.as_tensor(tex, dtype=torch.float64, device=device or "cpu"), c)
-                for tex, c in planes]
-
-    rng = np.random.default_rng(seed)
-    K = np.array([[fx, 0, width / 2], [0, fx, height / 2], [0, 0, 1.0]])
+def camera_path(n_frames: int, motion: str = "strafe"):
+    """The ground truth of ``synthetic_sequence``: per frame the extrinsic
+    (R, t) and the centre C, as a list; no frame is drawn (what a run on a
+    sequence written earlier is scored against)."""
     if motion == "room":
-        planes = on_device(_room_planes(rng))
-        frames, centers, rotations = [], [], []
-        for i in range(n_frames):
-            R, t, C = room_pose(i, n_frames)
-            frames.append(render_frame(K, R, t, planes, width, height, depth_sort=True,
-                                       device=device))
-            centers.append(C)
-            rotations.append(R)
-        return frames, K, np.stack(centers), np.stack(rotations)
-    tex_far = _texture(rng)
-    tex_near = _texture(rng)
-    planes = on_device([
-        (tex_far, _plane_corners_world([0.6, 0.0, 9.0], [1, 0, 0], [0, 1, 0], 6.0)),
-        (tex_near, _plane_corners_world([-1.2, -0.4, 4.5], [1, 0, 0.15], [0, 1, 0], 1.8)),
-    ])
-    frames, centers, rotations = [], [], []
+        return [room_pose(i, n_frames) for i in range(n_frames)]
+    path = []
     for i in range(n_frames):
         s = i / max(n_frames - 1, 1)
         if motion == "strafe":
@@ -248,11 +217,45 @@ def synthetic_sequence(
         else:
             raise ValueError(motion)
         R = so3_exp_np(w)
-        t = -R @ C
-        frames.append(render_frame(K, R, t, planes, width, height, device=device))
-        centers.append(C)
-        rotations.append(R)
-    return frames, K, np.stack(centers), np.stack(rotations)
+        path.append((R, -R @ C, C))
+    return path
+
+
+def synthetic_sequence(
+    n_frames: int = 20,
+    width: int = 640,
+    height: int = 480,
+    fx: float = 450.0,
+    seed: int = 0,
+    motion: str = "strafe",
+    device=None,
+):
+    """Returns (frames list of (H, W, 3) uint8 BGR, K, gt_positions (N, 3),
+    gt_rotations (N, 3, 3)); extrinsic poses x_cam = R X + t with camera
+    centre C = -R^T t (``camera_path``).  ``motion``: "strafe", "orbit" or
+    "room".  The frames are drawn with torch on ``device``, the CPU by
+    default (``render_frame``)."""
+    import torch
+
+    def on_device(planes):
+        return [(torch.as_tensor(tex, dtype=torch.float64, device=device or "cpu"), c)
+                for tex, c in planes]
+
+    rng = np.random.default_rng(seed)
+    K = np.array([[fx, 0, width / 2], [0, fx, height / 2], [0, 0, 1.0]])
+    path = camera_path(n_frames, motion)
+    if motion == "room":
+        planes = on_device(_room_planes(rng))
+    else:
+        tex_far = _texture(rng)
+        tex_near = _texture(rng)
+        planes = on_device([
+            (tex_far, _plane_corners_world([0.6, 0.0, 9.0], [1, 0, 0], [0, 1, 0], 6.0)),
+            (tex_near, _plane_corners_world([-1.2, -0.4, 4.5], [1, 0, 0.15], [0, 1, 0], 1.8)),
+        ])
+    frames = [render_frame(K, R, t, planes, width, height, depth_sort=motion == "room",
+                           device=device) for R, t, _ in path]
+    return (frames, K, np.stack([C for _, _, C in path]), np.stack([R for R, _, _ in path]))
 
 
 def synthetic_window(seed: int, C: int = 5, n_pts: int = 96, P: int = 128,
@@ -311,6 +314,21 @@ def synthetic_window(seed: int, C: int = 5, n_pts: int = 96, P: int = 128,
 GLOBAL_K = np.array([[912.78, 0, 650.29], [0, 913.03, 362.72], [0, 0, 1.0]])
 
 
+def repeat_slots(window: dict, k: int, seed: int, jitter: float = 0.5) -> dict:
+    """A ``synthetic_window`` with every point's slots repeated ``k`` times
+    (D becomes k * D), each copy's pixel moved by Gaussian ``jitter`` px: a
+    keyframe that sees one point through several keypoints, which puts more
+    slots on a point than the window has cameras."""
+    rng = np.random.default_rng(seed)
+    w = dict(window)
+    w["cam_slot"] = np.tile(window["cam_slot"], (1, k))
+    w["mask"] = np.tile(window["mask"], (1, k))
+    uv = np.tile(window["uv"], (1, k, 1))
+    uv[:, window["uv"].shape[1]:] += rng.normal(0, jitter, uv[:, window["uv"].shape[1]:].shape)
+    w["uv"] = (uv * w["mask"][..., None]).astype(np.float32)
+    return w
+
+
 def synthetic_global_problem(seed: int, C: int = 200, P: int = 30000,
                              obs_per_pt: int = 4, K=GLOBAL_K, noise: float = 0.5,
                              rot_sigma: float = 0.005, centre_sigma: float = 0.02,
@@ -327,8 +345,11 @@ def synthetic_global_problem(seed: int, C: int = 200, P: int = 30000,
     observations than slots.  All cameras but the first start perturbed
     (rotation and centre, the extrinsic translation rebuilt as t = -R c), and
     all points.  With ``pad_to`` the points are padded to that count with
-    zeros that ``point_mask`` leaves out."""
-    rng = np.random.default_rng(seed)
+    zeros that ``point_mask`` leaves out.  ``seed`` may be a numpy
+    ``Generator``, which is drawn from as it is: with the defaults that
+    gives the arrays of ``bench.make_global_problem`` for the same
+    generator (the problem of the JAX package's ``global_scale_sweep``)."""
+    rng = np.random.default_rng(seed)     # a Generator passes through
     K = np.asarray(K, np.float64)
     c_ids = np.arange(C)
     rvecs = np.stack([0.10 * np.sin(c_ids / 10), 0.10 * np.cos(c_ids / 13),
@@ -363,6 +384,63 @@ def synthetic_global_problem(seed: int, C: int = 200, P: int = 30000,
         points=np.concatenate([points, np.zeros((n_pad, 3), np.float32)]),
         cam_idx=cam_idx, pnt_idx=pnt_idx, uv=uv.astype(np.float32),
         obs_mask=valid.astype(np.float32), point_mask=np.arange(P + n_pad) < P,
+        K=K.astype(np.float32))
+
+
+def synthetic_ring_problem(seed: int, C: int = 92, P: int = 1000, D: int = 91,
+                           K=GLOBAL_K, noise: float = 0.5, rot_sigma: float = 0.005,
+                           centre_sigma: float = 0.02, point_sigma: float = 0.02,
+                           drift: float = 0.0) -> dict:
+    """A global-BA problem whose points are each seen by ``D`` keyframes:
+    the long drive's shapes (a room loop's final map, D = 14 to 91).  ``C``
+    cameras on a ring of radius 10 look at its centre; the ``P`` points lie
+    in a cylinder of radius 3 about it, point p seen by the ``D`` cameras
+    from p * C // P on round the ring (``D <= C``), so every point is 7 to
+    13 in front of each of its cameras.  Pixels carry ``noise`` px of
+    Gaussian noise.  All cameras but the first start perturbed (rotation and
+    centre, t = -R c rebuilt) and all points; ``drift`` adds a bend that
+    grows along the ring, each camera's centre and yaw moved by ``drift``
+    times its share of the ring (a drifted start that the first LM steps
+    mostly remove).  The flat layout of ``synthetic_global_problem``."""
+    if not 1 <= D <= C:
+        raise ValueError(f"D={D} slots need 1 <= D <= C={C}")
+    rng = np.random.default_rng(seed)
+    K = np.asarray(K, np.float64)
+    ang = 2 * np.pi * np.arange(C) / C
+    centers = np.stack([10 * np.sin(ang), np.zeros(C), -10 * np.cos(ang)], axis=1)
+    Rs = []
+    for c in centers:
+        z = -c / np.linalg.norm(c)
+        x = np.cross([0.0, 1.0, 0.0], z)
+        x /= np.linalg.norm(x)
+        Rs.append(np.stack([x, np.cross(z, x), z]))
+    Rs = np.stack(Rs)
+    rvecs = np.stack([so3_log_np(R) for R in Rs])
+    tvecs = -np.einsum("cij,cj->ci", Rs, centers)
+
+    r = 3 * np.sqrt(rng.random(P))
+    phi = 2 * np.pi * rng.random(P)
+    X = np.stack([r * np.cos(phi), rng.uniform(-1.5, 1.5, P), r * np.sin(phi)], axis=1)
+    base = (np.arange(P) * C // P).astype(np.int64)
+    cam_idx = ((base[:, None] + np.arange(D)[None, :]) % C).reshape(-1).astype(np.int32)
+    pnt_idx = np.repeat(np.arange(P, dtype=np.int32), D)
+    Xc = np.einsum("oij,oj->oi", Rs[cam_idx], X[pnt_idx]) + tvecs[cam_idx]
+    uv = (Xc[:, :2] / Xc[:, 2:]) * [K[0, 0], K[1, 1]] + [K[0, 2], K[1, 2]]
+    uv = uv + rng.normal(size=uv.shape) * noise
+
+    free = np.arange(C)[:, None] > 0
+    share = (np.arange(C) / C)[:, None]
+    rv_p = rvecs + rng.normal(size=rvecs.shape) * rot_sigma * free \
+        + drift * share * np.array([0.0, 0.1, 0.0])
+    c_p = centers + rng.normal(size=centers.shape) * centre_sigma * free \
+        + drift * share * np.array([1.0, 0.3, -0.5])
+    R_p = np.stack([so3_exp_np(v) for v in rv_p])
+    tv_p = -np.einsum("cij,cj->ci", R_p, c_p)
+    points = (X + rng.normal(size=X.shape) * point_sigma).astype(np.float32)
+    return dict(
+        rvecs=rv_p.astype(np.float32), tvecs=tv_p.astype(np.float32), points=points,
+        cam_idx=cam_idx, pnt_idx=pnt_idx, uv=uv.astype(np.float32),
+        obs_mask=np.ones(P * D, np.float32), point_mask=np.ones(P, bool),
         K=K.astype(np.float32))
 
 

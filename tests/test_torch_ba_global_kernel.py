@@ -31,7 +31,8 @@ from bundle_adjustment_tpu_torch.ops import ba as tba
 from bundle_adjustment_tpu_torch.ops import ba_global_kernel as gk
 from bundle_adjustment_tpu_torch.ops import ba_grid as tbg
 from bundle_adjustment_tpu_torch.ops.lie import so3_exp_np
-from bundle_adjustment_tpu_torch.utils.synthetic import synthetic_global_problem
+from bundle_adjustment_tpu_torch.utils.synthetic import synthetic_global_problem, \
+    synthetic_ring_problem
 
 from test_ba_global_pallas import _setup_outputs_interp
 
@@ -254,14 +255,16 @@ def test_a_point_on_a_camera_centre_stays_finite():
         assert torch.equal(one[2][pid], gt.points[pid])
 
 
-def test_the_gate_at_its_edges(chain):
+def test_the_gate_at_its_edges(chain, monkeypatch):
     _, gt = chain
     assert gk.kernel_eligible_global(gt, 1) and gk.kernel_eligible_global(gt, 11)
     assert not gk.kernel_eligible_global(gt, 12)        # no adjustable camera
     assert not gk.kernel_eligible_global(gt, -1)
     assert gk.eligible_shape_global(200, 32768, 4, 2)
     assert gk.eligible_shape_global(20000, 131072, 12, 1)   # no C <= 8192 bound
-    assert gk.eligible_shape_global(5, 8192, 12) and not gk.eligible_shape_global(5, 8192, 13)
+    # no D <= 12 bound: the long drive's slot counts, (a2)'s final map among them
+    assert gk.eligible_shape_global(5, 8192, 12) and gk.eligible_shape_global(5, 8192, 13)
+    assert gk.eligible_shape_global(280, 119108, 91, 1)
     assert not gk.eligible_shape_global(5, 8192, 0) and not gk.eligible_shape_global(5, 0, 4)
     # per point at D = 4: Y and the pair list (4 * 19 floats), V^-1, z_p,
     # the matvec's z and dp (15); per segment of the tile plan 54 floats, at
@@ -278,6 +281,18 @@ def test_the_gate_at_its_edges(chain):
     assert gk.eligible_shape_global(200, edge, 4) and not gk.eligible_shape_global(200, edge + 1, 4)
     assert gk.scratch_bytes(32768, 4, 200) == scratch(32768, 200)
     assert 4 * edge < 2 ** 31                   # a pair index d*P + p stays an int32
+    # the scratch edge at D = 91: 76 bytes per slot of a point
+    p91 = gk.SCRATCH_LIMIT_BYTES // (4 * (91 * 19 + 15))
+    while gk.scratch_bytes(p91, 91, 280) > gk.SCRATCH_LIMIT_BYTES:
+        p91 -= 1
+    assert gk.eligible_shape_global(280, p91, 91) and not gk.eligible_shape_global(280, p91 + 1, 91)
+    # the int32 edge of the kernels' bad_shape, D * P < 2^31, on its own
+    # (the scratch limit refuses those shapes first)
+    assert not gk.eligible_shape_global(2, 2 ** 25, 64)
+    monkeypatch.setattr(gk, "SCRATCH_LIMIT_BYTES", 1 << 62)
+    assert gk.eligible_shape_global(2, 2 ** 25 - 1, 64)
+    assert not gk.eligible_shape_global(2, 2 ** 25, 64)
+    monkeypatch.undo()
     with pytest.raises(ValueError, match="gate"):
         gk.solve(gt, n_fixed=12)
     with pytest.raises(ValueError, match="gate"):
@@ -494,3 +509,104 @@ def test_plain_global_solves_are_deterministic_at_four_threads(chain):
     for run in runs:
         for x, y in zip(one[:3] + tuple(one[3]), run[:3] + tuple(run[3])):
             assert torch.equal(x, y)
+
+
+# -- the long drive's slot counts (K4 past the TPU's 12-slot gate) ----------
+#
+# Rings of 96 keyframes around 1000 points, each point seen by D = 14, 54 or
+# 91 of them (``synthetic_ring_problem``): the shapes of the long drive's
+# final maps and closure polishes.  The port's plain solve (what the kernels
+# are held to on the card) against the JAX grid PCG solver with the
+# keyword arguments the JAX pipeline gives it there, to 1 % of the final
+# cost, the same LM iterations and the same stop test.
+
+RING_KW = dict(cg_iters=8, cg_tol=1e-6, cg_forcing=True)
+
+
+def _ring(D, seed=0, drift=0.0):
+    pr = synthetic_ring_problem(seed, C=96, P=1000, D=D, drift=drift)
+    return _grids(pr)
+
+
+def _jax_stop(gj, n_fixed, kw, n):
+    """The test that ended the JAX loop after ``n`` LM iterations, from its
+    own states after n - 1 and n iterations (its stats do not say): the cap,
+    ``stuck`` (the last step rejected), ``ftol`` or ``xtol`` as
+    ``ba.lm_loop`` orders them."""
+    if n >= kw.get("max_iterations", 50):
+        return "cap"
+    a = jbg.ba_solve_grid(gj, n_fixed=n_fixed, **dict(kw, max_iterations=n - 1))
+    b = jbg.ba_solve_grid(gj, n_fixed=n_fixed, **dict(kw, max_iterations=n))
+    c0, c1 = float(a[3].final_cost), float(b[3].final_cost)
+    if not c1 < c0:
+        return "stuck"
+    if c0 - c1 <= kw.get("ftol", 1e-5) * max(c0, 1e-12):
+        return "ftol"
+    return "xtol"
+
+
+@pytest.mark.parametrize("D", [14, 54, 91])
+def test_plain_solve_at_the_long_drives_slot_counts_matches_jax(D):
+    gj, gt = _ring(D)
+    assert gt.cam_slot.shape == (1000, D) and gk.kernel_eligible_global(gt, 1)
+    a = jbg.ba_solve_grid(gj, n_fixed=1, **RING_KW)
+    b = gk.solve_plain(gt, n_fixed=1, **RING_KW)
+    np.testing.assert_allclose(float(b[3].initial_cost), float(a[3].initial_cost), rtol=1e-5)
+    np.testing.assert_allclose(float(b[3].final_cost), float(a[3].final_cost), rtol=1e-2)
+    assert float(b[3].final_cost) < 0.1 * float(b[3].initial_cost)
+    n = int(b[3].iterations)
+    assert n == int(a[3].iterations)
+    assert tba.STOP_TESTS[int(b[3].stop)] == _jax_stop(gj, 1, RING_KW, n)
+
+
+def test_a_drifted_start_stops_where_jax_stops():
+    """A ring bent along its length: the first LM step removes about 70 %
+    of the cost, as the long drive's final global BA's first step does
+    (1.143e12 -> 3.300e11); the two packages stop at the same iteration by
+    the same test, here neither after that first step."""
+    gj, gt = _ring(14, seed=1, drift=8.0)
+    one = gk.solve_plain(gt, n_fixed=1, max_iterations=1, **RING_KW)
+    drop = 1 - float(one[3].final_cost) / float(one[3].initial_cost)
+    assert 0.6 < drop < 0.8
+    a = jbg.ba_solve_grid(gj, n_fixed=1, **RING_KW)
+    b = gk.solve_plain(gt, n_fixed=1, **RING_KW)
+    n = int(b[3].iterations)
+    assert n == int(a[3].iterations) > 1
+    assert tba.STOP_TESTS[int(b[3].stop)] == _jax_stop(gj, 1, RING_KW, n)
+    np.testing.assert_allclose(float(b[3].final_cost), float(a[3].final_cost), rtol=1e-2)
+
+
+def test_roles_hold_to_float64_at_91_slots():
+    """Each role's plain version in float32 against itself in float64 at
+    D = 91, norm-wise per group of one scale: a camera of a 91-slot ring sums
+    about 950 pairs, in several tiles of the kernels' plan."""
+    _, gt = _ring(91)
+    n_fixed = 1
+    f64 = torch.float64
+    lay = gk.layout(gt)
+    cam = gk.camera_rows(gt.rvecs, gt.tvecs, True)
+    camc = gk.camera_rows(gt.rvecs, gt.tvecs, False)
+    ptT = gt.points.T.contiguous()
+    scal = gk.with_lambda(lay.scal, LAM)
+    x = torch.as_tensor(np.random.default_rng(4).normal(0, 1e-2, (95, 6)).astype(np.float32))
+    s32 = gk.setup_plain(cam, ptT, lay.slotT, lay.maskT, lay.uvT, lay.pmask, scal, n_fixed)
+    s64 = gk.setup_plain(cam.to(f64), ptT.to(f64), lay.slotT, lay.maskT.to(f64),
+                         lay.uvT.to(f64), lay.pmask.to(f64), scal.to(f64), n_fixed)
+    YT, VinvT, zpT, red = s32
+    assert _rel(YT, s64[0]) < 1e-4 and _rel(VinvT, s64[1]) < 1e-3 and _rel(zpT, s64[2]) < 1e-3
+    for name, lanes in gk.red_lane_groups().items():
+        assert _rel(red[:, lanes], s64[3][:, lanes]) < 1e-4, name
+    index = gk.camera_index(lay.slotT, lay.maskT, 96, n_fixed)
+    assert int(index.tile_seg.shape[0]) - 1 > 95      # cameras span several tiles
+    YT64, VinvT64, x64 = YT.to(f64), VinvT.to(f64), x.to(f64)
+    mv = gk.matvec_plain(YT, VinvT, lay.slotT, lay.maskT, x, n_fixed)
+    mv64 = gk.matvec_plain(YT64, VinvT64, lay.slotT, lay.maskT.to(f64), x64, n_fixed)
+    assert _rel(mv[:, :3], mv64[:, :3]) < 2e-5 and _rel(mv[:, 3:], mv64[:, 3:]) < 2e-5
+    dp = gk.backsub_plain(YT, VinvT, zpT, lay.slotT, lay.maskT, x, n_fixed)
+    dp64 = gk.backsub_plain(YT64, VinvT64, zpT.to(f64), lay.slotT, lay.maskT.to(f64), x64,
+                            n_fixed)
+    assert _rel(dp, dp64) < 2e-4
+    c = gk.cost_plain(camc, ptT, lay.slotT, lay.maskT, lay.uvT, lay.scal)
+    c64 = gk.cost_plain(camc.to(f64), ptT.to(f64), lay.slotT, lay.maskT.to(f64),
+                        lay.uvT.to(f64), lay.scal.to(f64))
+    np.testing.assert_allclose(c.numpy(), c64.numpy(), rtol=1e-5)

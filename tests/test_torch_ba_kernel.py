@@ -35,7 +35,7 @@ from bundle_adjustment_tpu.ops.lie import so3_exp_np
 from bundle_adjustment_tpu_torch import convert, kernels
 from bundle_adjustment_tpu_torch.ops import ba_grid as tbg
 from bundle_adjustment_tpu_torch.ops import ba_kernel
-from bundle_adjustment_tpu_torch.utils.synthetic import synthetic_window
+from bundle_adjustment_tpu_torch.utils.synthetic import repeat_slots, synthetic_window
 
 # Several pytest workers share the cores: more torch threads per worker
 # only contend with each other (three times slower in all).
@@ -105,6 +105,23 @@ def test_matches_the_ports_grid_solver():
     np.testing.assert_allclose(b[1].numpy(), a[1].numpy(), rtol=0, atol=1e-3)
 
 
+def test_matches_the_jax_grid_solver_past_twelve_slots():
+    """Each observation of a window in 3 slots (D = 15 over 5 cameras: a
+    keyframe that sees a point through several keypoints, as the long
+    drive's windows do): the window kernel's gate takes it, and its plain
+    version lands where the JAX grid solver does, which the JAX pipeline
+    runs on such a window (its Pallas gate stops at 12 slots)."""
+    w = repeat_slots(synthetic_window(13, C=5, n_pts=96, P=128), 3, 13)
+    assert w["cam_slot"].shape == (128, 15)
+    assert ba_kernel.kernel_eligible(port_grid(w), 2)
+    a = jbg.ba_solve_grid(jax_grid(w), n_fixed=2)
+    b = ba_kernel.lm_solve_plain(port_grid(w), n_fixed=2)
+    np.testing.assert_allclose(float(b[3].initial_cost), float(a[3].initial_cost), rtol=1e-5)
+    np.testing.assert_allclose(float(b[3].final_cost), float(a[3].final_cost), rtol=1e-2)
+    assert abs(int(b[3].iterations) - int(a[3].iterations)) <= 1
+    np.testing.assert_allclose(b[1].numpy(), np.asarray(a[1]), rtol=0, atol=1e-3)
+
+
 def test_padding_points_and_dead_slots_are_inert():
     """The same live window with more padding points, more dead slots and
     junk in the dead slots' camera index and pixel gives the same solve."""
@@ -151,7 +168,8 @@ def test_a_point_on_a_camera_centre_stays_finite_and_agrees_with_jax():
     (9, 8192, 12, 1, True),       # 6C' = 48, D = 12
     (10, 8192, 12, 2, True),      # the final BA's widest admitted window
     (10, 8192, 12, 1, False),     # 6C' = 54
-    (9, 8192, 13, 1, False),      # D above 12
+    (9, 8192, 13, 1, True),       # D above 12: no bound on the slot loop
+    (5, 8192, 262144, 2, False),  # ... but a slot index d*P + p stays an int32
     (17, 8192, 5, 9, False),      # more than 16 cameras in shared memory
     (2, 64, 2, 2, False),         # no adjustable camera
     (9, 53430, 12, 1, True),      # the scratch bound at C' = 8 ...

@@ -56,7 +56,9 @@ from bundle_adjustment_tpu_torch.ops.lie import so3_exp_np
 from bundle_adjustment_tpu_torch.utils.event_log import EventLog
 from bundle_adjustment_tpu_torch.utils.synthetic import (synthetic_global_map,
                                                          synthetic_global_problem,
+                                                         synthetic_ring_problem,
                                                          synthetic_window)
+from bundle_adjustment_tpu_torch.utils.synthetic import repeat_slots
 
 # Several pytest workers share the cores: more torch threads per worker
 # only contend with each other (three times slower in all).
@@ -313,6 +315,24 @@ def test_window_kernel_cluster_edges_match_plain_on_the_card(card, shape):
 
 
 @pytest.mark.cuda
+def test_window_kernel_past_twelve_slots_matches_plain_on_the_card(card):
+    """Each observation in 3 slots (D = 15 over 5 cameras, a keyframe seeing
+    a point through several keypoints): one launch, the plain version's
+    final cost within 1 %."""
+    w = repeat_slots(synthetic_window(13, C=5, n_pts=6000, P=8192), 3, 13)
+    g = BAProblemGrid(**{k: torch.as_tensor(v, device=card) for k, v in w.items()})
+    assert g.cam_slot.shape == (8192, 15) and ba_kernel.kernel_eligible(g, 2)
+    before = kernels.LAUNCHES[ba_kernel.NAME]
+    a = ba_kernel.lm_solve(g, n_fixed=2)
+    b = ba_kernel.lm_solve_plain(g, n_fixed=2)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[ba_kernel.NAME] == before + 1
+    np.testing.assert_allclose(_costs(a[3])[:2], _costs(b[3])[:2], rtol=1e-2)
+    assert abs(int(a[3].iterations) - int(b[3].iterations)) <= 2
+    assert all(bool(torch.isfinite(x).all()) for x in a[:3])
+
+
+@pytest.mark.cuda
 def test_window_kernel_is_deterministic_and_fills_its_stats_lanes(card):
     g = _window(card, 13, C=5, n_pts=3000, P=4096, D=5)
     opts = dict(max_iterations=50, huber_delta=1.0, lambda_init=1e-3, lambda_up=4.0,
@@ -447,6 +467,29 @@ def test_global_solve_matches_plain_on_the_card(card, shape):
     assert kernels.LAUNCHES[gk.COST] == before[gk.COST] + its + 2
     assert kernels.LAUNCHES[gk.MATVEC] - before[gk.MATVEC] == 8 * its
     assert kernels.LAUNCHES[ba_kernel.NAME] == before[ba_kernel.NAME]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [14, 54, 91])
+def test_global_solve_past_twelve_slots_matches_plain_on_the_card(card, D):
+    """A ring of 96 cameras around 1000 points, each seen by D of them (the
+    long drive's slot counts): the kernels' solve within 1 % of the plain
+    versions' on the card, its launches counted, two solves bit-equal; the
+    pipeline's global BA of the same map takes the kernels."""
+    pr = synthetic_ring_problem(3, C=96, P=1000, D=D)
+    g = from_flat(BAProblem(**{k: torch.as_tensor(v, device=card) for k, v in pr.items()}))
+    assert g.cam_slot.shape == (1000, D)
+    before = dict(kernels.LAUNCHES)
+    a = gk.solve(g, n_fixed=1)
+    a2 = gk.solve(g, n_fixed=1)
+    b = gk.solve_plain(g, n_fixed=1)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(float(a[3].final_cost), float(b[3].final_cost), rtol=1e-2)
+    assert abs(int(a[3].iterations) - int(b[3].iterations)) <= 2
+    assert float(a[3].final_cost) < 0.1 * float(a[3].initial_cost)
+    assert kernels.LAUNCHES[gk.SETUP] == before[gk.SETUP] + 2 * int(a[3].iterations)
+    for x, y in zip(a[:3] + tuple(a[3]), a2[:3] + tuple(a2[3])):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.cuda

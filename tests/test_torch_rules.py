@@ -1,9 +1,10 @@
 """Rules the PyTorch port keeps:
 
-- no module of ``bundle_adjustment_tpu_torch``, and none of the ``chip_*.py``
-  scripts, imports ``jax`` or anything of the JAX package
+- no module of ``bundle_adjustment_tpu_torch`` (its ``tools/`` harnesses
+  among them), and none of the ``chip_*.py`` scripts, imports ``jax``,
+  anything of the JAX package, ``bench`` or the repo's ``tools/`` scripts
   (a source scan, and a fresh interpreter that imports every module and
-  finds no ``jax`` loaded); none imports matplotlib, and cv2 is imported
+  finds none of them loaded); none imports matplotlib, and cv2 is imported
   only by ``utils/io._cv2`` (a source scan; importing every module loads
   neither);
 - every entry point's default device is ``"cuda"`` (the pipeline, the
@@ -37,6 +38,7 @@ from bundle_adjustment_tpu_torch.ops import ba, ba_global_kernel, ba_kernel, ham
     orb_kernel
 from bundle_adjustment_tpu_torch.ops.ba_grid import BAProblemGrid
 from bundle_adjustment_tpu_torch.parallel import launch, mesh
+from bundle_adjustment_tpu_torch.tools import dedup_study, global_scale_sweep, stress
 from bundle_adjustment_tpu_torch.utils import prewarm, viz
 from bundle_adjustment_tpu_torch.utils.synthetic import synthetic_global_map, synthetic_window
 
@@ -50,9 +52,8 @@ CAM = CameraModel(fx=400.0, fy=400.0, cx=160.0, cy=120.0, width=320, height=240)
 
 
 def _forbidden(module: str) -> bool:
-    return (module == "jax" or module.startswith("jax.") or module == "jaxlib"
-            or module == "bundle_adjustment_tpu"
-            or module.startswith("bundle_adjustment_tpu."))
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "bundle_adjustment_tpu", "bench", "tools")
 
 
 def _sources():
@@ -101,14 +102,17 @@ def test_importing_every_module_loads_no_jax():
     mods = [m.name for m in pkgutil.walk_packages([str(PKG)], "bundle_adjustment_tpu_torch.")]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
-            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-            "       or m.startswith('bundle_adjustment_tpu.') or m in ('cv2', 'matplotlib')]\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'bench', 'tools',\n"
+            "       'bundle_adjustment_tpu', 'cv2', 'matplotlib')]\n"
             "assert not bad, bad\n"
             "print(len(sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert len(mods) >= 20
+    assert {"bundle_adjustment_tpu_torch.tools.stress",
+            "bundle_adjustment_tpu_torch.tools.dedup_study",
+            "bundle_adjustment_tpu_torch.tools.global_scale_sweep"} <= set(mods)
 
 
 def _no_card(monkeypatch):
@@ -147,6 +151,12 @@ def test_default_device_raises_without_a_card(monkeypatch):
                            str(REPO / "no_such_out" / "k.png"))
     with pytest.raises(RuntimeError, match="cuda"):
         viz.plot_and_save_trajectory_2d(np.zeros((2, 3)), str(REPO / "no_such_out"), "t")
+    assert not (REPO / "no_such_out").exists()
+    for tool, argv in ((stress, ["--video", "no.mp4", "--out", str(REPO / "no_such_out")]),
+                       (dedup_study, ["--out", str(REPO / "no_such_out")]),
+                       (global_scale_sweep, ["--cams", "16"])):
+        with pytest.raises(RuntimeError, match="cuda"):
+            tool.main(argv)
     assert not (REPO / "no_such_out").exists()
     # the CPU is used when asked for
     assert pipeline.VisualOdometryPipeline(PipelineConfig(camera=CAM), device="cpu")
