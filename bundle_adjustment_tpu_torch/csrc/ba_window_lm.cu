@@ -45,6 +45,14 @@
 // No float atomics, and the sums' order depends on the shape only: two
 // launches on the same input give the same bits.
 //
+// Built with -DBA_WINDOW_PHASE_CLOCKS (a second library beside the shipped
+// one, ops/ba_kernel.PHASES), thread 0 of CTA 0 writes clock64() at each
+// phase boundary of each LM iteration, and %globaltimer at the first and the
+// last stamp, to a device array that ba_window_lm_phase_clocks copies out:
+// the launch's time by phase, which no profiler splits.  The stamps are
+// stores of thread 0 alone; the arithmetic and its order are the shipped
+// build's, so the two give the same bits.
+//
 // Not carried over from the TPU kernel: the one-hot matrix and its MXU
 // gathers, the (rows, P-lanes) transposes and the pad of P to 128, the dense
 // (n, P) coupling stacks, the masked-iota assembly of S and of the stats.
@@ -80,6 +88,36 @@ constexpr int kPairLanes = 36; // per camera pair: one 6x6 block of sum B V^-1 B
 constexpr int kMaxPairs = kMaxAdj * (kMaxAdj + 1) / 2;
 constexpr int kMaxLanes = kMaxAdj * kCamLanes + kMaxPairs * kPairLanes;
 constexpr int kCluster = 16;   // CTAs in the launch's one cluster
+
+// the phase-clock build: stamps 0 (entry) and 1 (after the first cost pass),
+// then kPhases per LM iteration for the first kStampIters iterations, then
+// two (after the final cost pass; at exit)
+constexpr int kPhases = 10;
+constexpr int kStampIters = 64;
+constexpr int kStamps = 2 + kPhases * kStampIters + 2;
+#ifdef BA_WINDOW_PHASE_CLOCKS
+__device__ long long g_phase_clock[kStamps];
+__device__ unsigned long long g_phase_timer[2];
+__device__ __forceinline__ unsigned long long global_timer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define PHASE_STAMP(slot)                                        \
+  do {                                                           \
+    if (rank == 0 && tid == 0 && (slot) < kStamps)               \
+      g_phase_clock[(slot)] = clock64();                         \
+  } while (0)
+#define ITER_STAMP(phase) \
+  PHASE_STAMP(it < kStampIters ? 2 + kPhases * it + (phase) : kStamps)
+#else
+#define PHASE_STAMP(slot) \
+  do {                    \
+  } while (0)
+#define ITER_STAMP(phase) \
+  do {                    \
+  } while (0)
+#endif
 
 struct Args {
   const float* rvecs;
@@ -393,6 +431,10 @@ __global__ void __launch_bounds__(kThreads, 1) ba_window_lm_kernel(Args a) {
   float* pt_other = Gp + (size_t)3 * P;
   int* cbits = reinterpret_cast<int*>(pt_other + (size_t)3 * P);
   float* pt_cur = a.pts_out;
+#ifdef BA_WINDOW_PHASE_CLOCKS
+  if (rank == 0 && tid == 0) g_phase_timer[0] = global_timer();
+#endif
+  PHASE_STAMP(0);
 
   for (int i = 3 * lo + tid; i < 3 * hi; i += kThreads) pt_cur[i] = a.points[i];
   if (tid < C) {
@@ -410,9 +452,10 @@ __global__ void __launch_bounds__(kThreads, 1) ba_window_lm_kernel(Args a) {
   buf ^= 1;
   const float init_cost = 0.5f * c2[0];
   const float init_sq = c2[1];
+  PHASE_STAMP(1);
   // the loop state: the same values in every thread of every CTA
   float lam = a.lambda_init, cost = init_cost;
-  int it = 0;
+  int it = 0, stop = 0;   // stop: ops/ba.STOP_TESTS' code of the test that ended it
   bool done = init_cost < 0.0f;
 
   while (!done && it < a.max_iterations) {
@@ -420,6 +463,7 @@ __global__ void __launch_bounds__(kThreads, 1) ba_window_lm_kernel(Args a) {
     if (tid < C) rodrigues(sh.rv[tid], sh.R[tid], sh.dR[tid]);
     for (int e = 0; e < cam_lanes; ++e) acc[e * kAcc + tid] = 0.0f;
     __syncthreads();
+    ITER_STAMP(0);
 
     // -- 2. per point: V, g_p, coupling blocks, V^-1, and the camera lanes --
     for (int p = lo + tid; p < hi; p += kThreads) {
@@ -511,6 +555,7 @@ __global__ void __launch_bounds__(kThreads, 1) ba_window_lm_kernel(Args a) {
     }
 
     __syncthreads();
+    ITER_STAMP(1);
     // the CTA's camera lanes: each thread sums one row over the threads, in
     // four interleaved partials
     for (int e = tid; e < cam_lanes; e += kThreads) {
@@ -524,6 +569,7 @@ __global__ void __launch_bounds__(kThreads, 1) ba_window_lm_kernel(Args a) {
       sh.part[buf][e] = (x[0] + x[1]) + (x[2] + x[3]);
     }
     __syncthreads();   // the accumulators are read: wpart may reuse them
+    ITER_STAMP(2);
 
     // -- 3. per camera pair: sum_p B_c1 V^-1 B_c2^T over this thread's points
     for (int c1 = 0, q = 0; c1 < c_adj; ++c1) {
@@ -563,6 +609,7 @@ __global__ void __launch_bounds__(kThreads, 1) ba_window_lm_kernel(Args a) {
       }
     }
     __syncthreads();
+    ITER_STAMP(3);
 
     // -- 4. the CTA's pair lanes, then the cluster's sums in rank order ----
     for (int e = tid; e < pair_lanes; e += kThreads) {
@@ -574,6 +621,7 @@ __global__ void __launch_bounds__(kThreads, 1) ba_window_lm_kernel(Args a) {
     for (int e = tid; e < lanes; e += kThreads) sh.tot[e] = rank_sum(sh, buf, e, cluster);
     buf ^= 1;
     __syncthreads();
+    ITER_STAMP(4);
 
     // -- 5. S = blockdiag(U) - sum B V^-1 B^T, damped; b; Gauss-Jordan -----
     for (int e = tid; e < n * n; e += kThreads) {
@@ -592,8 +640,10 @@ __global__ void __launch_bounds__(kThreads, 1) ba_window_lm_kernel(Args a) {
     }
     for (int i = tid; i < n; i += kThreads) sh.S[i][n] = sh.tot[(i / 6) * kCamLanes + 21 + i % 6];
     __syncthreads();
+    ITER_STAMP(5);
     if (warp == 0) gauss_jordan(sh, n);
     __syncthreads();
+    ITER_STAMP(6);
 
     // -- 6. trial cameras, back-substitution, trial cost -------------------
     if (tid < C) {
@@ -606,6 +656,7 @@ __global__ void __launch_bounds__(kThreads, 1) ba_window_lm_kernel(Args a) {
       rodrigues(sh.rv2[tid], sh.R2[tid], nullptr);
     }
     __syncthreads();
+    ITER_STAMP(7);
 
     float tc[3] = {0.0f, 0.0f, 0.0f};          // sum rho, |dp|^2, |points|^2
     for (int p = lo + tid; p < hi; p += kThreads) {
@@ -653,6 +704,7 @@ __global__ void __launch_bounds__(kThreads, 1) ba_window_lm_kernel(Args a) {
     float ts[3];
     cluster_sum_small<kThreads>(tc, sh, buf, cluster, ts);
     buf ^= 1;
+    ITER_STAMP(8);
 
     // -- 7. accept / reject: every thread of every CTA decides alike -------
     const float new_cost = 0.5f * ts[0];
@@ -662,15 +714,15 @@ __global__ void __launch_bounds__(kThreads, 1) ba_window_lm_kernel(Args a) {
       for (int j = 0; j < 3; ++j)
         param2 += sh.rv[c][j] * sh.rv[c][j] + sh.tv[c][j] * sh.tv[c][j];
     const bool accept = new_cost < cost;
-    const bool converged =
-        accept && ((cost - new_cost) <= a.ftol * fmaxf(cost, 1e-12f) ||
-                   sqrtf(step2) <= a.xtol * (sqrtf(param2) + a.xtol));
+    const bool ftol_met = (cost - new_cost) <= a.ftol * fmaxf(cost, 1e-12f);
+    const bool xtol_met = sqrtf(step2) <= a.xtol * (sqrtf(param2) + a.xtol);
+    const bool converged = accept && (ftol_met || xtol_met);
     const float lam2 = accept ? fmaxf(lam * a.lambda_down, a.lambda_min)
                               : fminf(lam * a.lambda_up, a.lambda_max);
     const bool stuck = !accept && lam2 >= a.lambda_max;
     if (accept) cost = new_cost;
     lam = lam2;
-    it += 1;
+    stop = converged ? (ftol_met ? 1 : 2) : (stuck ? 3 : 0);
     done = converged || stuck;
     // every thread has read sh.rv, sh.tv and sh.x before they are written
     __syncthreads();
@@ -685,12 +737,15 @@ __global__ void __launch_bounds__(kThreads, 1) ba_window_lm_kernel(Args a) {
         }
       }
     }
+    ITER_STAMP(9);
+    it += 1;
   }
 
   if (tid < C) rodrigues(sh.rv[tid], sh.R[tid], nullptr);
   __syncthreads();
   cost_pass<kThreads>(a, k, sh.R, sh.tv, pt_cur, lo, hi, sh, buf, cluster, c2);
   const float final_sq = c2[1];
+  PHASE_STAMP(kStamps - 2);
 
   if (pt_cur != a.pts_out)
     for (int i = 3 * lo + tid; i < 3 * hi; i += kThreads) a.pts_out[i] = pt_cur[i];
@@ -708,10 +763,14 @@ __global__ void __launch_bounds__(kThreads, 1) ba_window_lm_kernel(Args a) {
     a.stats[4] = (float)it;
     a.stats[5] = cost < init_cost ? 1.0f : 0.0f;
     a.stats[6] = lam;
-    a.stats[7] = 0.0f;
+    a.stats[7] = (float)stop;
   }
   // no CTA leaves while another may still read its partials
   cluster.sync();
+  PHASE_STAMP(kStamps - 1);
+#ifdef BA_WINDOW_PHASE_CLOCKS
+  if (rank == 0 && tid == 0) g_phase_timer[1] = global_timer();
+#endif
 }
 
 size_t smem_bytes(int c_adj, int threads) {
@@ -800,3 +859,30 @@ extern "C" int ba_window_lm(const void* rvecs, const void* tvecs, const void* po
 
 // the CTAs of the launch's cluster, for the record of a run
 extern "C" int ba_window_lm_cluster_size() { return kCluster; }
+
+// the phase-clock build's layout: stamps, phases per LM iteration, iterations
+// stamped (0 in the shipped build, which stamps nothing)
+extern "C" int ba_window_lm_stamps() {
+#ifdef BA_WINDOW_PHASE_CLOCKS
+  return kStamps;
+#else
+  return 0;
+#endif
+}
+extern "C" int ba_window_lm_phases() { return kPhases; }
+extern "C" int ba_window_lm_stamp_iterations() { return kStampIters; }
+
+#ifdef BA_WINDOW_PHASE_CLOCKS
+// the last launch's stamps (kStamps clock64 values; a slot its iterations did
+// not reach keeps an older launch's value) and
+// its %globaltimer at entry and exit (ns), copied to host memory after the
+// stream's work
+extern "C" int ba_window_lm_phase_clocks(void* clocks, void* timer, void* stream) {
+  cudaError_t err = cudaStreamSynchronize((cudaStream_t)stream);
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol(clocks, g_phase_clock, sizeof(long long) * kStamps);
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol(timer, g_phase_timer, sizeof(unsigned long long) * 2);
+  return (int)err;
+}
+#endif

@@ -61,6 +61,11 @@ KERNELS = {
                        [_P] * 6 + [_I] * 4 + [_P] * 4),
 }
 
+#: a second build of a kernel's source under a macro, beside the shipped one:
+#: variant name -> (the kernel of ``KERNELS`` it builds, the macro).  Its
+#: launches count as that kernel's.
+VARIANTS = {"ba_window_lm_clocks": ("ba_window_lm", "BA_WINDOW_PHASE_CLOCKS")}
+
 LAUNCHES = {name: 0 for name in KERNELS}
 #: launches recorded while a CUDA graph is being captured, per kernel
 CAPTURED = collections.Counter()
@@ -81,36 +86,47 @@ def _nvcc() -> str:
                        "machine with the card (PATH or /usr/local/cuda/bin)")
 
 
+def _spec(name: str) -> tuple:
+    """(source, C entry point, argtypes, macros) of a kernel or a variant."""
+    base, macro = VARIANTS.get(name, (name, None))
+    return KERNELS[base] + ((macro,) if macro else (),)
+
+
 def _lib_path(name: str) -> Path:
-    """The library of kernel ``name``: one per source file."""
-    return BUILD_DIR / f"lib{Path(KERNELS[name][0]).stem}.so"
+    """The library of kernel ``name``: one per source file, and one per
+    variant."""
+    source, _, _, macros = _spec(name)
+    return BUILD_DIR / f"lib{Path(source).stem}{''.join('.' + m for m in macros)}.so"
 
 
 def _stale(name: str) -> bool:
-    src = SOURCE_DIR / KERNELS[name][0]
+    src = SOURCE_DIR / _spec(name)[0]
     lib = _lib_path(name)
     return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
 
 
 def build_all(names=None, verbose: bool = False) -> dict:
-    """Compile the given kernels (default: all stale ones), one ``nvcc``
-    process per source, all started together.  Returns {name: seconds}.
-    Raises with the compiler's output when a build fails."""
+    """Compile the given kernels or ``VARIANTS`` (default: all stale
+    kernels), one ``nvcc`` process per library, all started together.
+    Returns {name: seconds}.  Raises with the compiler's output when a
+    build fails."""
     names = [n for n in (names or KERNELS) if _stale(n)]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
     t0 = time.perf_counter()
-    # kernels that share a source share its library: build it once, under
-    # the first of their names
+    # kernels that share a library build it once, under the first of their
+    # names
     first_of = {}
     for name in names:
-        first_of.setdefault(KERNELS[name][0], name)
-    for source, name in first_of.items():
+        first_of.setdefault(_lib_path(name), name)
+    for lib, name in first_of.items():
+        source, _, _, macros = _spec(name)
         src = SOURCE_DIR / source
-        tmp = BUILD_DIR / f"{_lib_path(name).stem}.{os.getpid()}.tmp.so"
+        tmp = BUILD_DIR / f"{lib.stem}.{os.getpid()}.tmp.so"
         cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(src)]
+               "-O3", "-shared", "-Xcompiler", "-fPIC", *(f"-D{m}" for m in macros),
+               "-o", str(tmp), str(src)]
         if verbose:
             cmd[1:1] = ["-Xptxas", "-v"]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -128,16 +144,17 @@ def build_all(names=None, verbose: bool = False) -> dict:
         os.replace(tmp, _lib_path(name))
     if errors:
         raise RuntimeError("\n".join(errors))
-    return {name: seconds[first_of[KERNELS[name][0]]] for name in names}
+    return {name: seconds[first_of[_lib_path(name)]] for name in names}
 
 
 def library_fn(name: str):
-    """The ctypes entry point of kernel ``name``, building it if needed."""
+    """The ctypes entry point of kernel (or variant) ``name``, building it if
+    needed."""
     fn = _loaded.get(name)
     if fn is None:
         if _stale(name):
             build_all([name])
-        _, entry, argtypes = KERNELS[name]
+        _, entry, argtypes, _ = _spec(name)
         lib = ctypes.CDLL(str(_lib_path(name)))
         fn = getattr(lib, entry)
         fn.argtypes = argtypes

@@ -33,6 +33,7 @@ from bundle_adjustment_tpu_torch import kernels
 from bundle_adjustment_tpu_torch.ops import hamming, orb, ransac, triangulation
 from bundle_adjustment_tpu_torch.ops.lie import rotation_angle, so3_exp, so3_hat, so3_log_np
 from bundle_adjustment_tpu_torch.ops.projection import epipolar_errors_px
+from bundle_adjustment_tpu_torch.utils.stages import stage
 
 
 class FrontendState(NamedTuple):
@@ -166,76 +167,84 @@ def track_step(
     consistent: bool,
 ) -> TrackResult:
     """The fused tracked-frame step.  ``u``: PnP sample uniforms of shape
-    ``ransac.pnp_draw_shape(pnp_iters)``."""
+    ``ransac.pnp_draw_shape(pnp_iters)``.  Each stage runs inside
+    ``utils/stages.stage`` (a no-op outside a profile by stage)."""
     f32 = torch.float32
     kp = orb.extract(
         image_u8, num_features=num_features, levels=levels,
         scale=pyramid_scale, threshold=fast_threshold,
         height=height, width=width,
     )
-    idx, mask, dist = hamming.match(
-        state.desc, kp.desc, state.kp_valid, kp.valid,
-        ratio=ratio, cross_check=cross_check,
-    )
-    uv1 = state.xy
-    uv2 = kp.xy[idx.long()]
-    tracked = mask & state.tracked
-    tracked_n = torch.sum(tracked)
+    with stage("K1 match"):
+        idx, mask, dist = hamming.match(
+            state.desc, kp.desc, state.kp_valid, kp.valid,
+            ratio=ratio, cross_check=cross_check,
+        )
+        uv1 = state.xy
+        uv2 = kp.xy[idx.long()]
+        tracked = mask & state.tracked
+        tracked_n = torch.sum(tracked)
 
-    res = ransac.estimate_pnp_pose(
-        u, state.pts3d, uv2, tracked, K,
-        reproj_threshold_px=pnp_reproj_px, num_hyp=pnp_iters,
-    )
-    R_last = so3_exp(state.rvec)
-    t_last = state.tvec
-    R_pnp, t_pnp = res.R, res.t
-    R_rel = torch.matmul(R_pnp, R_last.T)
-    t_rel = t_pnp - R_rel @ t_last
-    finite = torch.isfinite(R_pnp).all() & torch.isfinite(t_pnp).all()
+    with stage("pnp ransac"):
+        res = ransac.estimate_pnp_pose(
+            u, state.pts3d, uv2, tracked, K,
+            reproj_threshold_px=pnp_reproj_px, num_hyp=pnp_iters,
+        )
+    with stage("relative model"):
+        R_last = so3_exp(state.rvec)
+        t_last = state.tvec
+        R_pnp, t_pnp = res.R, res.t
+        R_rel = torch.matmul(R_pnp, R_last.T)
+        t_rel = t_pnp - R_rel @ t_last
+        finite = torch.isfinite(R_pnp).all() & torch.isfinite(t_pnp).all()
 
-    t_u = t_rel / torch.linalg.norm(t_rel).clamp(min=1e-12)
-    E = torch.matmul(so3_hat(t_u), R_rel)
-    errs = epipolar_errors_px(E, K, uv1, uv2)
-    inl = (errs < sampson_thr_px ** 2) & mask
-    num_inliers = torch.sum(inl)
+    with stage("sampson"):
+        t_u = t_rel / torch.linalg.norm(t_rel).clamp(min=1e-12)
+        E = torch.matmul(so3_hat(t_u), R_rel)
+        errs = epipolar_errors_px(E, K, uv1, uv2)
+        inl = (errs < sampson_thr_px ** 2) & mask
+        num_inliers = torch.sum(inl)
 
-    rot_mag = rotation_angle(R_rel)
-    if consistent:
-        c_last = -(R_last.T @ t_last)
-        c_new = -(R_pnp.T @ t_pnp)
-    else:
-        c_last = t_last
-        c_new = t_last + R_last @ t_rel
-    par_mask = inl & state.tracked
-    r1 = state.pts3d - c_last
-    r2 = state.pts3d - c_new
-    n1 = torch.linalg.norm(r1, dim=1)
-    n2 = torch.linalg.norm(r2, dim=1)
-    good = par_mask & (n1 > 1e-9) & (n2 > 1e-9)
-    cosang = torch.sum(r1 * r2, dim=1) / (n1 * n2).clamp(min=1e-18)
-    ang_deg = torch.rad2deg(torch.arccos(torch.clamp(cosang, -1.0, 1.0)))
-    med_par = _masked_median(ang_deg, good)
-    med_disp = _masked_median(torch.linalg.norm(uv2 - uv1, dim=1), inl)
+    with stage("keyframe metrics"):
+        rot_mag = rotation_angle(R_rel)
+        if consistent:
+            c_last = -(R_last.T @ t_last)
+            c_new = -(R_pnp.T @ t_pnp)
+        else:
+            c_last = t_last
+            c_new = t_last + R_last @ t_rel
+        par_mask = inl & state.tracked
+        r1 = state.pts3d - c_last
+        r2 = state.pts3d - c_new
+        n1 = torch.linalg.norm(r1, dim=1)
+        n2 = torch.linalg.norm(r2, dim=1)
+        good = par_mask & (n1 > 1e-9) & (n2 > 1e-9)
+        cosang = torch.sum(r1 * r2, dim=1) / (n1 * n2).clamp(min=1e-18)
+        ang_deg = torch.rad2deg(torch.arccos(torch.clamp(cosang, -1.0, 1.0)))
+        med_par = _masked_median(ang_deg, good)
+        med_disp = _masked_median(torch.linalg.norm(uv2 - uv1, dim=1), inl)
 
-    tri_X, tri_ok = triangulation.triangulate_pair(
-        K.to(f32), R_rel.to(f32), t_rel.to(f32), uv1, uv2)
-    tri_ok = tri_ok & inl
+    with stage("speculative DLT"):
+        tri_X, tri_ok = triangulation.triangulate_pair(
+            K.to(f32), R_rel.to(f32), t_rel.to(f32), uv1, uv2)
+        tri_ok = tri_ok & inl
 
-    packed = torch.cat([
-        torch.stack([
-            torch.sum(mask).to(f32), tracked_n.to(f32),
-            (res.ok & finite).to(f32), res.num_inliers.to(f32),
-            num_inliers.to(f32), rot_mag.to(f32), torch.sum(par_mask).to(f32),
-            med_par.to(f32), med_disp.to(f32), torch.sum(kp.valid).to(f32),
-        ]),
-        R_pnp.reshape(-1).to(f32), t_pnp.to(f32),
-        R_rel.reshape(-1).to(f32), t_rel.to(f32),
-    ])
-    insert_packed = torch.cat([
-        idx[:, None].to(f32), mask[:, None].to(f32), inl[:, None].to(f32),
-        tri_X.to(f32), tri_ok[:, None].to(f32), kp.xy.to(f32),
-        kp.valid[:, None].to(f32),
-    ], dim=1)
+    with stage("pack"):
+        packed = torch.cat([
+            torch.stack([
+                torch.sum(mask).to(f32), tracked_n.to(f32),
+                (res.ok & finite).to(f32), res.num_inliers.to(f32),
+                num_inliers.to(f32), rot_mag.to(f32), torch.sum(par_mask).to(f32),
+                med_par.to(f32), med_disp.to(f32), torch.sum(kp.valid).to(f32),
+            ]),
+            R_pnp.reshape(-1).to(f32), t_pnp.to(f32),
+            R_rel.reshape(-1).to(f32), t_rel.to(f32),
+        ])
+        insert_packed = torch.cat([
+            idx[:, None].to(f32), mask[:, None].to(f32), inl[:, None].to(f32),
+            tri_X.to(f32), tri_ok[:, None].to(f32), kp.xy.to(f32),
+            kp.valid[:, None].to(f32),
+        ], dim=1)
     return TrackResult(
         packed=packed, kp_xy=kp.xy, kp_desc=kp.desc, kp_valid=kp.valid,
         match_idx=idx, match_mask=mask, match_dist=dist, inliers=inl,
@@ -311,6 +320,12 @@ class TrackStep:
         args = (image, self.state, self._K, u)
         if self.device.type != "cuda":
             return track_step(*args, **static)
+        return self._replay(args, static)
+
+    def _replay(self, args: tuple, static: dict) -> TrackResult:
+        """``track_step(*args, **static)`` as a replay of its graph, captured
+        at the first call with these shapes and arguments."""
+        hw, u = tuple(args[0].shape), args[3]
         key = (hw, self.state.desc.shape[0], tuple(u.shape), tuple(sorted(static.items())))
         entry = self._graphs.get(key)
         if entry is None:

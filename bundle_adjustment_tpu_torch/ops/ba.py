@@ -63,8 +63,8 @@ class BAStats(NamedTuple):
     final_sq: torch.Tensor
     iterations: torch.Tensor
     accepted: torch.Tensor
-    #: int32 code of ``STOP_TESTS``; None from a solver that does not
-    #: record it (the window LM kernel)
+    #: int32 code of ``STOP_TESTS`` (the window LM kernel writes it into
+    #: its stats lane 7); None from a solver that does not record it
     stop: Optional[torch.Tensor] = None
 
 

@@ -61,6 +61,19 @@ from bundle_adjustment_tpu_torch.ops.ba_grid import BAProblemGrid
 from bundle_adjustment_tpu_torch.ops.lie import so3_exp, so3_exp_and_jac
 
 NAME = "ba_window_lm"
+#: the build of the same source that stamps each phase's clock
+#: (``phase_clocks``)
+CLOCKS = "ba_window_lm_clocks"
+#: the kernel's phases in one LM iteration, in the order the stamps close
+#: them (``csrc/ba_window_lm.cu``'s steps): Rodrigues and the accumulators
+#: zeroed; the pass over the points (residuals, Jacobians, Huber weights, V
+#: and its inverse, g_p, the coupling blocks, U, -g_c and B z_p); the CTA's
+#: sums of the camera lanes; the pair sums of B V^-1 B^T (the reduced camera
+#: system's Schur part); the cluster's sums; S and b assembled and damped;
+#: the Gauss-Jordan solve; the trial cameras; the back-substitution with the
+#: trial cost; the accept / reject
+PHASES = ("rodrigues", "points", "camera_lanes", "pair_sums", "cluster_sums",
+          "assemble_S", "solve", "trial_cameras", "backsub_trial_cost", "accept")
 
 MAX_SYSTEM = 48          # 6 * adjustable cameras
 MAX_CAMERAS = 16         # C, fixed ones included
@@ -282,11 +295,13 @@ def _check(grid: BAProblemGrid, n_fixed: int):
 def launch(grid: BAProblemGrid, n_fixed: int, max_iterations: int,
            huber_delta: float, lambda_init: float, lambda_up: float,
            lambda_down: float, lambda_min: float, lambda_max: float,
-           ftol: float, xtol: float):
+           ftol: float, xtol: float, clocks: bool = False):
     """Launch the kernel, one thread-block cluster, on a checked CUDA
     window.  Returns (rvecs, tvecs, points, stats) with the kernel's eight
     float32 stats lanes: initial cost, final cost, initial and final squared
-    cost, iterations, accepted, the last lambda, 0."""
+    cost, iterations, accepted, the last lambda, the ``ba.STOP_TESTS`` code
+    of the test that ended the loop.  ``clocks``: launch the phase-clock
+    build (``CLOCKS``) instead, whose stamps ``phase_clocks`` reads."""
     C, P, D = _check(grid, n_fixed)
     dev = grid.rvecs.device
     g = BAProblemGrid(*(t.contiguous() for t in grid))
@@ -295,7 +310,7 @@ def launch(grid: BAProblemGrid, n_fixed: int, max_iterations: int,
     pts = torch.empty((P, 3), dtype=torch.float32, device=dev)
     stats = torch.empty(8, dtype=torch.float32, device=dev)
     scratch = torch.empty(scratch_floats(C, P, n_fixed), dtype=torch.float32, device=dev)
-    fn = kernels.library_fn(NAME)
+    fn = kernels.library_fn(CLOCKS if clocks else NAME)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(g.rvecs.data_ptr(), g.tvecs.data_ptr(), g.points.data_ptr(),
              g.cam_slot.data_ptr(), g.uv.data_ptr(), g.mask.data_ptr(),
@@ -340,5 +355,44 @@ def lm_solve(
     rv, tv, pts, s = launch(grid, n_fixed, **opts)
     stats = ba_flat.BAStats(
         initial_cost=s[0], final_cost=s[1], initial_sq=s[2], final_sq=s[3],
-        iterations=s[4].to(torch.int32), accepted=s[5] > 0.5)
+        iterations=s[4].to(torch.int32), accepted=s[5] > 0.5, stop=s[7].to(torch.int32))
     return rv, tv, pts, stats
+
+
+def phase_clocks(iterations: int) -> dict:
+    """The stamps of the last launch of the phase-clock build (``launch(...,
+    clocks=True)``), after its stream's work: the SM clock's cycles per ns
+    (the stamps' span over ``%globaltimer``'s), the ms before the LM loop
+    (the first cost pass), of each of ``PHASES`` summed over the stamped
+    iterations, after it (the final cost pass and the write-back) and in
+    all (the first stamp to the last), and the iterations stamped
+    (``iterations``, the launch's own, at most ``ba_window_lm_stamp_iterations``)."""
+    import ctypes
+
+    import numpy as np
+
+    n = kernels.library_const(CLOCKS, "ba_window_lm_stamps")
+    k = kernels.library_const(CLOCKS, "ba_window_lm_phases")
+    its = min(int(iterations), kernels.library_const(CLOCKS, "ba_window_lm_stamp_iterations"))
+    if k != len(PHASES):
+        raise RuntimeError(f"the phase-clock build stamps {k} phases, PHASES names {len(PHASES)}")
+    clk = np.zeros(n, np.int64)
+    timer = np.zeros(2, np.uint64)
+    lib = ctypes.CDLL(str(kernels._lib_path(CLOCKS)))
+    lib.ba_window_lm_phase_clocks.argtypes = [ctypes.c_void_p] * 3
+    lib.ba_window_lm_phase_clocks.restype = ctypes.c_int
+    kernels.check(CLOCKS, lib.ba_window_lm_phase_clocks(
+        clk.ctypes.data, timer.ctypes.data, torch.cuda.current_stream().cuda_stream))
+    # the loop's stamps in order: 1 (its entry), then k per iteration
+    loop = np.concatenate([clk[1:2], clk[2:2 + k * its]])
+    span = int(clk[n - 1] - clk[0])
+    ns = int(timer[1]) - int(timer[0])
+    per_ns = span / ns if ns > 0 else float("nan")
+    ms = lambda cycles: float(cycles) / per_ns / 1e6  # noqa: E731
+    steps = np.diff(loop).reshape(its, k) if its else np.zeros((0, k), np.int64)
+    first_after = int(clk[2 + k * its - 1]) if its else int(clk[1])
+    return dict(cycles_per_ns=per_ns, iterations=its,
+                before_loop_ms=ms(clk[1] - clk[0]),
+                phase_ms={p: ms(steps[:, i].sum()) for i, p in enumerate(PHASES)},
+                after_loop_ms=ms(clk[n - 1] - first_after),
+                total_ms=ms(span), timer_ms=ns / 1e6)

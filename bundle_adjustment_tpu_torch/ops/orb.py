@@ -36,6 +36,7 @@ import torch.nn.functional as F
 
 from bundle_adjustment_tpu_torch.ops import orb_kernel
 from bundle_adjustment_tpu_torch.ops.brief_pattern import PATTERN as _BRIEF_PATTERN
+from bundle_adjustment_tpu_torch.utils.stages import stage
 
 _FAST_CIRCLE = np.array(
     [
@@ -230,40 +231,47 @@ def _detect_level(img_f32, threshold, budget, border=_BORDER):
     desc (B, 8))."""
     H, W = img_f32.shape
     dev = img_f32.device
-    blurred = gaussian_blur(img_f32)
+    with stage("blur"):
+        blurred = gaussian_blur(img_f32)
+    with stage("fast"):
+        fast = fast_score_map(img_f32, threshold)
+    with stage("nms"):
+        score = _nms3(fast)
+    with stage("harris"):
+        ys = torch.arange(H, device=dev)[:, None]
+        xs = torch.arange(W, device=dev)[None, :]
+        in_border = (ys >= border) & (ys < H - border) & (xs >= border) & (xs < W - border)
+        harris = harris_response(img_f32)
+        rank = torch.where((score > 0) & in_border, harris, -torch.inf)
 
-    score = _nms3(fast_score_map(img_f32, threshold))
-    ys = torch.arange(H, device=dev)[:, None]
-    xs = torch.arange(W, device=dev)[None, :]
-    in_border = (ys >= border) & (ys < H - border) & (xs >= border) & (xs < W - border)
-    harris = harris_response(img_f32)
-    rank = torch.where((score > 0) & in_border, harris, -torch.inf)
-
-    # lax.approx_max_k is exact off the TPU; ties go to the lower index
-    top_vals, top_idx = _top_desc(rank.reshape(-1), budget)
-    valid = torch.isfinite(top_vals)
-    yx = torch.stack([top_idx // W, top_idx % W], dim=1)
+    with stage("topk"):
+        # lax.approx_max_k is exact off the TPU; ties go to the lower index
+        top_vals, top_idx = _top_desc(rank.reshape(-1), budget)
+        valid = torch.isfinite(top_vals)
+        yx = torch.stack([top_idx // W, top_idx % W], dim=1)
 
     def score_at(dy, dx):
         return score[torch.clamp(yx[:, 0] + dy, 0, H - 1),
                      torch.clamp(yx[:, 1] + dx, 0, W - 1)]
-
-    s0 = score_at(0, 0)
 
     def subpixel_offset(s_minus, s_plus):
         denom = s_minus - 2.0 * s0 + s_plus
         denom = torch.where(torch.abs(denom) < 1e-6, 1e-6, denom)
         return torch.clamp(0.5 * (s_minus - s_plus) / denom, -0.5, 0.5)
 
-    off_x = subpixel_offset(score_at(0, -1), score_at(0, 1))
-    off_y = subpixel_offset(score_at(-1, 0), score_at(1, 0))
+    with stage("subpixel"):
+        s0 = score_at(0, 0)
+        off_x = subpixel_offset(score_at(0, -1), score_at(0, 1))
+        off_y = subpixel_offset(score_at(-1, 0), score_at(1, 0))
 
-    m10, m01 = _moment_maps(img_f32)
-    flat = yx[:, 0] * W + yx[:, 1]
-    angle = torch.arctan2(m01.reshape(-1)[flat], m10.reshape(-1)[flat])
+    with stage("moments"):
+        m10, m01 = _moment_maps(img_f32)
+        flat = yx[:, 0] * W + yx[:, 1]
+        angle = torch.arctan2(m01.reshape(-1)[flat], m10.reshape(-1)[flat])
 
-    desc = _describe(blurred, yx, angle)
-    xy = torch.stack([yx[:, 1] + off_x, yx[:, 0] + off_y], dim=1).to(torch.float32)
+    with stage("describe"):
+        desc = _describe(blurred, yx, angle)
+        xy = torch.stack([yx[:, 1] + off_x, yx[:, 0] + off_y], dim=1).to(torch.float32)
     return xy, top_vals, angle, valid, desc
 
 
@@ -317,7 +325,8 @@ def _describe(blurred, yx, angle):
     start_y = torch.clamp(yx[:, 0] - _SAMPLE_R, 0, H - _PATCH).to(torch.int32)
     start_x = torch.clamp(yx[:, 1] - _SAMPLE_R, 0, W - _PATCH).to(torch.int32)
 
-    patches = _extract_patches(blurred, start_y, start_x)          # (B, 40, 40)
+    with stage("K2 gather"):
+        patches = _extract_patches(blurred, start_y, start_x)      # (B, 40, 40)
     pm = patches.reshape(-1, _GRID * _GRID).to(_DESC_DTYPE).to(torch.float32)
     vals = torch.matmul(pm, _pattern_tensor(blurred.device)).reshape(
         -1, _NBINS, _NUM_PAIRS)
@@ -399,7 +408,8 @@ def extract(
     """Detect + describe up to ``num_features`` keypoints.  image_u8: (H, W)
     uint8 grayscale on the device to run on.  Returns a fixed-capacity
     Keypoints SoA (invalid slots masked)."""
-    img0 = image_u8.to(torch.float32)
+    with stage("pyramid"):
+        img0 = image_u8.to(torch.float32)
     dev = img0.device
     budgets = level_budgets(int(num_features * overdetect), levels, scale)
 
@@ -409,14 +419,23 @@ def extract(
         sf = scale ** lvl
         h, w = max(int(round(height / sf)), 64), max(int(round(width / sf)), 64)
         if lvl > 0:
-            img = resize_bilinear(img0, (h, w))
+            with stage("pyramid"):
+                img = resize_bilinear(img0, (h, w))
         xy, resp, ang, valid, desc = _detect_level(img, threshold, budgets[lvl])
-        parts.append((xy * sf, resp, ang, torch.full_like(resp, 31.0 * sf),
-                      torch.full(resp.shape, lvl, dtype=torch.int32, device=dev),
-                      desc, valid))
+        with stage("dedup + select"):
+            parts.append((xy * sf, resp, ang, torch.full_like(resp, 31.0 * sf),
+                          torch.full(resp.shape, lvl, dtype=torch.int32, device=dev),
+                          desc, valid))
+    with stage("dedup + select"):
+        return _dedup_select(parts, num_features, height, width)
 
+
+def _dedup_select(parts, num_features: int, height: int, width: int) -> Keypoints:
+    """The levels' keypoints concatenated, deduplicated across levels and
+    the best ``num_features`` kept."""
     xy, resp, ang, size, lvl, desc, valid = (
         torch.cat([p[i] for p in parts]) for i in range(7))
+    dev = xy.device
 
     # cross-level dedup: keep the highest-response keypoint per 3 px cell
     if _DEDUP_CELL_PX > 0:

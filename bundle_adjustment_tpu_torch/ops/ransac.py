@@ -281,26 +281,45 @@ def estimate_essential_pose(
 def _dlt_projection(X, x):
     """Batched 6-point DLT for P (..., 3, 4) from X (..., S, 3), x (..., S, 2).
 
-    The null vector comes from a float32 eigh of the unnormalised A^T A, as
-    in the JAX package (``small_linalg.eigh``: ``torch.linalg.eigh``'s
-    solver on each device, LAPACK on the CPU).  That squares A's condition
-    number: with the map a few metres off the origin the vector misses the
-    float64 null vector's residual by 5 to 10 times, in both packages alike,
-    and on a sample that is close to coplanar the null space has more than
-    one dimension and the vector is whichever one the solver lands on.
-    RANSAC over such hypotheses then differs between the packages by
-    chance, in either direction (``tests/test_torch_geometry.py``).  A
-    float64 eigh repairs the first and not the second, and moves the port
-    away from the JAX package on scenes of two planes, so it is not taken
-    here."""
+    The null vector of the unnormalised system A p = 0 from a float32 eigh
+    of A^T A, as in the JAX package (``small_linalg.null_vector``: LAPACK's
+    ``syevd`` on the CPU, the JAX package's CPU reference; cuSOLVER's
+    batched solver on the card, whose vectors leave residuals 6 to 7 times
+    LAPACK's: ROADMAP Queue 3 item 19).  That squares A's condition number:
+    with the map a few metres off the origin the vector misses the float64
+    null vector's residual by 5 to 10 times, in both packages alike, and on
+    a sample that is close to coplanar the null space has more than one
+    dimension and the vector is whichever one the solver lands on.  RANSAC
+    over such hypotheses then differs between the packages by chance, in
+    either direction (``tests/test_torch_geometry.py``)."""
+    return small_linalg.null_vector(_dlt_rows(X, x)).reshape(X.shape[:-2] + (3, 4))
+
+
+def dlt_residual(X, x, P):
+    """The residual |N p| / |N| of each DLT hypothesis P (..., 3, 4) on the
+    normal matrix N = A^T A of its samples X (..., S, 3), x (..., S, 2),
+    formed in float64 on the CPU (0 for the exact null vector)."""
+    N = _dlt_normal(X.detach().double().cpu(), x.detach().double().cpu())
+    p = P.detach().double().cpu().reshape(N.shape[:-1] + (1,))
+    p = p / torch.linalg.norm(p, dim=(-2, -1), keepdim=True)
+    return (torch.linalg.norm(N @ p, dim=(-2, -1))
+            / torch.linalg.matrix_norm(N, ord=2)).float()
+
+
+def _dlt_rows(X, x):
+    """The DLT's system A (..., 2S, 12): two rows per point."""
     ones = torch.ones_like(X[..., :1])
     Xh = torch.cat([X, ones], dim=-1)
     zeros = torch.zeros_like(Xh)
     r1 = torch.cat([Xh, zeros, -x[..., 0:1] * Xh], dim=-1)
     r2 = torch.cat([zeros, Xh, -x[..., 1:2] * Xh], dim=-1)
-    A = torch.cat([r1, r2], dim=-2)
-    AtA = torch.matmul(A.transpose(-1, -2), A)
-    return small_linalg.eigh(AtA)[1][..., :, 0].reshape(X.shape[:-2] + (3, 4))
+    return torch.cat([r1, r2], dim=-2)
+
+
+def _dlt_normal(X, x):
+    """The DLT's normal matrices A^T A (..., 12, 12), unnormalised."""
+    A = _dlt_rows(X, x)
+    return torch.matmul(A.transpose(-1, -2), A)
 
 
 def _pose_from_projection(P):

@@ -18,6 +18,9 @@ them there).  ``info`` stays on the card: where PyTorch would have raised
 for a matrix the solver could not finish, the result holds what the solver
 left.
 
+The step's null vectors (the DLT's and the triangulation's) come from
+``null_vector``, an eigh of A^T A as in the JAX package.
+
 cuSOLVER is the library that PyTorch itself calls on the card; it is loaded
 from the process (PyTorch's CUDA build has it loaded) or from the CUDA
 toolkit.
@@ -143,6 +146,55 @@ def eigh(A: torch.Tensor):
     _check("cusolverDnXsyevBatched", lib.cusolverDnXsyevBatched(
         *args, _P(work.data_ptr()), dev_bytes.value, None, 0, _P(info.data_ptr()), batch))
     return w.reshape(A.shape[:-1]), V.transpose(-1, -2).reshape(A.shape)
+
+
+#: the least gap, over the largest eigenvalue, across which
+#: ``refine_null_vector`` corrects the vector: below it the coupling is
+#: rounding, not signal
+NULL_GAP = 1e-6
+
+
+def null_vector(A: torch.Tensor) -> torch.Tensor:
+    """The unit vector p (..., n) that minimises |A p| for each square A
+    (..., n, n), as the eigenvector of the smallest eigenvalue of A^T A:
+    ``eigh(A^T A)[1][..., :, 0]`` (LAPACK's float32 ``syevd`` on the CPU, as
+    the JAX package computes it; cuSOLVER's batched float32 solver on the
+    card).  The one place the step's null vectors are taken, so that a
+    study can route them (``tools/stress.ROUTES``).
+
+    On the card cuSOLVER's vectors of the PnP DLT's normal matrices
+    (smallest over largest eigenvalue about 1e-10) leave residuals |A^T A p|
+    / |A^T A| 6 to 7 times LAPACK's, and the PnP fails on more frames of a
+    long drive than the reference's (ROADMAP Queue 3 item 19).
+    ``refine_null_vector`` brings the residual to LAPACK's, the SVD of A
+    past it; neither is taken here, for what each does to phase 11's drives
+    (PERF.md section 5)."""
+    N = torch.matmul(A.transpose(-1, -2), A)
+    return eigh(N)[1][..., :, 0]
+
+
+def refine_null_vector(A: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+    """A first-order correction of the first column of the eigenvectors V
+    (..., n, n) of the symmetric A toward A's null vector, on any device
+    (the "corrected eigh" routing).  cuSOLVER's float32 vectors carry a few
+    1e-7 of the eigenvectors of large eigenvalues; with V the solver's
+    eigenvectors, v0 -= sum_i (v_i' A v0) / (v_i' A v_i - v0' A v0) v_i over
+    every i whose gap exceeds ``NULL_GAP`` of the largest eigenvalue, then
+    v0 is normalised: the residual lands at or below LAPACK's
+    (``tests/test_torch_dlt.py``, ``tests/test_torch_kernels.py``).  Inside
+    the cluster of small eigenvalues (a few 1e-9 of the largest, below
+    float32's resolution of A) the gaps are rounding and the vector is kept
+    there: LAPACK's eigh is 0.2 and more off the float64 vector inside it
+    too, and only the SVD of A resolves it."""
+    AV = torch.matmul(A, V)
+    coupling = torch.matmul(V[..., :, 1:].transpose(-1, -2), AV[..., :, :1])[..., 0]
+    rayleigh = torch.sum(V * AV, dim=-2)
+    gap = rayleigh[..., 1:] - rayleigh[..., :1]
+    wide = gap > NULL_GAP * rayleigh[..., -1:]
+    theta = torch.where(wide, coupling / torch.where(wide, gap, torch.ones_like(gap)),
+                        torch.zeros_like(gap))
+    v = V[..., :, 0] - torch.matmul(V[..., :, 1:], theta[..., None])[..., 0]
+    return v / torch.linalg.norm(v, dim=-1, keepdim=True)
 
 
 def svd(A: torch.Tensor):

@@ -17,7 +17,7 @@ def camera_matrix(K: torch.Tensor, R: torch.Tensor, t: torch.Tensor) -> torch.Te
 def triangulate_dlt(P1, P2, uv1, uv2):
     """Linear (DLT) triangulation of N correspondences via the
     smallest-eigenvalue eigenvector of the 4x4 normal matrix
-    (``small_linalg.eigh``: ``torch.linalg.eigh``'s solver on each
+    (``small_linalg.null_vector``: ``torch.linalg.eigh``'s solver on each
     device).  Its sign cancels in the homogeneous divide."""
     u1, v1 = uv1[..., 0], uv1[..., 1]
     u2, v2 = uv2[..., 0], uv2[..., 1]
@@ -30,8 +30,7 @@ def triangulate_dlt(P1, P2, uv1, uv2):
         ],
         dim=-2,
     )
-    AtA = torch.matmul(torch.swapaxes(A, -1, -2), A)
-    Xh = small_linalg.eigh(AtA)[1][..., :, 0]
+    Xh = small_linalg.null_vector(A)
     w = Xh[..., 3]
     w_safe = w + torch.where(w >= 0, 1e-6, -1e-6)
     return Xh[..., :3] / w_safe[..., None]

@@ -9,7 +9,12 @@ study's folder (``.dedup_study``), each cell runs on that cell's committed
 video (``s{seed}_d{dedup}_cpu/sequence.mp4``, read as it is), and the study
 prints each seed's result beside the JAX cell's ``stress_result.json``,
 keyframe triggers, divergences and closures of both runs read from their
-``events.jsonl`` by the port's ``utils/analyze_log``, and the two means.
+``events.jsonl`` by the port's ``utils/analyze_log``, and the two means;
+and each seed's tracking breakdowns beside the JAX cell's (``stress.
+breakdowns``: every Rotation trigger with its frame, angle, tracked points
+and inliers, every discarded frame, the pruned observations, culled points,
+failed relocalizations and divergences), and the JAX TPU cell's where the
+study holds one (``s2_d3_tpu``).
 
 The study is gated on the mean, never seed by seed (the JAX package itself
 lands far apart on one seed across backends): it exits with 1 when a cell
@@ -22,7 +27,8 @@ the JAX cells' worst seed at that size (12.51 % at 3 px).
 
 A cell whose ``stress_result.json`` exists in ``--out`` is read, not run
 again; ``--jobs`` cells run at once.  By default the cells run on the card
-(``--device``).
+(``--device``), as the port ships; ``--route`` runs them under one of the
+stress harness's routings (``stress.ROUTES``).
 """
 
 from __future__ import annotations
@@ -48,7 +54,7 @@ def cell_name(seed: int, dedup: float, platform: str) -> str:
 
 
 def run_cell(seed: int, dedup: float, frames: int, out_dir: str, device: str,
-             video: str | None = None) -> dict:
+             video: str | None = None, route: str = "as shipped") -> dict:
     """One cell: its ``stress_result.json`` in ``out_dir``, or a subprocess
     of the port's stress harness that writes it (the failure's output on
     stderr and ``failed`` in the record when it does not)."""
@@ -59,7 +65,7 @@ def run_cell(seed: int, dedup: float, frames: int, out_dir: str, device: str,
             return json.load(f)
     cmd = [sys.executable, "-m", "bundle_adjustment_tpu_torch.tools.stress",
            "--frames", str(frames), "--seed", str(seed), "--dedup-px", str(dedup),
-           "--out", os.path.abspath(cell), "--device", device] + (
+           "--out", os.path.abspath(cell), "--device", device, "--route", route] + (
                ["--video", os.path.abspath(video)] if video else [])
     t0 = time.perf_counter()
     p = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT)
@@ -104,10 +110,45 @@ def event_tally(events_path: str) -> dict:
             "closures": sum(1 for e in events if e["event"] == "loop_closure")}
 
 
+def cell_breakdowns(run_dir: str) -> dict:
+    """``stress.breakdowns`` of one run's ``events.jsonl``."""
+    from bundle_adjustment_tpu_torch.tools.stress import breakdowns
+    from bundle_adjustment_tpu_torch.utils.event_log import read_events
+
+    return breakdowns(read_events(os.path.join(run_dir, "events.jsonl")))
+
+
+def tally_line(row: dict) -> str:
+    """One seed's breakdowns, the port's beside the JAX cells' (``side_by_side``'s
+    row): counts, then the Rotation triggers as (frame, rad, tracked,
+    inliers) and the discarded frames."""
+    runs = [(k, row[k]) for k in ("port_breakdowns", "jax_breakdowns", "jax_tpu_breakdowns")
+            if k in row]
+
+    def short(b):
+        return (f"Rotation {len(b['rotation_triggers'])}, discarded "
+                f"{len(b['discarded_frames'])}, pruned {b['pruned_obs']}, culled "
+                f"{b['culled_points']}, reloc_fail {b['reloc_fail']}, divergences "
+                f"{b['divergences']}")
+
+    def rots(b):
+        return "; ".join(f"({f}, {r:.3f}, {t}, {n})" if r is not None else str(f)
+                         for f, r, t, n in b["rotation_triggers"])
+
+    names = {"port_breakdowns": "port", "jax_breakdowns": "JAX cpu",
+             "jax_tpu_breakdowns": "JAX tpu"}
+    return (f"seed {row['seed']} breakdowns: " + " | ".join(
+        f"{names[k]}: {short(b)}" for k, b in runs) + " || Rotation (frame, rad, tracked, "
+        "inliers): " + " | ".join(f"{names[k]}: {rots(b)}" for k, b in runs)
+        + " || discarded: " + " | ".join(f"{names[k]}: {b['discarded_frames']}"
+                                          for k, b in runs))
+
+
 def side_by_side(cells: list, against: str, dedups) -> dict:
     """Each port cell beside the JAX cell of its seed and dedup in
-    ``against`` (its ``stress_result.json`` and ``run/events.jsonl``), and
-    the two studies' ``by_dedup``."""
+    ``against`` (its ``stress_result.json`` and ``run/events.jsonl``; the
+    breakdowns of the JAX TPU cell too where there is one), and the two
+    studies' ``by_dedup``."""
     rows, jax_cells = [], []
     for r in cells:
         jdir = os.path.join(against, cell_name(r["seed"], r["dedup_px"], "cpu"))
@@ -117,9 +158,14 @@ def side_by_side(cells: list, against: str, dedups) -> dict:
         row = {"seed": r["seed"], "dedup_px": r["dedup_px"],
                "port": {k: r.get(k) for k in CELL_KEYS[2:]},
                "jax": {k: j.get(k) for k in CELL_KEYS[2:]},
-               "jax_events": event_tally(os.path.join(jdir, "run", "events.jsonl"))}
+               "jax_events": event_tally(os.path.join(jdir, "run", "events.jsonl")),
+               "jax_breakdowns": cell_breakdowns(os.path.join(jdir, "run"))}
+        tdir = os.path.join(against, cell_name(r["seed"], r["dedup_px"], "tpu"))
+        if os.path.exists(os.path.join(tdir, "run", "events.jsonl")):
+            row["jax_tpu_breakdowns"] = cell_breakdowns(os.path.join(tdir, "run"))
         if not r.get("failed") and "run_dir" in r:
             row["port_events"] = event_tally(os.path.join(r["run_dir"], "events.jsonl"))
+            row["port_breakdowns"] = cell_breakdowns(r["run_dir"])
         rows.append(row)
     return {"cells": rows, "port": aggregate(cells, dedups),
             "jax": aggregate(jax_cells, dedups)}
@@ -152,13 +198,18 @@ def build_parser() -> argparse.ArgumentParser:
                          "every dedup cell size (default with --against: the JAX cells' "
                          "worst seed at that size; without: no limit)")
     ap.add_argument("--jobs", type=int, default=1, help="cells run at once")
+    ap.add_argument("--route", default="as shipped",
+                    help="the stress harness's routing of each cell (stress.ROUTES)")
     return ap
 
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     from bundle_adjustment_tpu_torch import device as device_mod
+    from bundle_adjustment_tpu_torch.tools.stress import ROUTES
 
+    if args.route not in ROUTES:
+        raise SystemExit(f"--route {args.route!r}: one of {sorted(ROUTES)}")
     device_mod.resolve(args.device)
     os.makedirs(args.out, exist_ok=True)
     todo = [(seed, dedup) for dedup in args.dedup for seed in args.seeds]
@@ -168,7 +219,7 @@ def main(argv=None) -> dict:
         video = None
         if args.against:
             video = os.path.join(args.against, cell_name(seed, dedup, "cpu"), "sequence.mp4")
-        r = run_cell(seed, dedup, args.frames, args.out, args.device, video)
+        r = run_cell(seed, dedup, args.frames, args.out, args.device, video, args.route)
         r["run_dir"] = os.path.join(args.out, cell_name(seed, dedup, args.device), "run")
         return r
 
@@ -178,12 +229,14 @@ def main(argv=None) -> dict:
         print(json.dumps({k: r.get(k) for k in CELL_KEYS}), flush=True)
 
     summary = {"frames": args.frames, "platform": args.device, "seeds": args.seeds,
-               "by_dedup": aggregate(cells, args.dedup)}
+               "route": args.route, "by_dedup": aggregate(cells, args.dedup)}
     record = {"summary": summary, "cells": cells}
     if args.against:
         record["against"] = side_by_side(cells, args.against, args.dedup)
         for row in record["against"]["cells"]:
-            print(json.dumps(row), flush=True)
+            print(json.dumps({k: v for k, v in row.items() if not k.endswith("breakdowns")}),
+                  flush=True)
+            print(tally_line(row), flush=True)
         print(json.dumps({"port": record["against"]["port"],
                           "jax": record["against"]["jax"]}), flush=True)
     limits = {}

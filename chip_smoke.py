@@ -162,7 +162,13 @@ Phases, each of which exits non-zero when it fails:
    apart), device ms under the profiler, two draws' files equal, and its
    overlays drawn on the card and on the CPU within one intensity level.
 
-14. the stress harness (``bundle_adjustment_tpu_torch.tools.stress``) on the
+14. the PnP DLT's null vectors on the committed samples of a long drive
+   (``tests/data/torch_dlt_samples.npz``): the card's, LAPACK's, the
+   card's corrected (whose residuals at the 50th, 90th and 99th
+   percentiles must be at most twice LAPACK's) and the SVD of A's, their
+   residuals and angles to float64's printed (``dlt_check``; ROADMAP Queue
+   3 item 19), then the stress harness
+   (``bundle_adjustment_tpu_torch.tools.stress``) on the
    JAX package's seed-2 cell, its committed 600-frame video
    ``.dedup_study/s2_d3_cpu/sequence.mp4`` read as it is (cv2), flag for
    flag as the JAX harness ran it: the result's keys beside the JAX cell's,
@@ -173,31 +179,50 @@ Phases, each of which exits non-zero when it fails:
    --against .dedup_study``, seed 2 read from the run above, the four
    others as four processes at once): each seed beside the JAX cell, and
    the study's gate, the port's five-seed mean ATE over the path length at
-   most the JAX cells' worst seed (12.51 %), no cell failed;
+   most the JAX cells' worst seed (12.51 %), no cell failed; per seed the
+   tracking breakdowns beside the JAX cells' (``dedup_study.tally_line``:
+   the Rotation triggers with their frame, angle, tracked points and
+   inliers, the discarded frames, pruned observations, culled points,
+   failed relocalizations, divergences), read from the runs' events;
 15. the global scale sweep (``tools.global_scale_sweep``) at C = 2048 and on
    a 91-slot ring of 280 cameras and 120,000 points: per size LM and CG
    iterations, ms per replayed LM iteration, each K4 role's ms beside its
-   bound, peak memory.  Then the seconds of every phase.
+   bound, peak memory;
+16. the stage splits, the launch counters set to 0 just before and read
+   just after: ``tools.profile_orb`` (the tracked-frame step by stage at
+   1280 x 720, 4000 features, 8 levels: each stage's device time beside the
+   eager step's device total, which their sum must be within 5 % of, and
+   the graph replay's device total and event time); ``tools.profile_ba``
+   (the grid solver's LM iteration by stage, then K3 by phase: the
+   phase-clock build of ``csrc/ba_window_lm.cu`` built, bit-equal to the
+   shipped build at the main shape and the widest window, its stamps within
+   5 % of the launch's device time) and ``tools.profile_ba --global-pcg``
+   (K4's roles per launch and per LM iteration); each gated on its one
+   reading.  Then the seconds of every phase.
 
 ``--kernel-times [--tree DIR]`` only builds and times K1, K3 and K4's setup,
 matvec and cost (``kernel_times``: K3 per LM iteration over a sweep of C' and
 P as well; K4a, K4b and K4d at the global path's shape) on this checkout or
 on another commit's tree, for comparing two commits in one call.
 
-``--routes NAME [NAME ...]`` only drives phase 11's run (a2) under the named
-routings of its solves (``ROUTES``): K3's and K4's gates each held to the
-TPU's 12 slots again (a window past them takes the grid solver, a global
-solve the plain PCG solvers), or K3's windows past 12 slots through K3's
-plain version on the card; per routing keyframes, closures, ATE, the
-longest frame, ``finalize``, the solves by solver and each global solve.
-About four minutes per routing on one H100.
+``--routes NAME [NAME ...] [--route-drives a2 cells]`` only drives phase
+11's run (a2) and the JAX stress cells' five seeds (four at once, as phase
+14) under the named routings (``tools/stress.ROUTES``): every window on the
+grid solver, or K3's plain version on every window, the staged frontend
+(no graph replay), the fused step run eagerly, K3's and K4's gates each
+held to the TPU's 12 slots again, K3's windows past 12 slots through its
+plain version; per routing (a2)'s keyframes, closures, ATE, breakdowns,
+the longest frame, ``finalize``, the solves by solver and each global
+solve, and per seed of the cells the ATE and the breakdowns beside the JAX
+cells', and the five-seed mean.  About four minutes per routing and drive
+on one H100.
 
 The line before the last is the kernels' JSON record (``launches``: the
 main path's, phase 6, for K1 to K3 and the global path's, phase 9, for K4;
 ``launches_lehman_indoor``: phase 11's run (a); ``launches_parallel``: rank
 0's in phase 12 (b) 4 and 5; ``launches_debug``: phase 13 (a);
 ``launches_lehman_a2``: phase 11's run (a2); ``launches_stress``: phase
-14), the line
+14; ``launches_profile``: phase 16), the line
 before that the
 card's name and power limit; the last line is the ``{"ok": true, ...}``
 record.  Imports nothing of JAX.
@@ -211,6 +236,7 @@ import dataclasses
 import functools
 import gc
 import importlib.util
+import io
 import json
 import math
 import os
@@ -2827,6 +2853,7 @@ def stress_phase(torch, np, work: str) -> dict:
     from bundle_adjustment_tpu_torch.tools import dedup_study, stress
 
     t0 = time.perf_counter()
+    dlt_check(torch, np)
     cell = os.path.join(os.path.dirname(os.path.abspath(__file__)), STRESS_CELL)
     video = os.path.join(cell, "sequence.mp4")
     if not os.path.exists(video):
@@ -2860,11 +2887,67 @@ def stress_phase(torch, np, work: str) -> dict:
          "--out", study, "--jobs", str(STRESS_JOBS)])
     print(f"stress: the five seeds' study in {time.perf_counter() - t1:.1f} s, "
           f"{STRESS_JOBS} seeds at once; gate {json.dumps(rec['gate'])}")
+    keys = ("rotation_triggers", "discarded_frames", "pruned_obs", "culled_points",
+            "reloc_fail", "divergences")
+    for row in rec["against"]["cells"]:
+        print(f"stress: seed {row['seed']} breakdowns (Rotation, discarded, pruned, culled, "
+              f"reloc_fail, divergences): " + " | ".join(
+                  f"{who} " + ", ".join(str(len(b[k]) if isinstance(b[k], list) else b[k])
+                                        for k in keys)
+                  for who, b in (("port", row.get("port_breakdowns")),
+                                 ("JAX cpu", row["jax_breakdowns"]),
+                                 ("JAX tpu", row.get("jax_tpu_breakdowns"))) if b))
     if not rec["gate"]["passed"]:
         fail(f"stress: the five seeds' study fails its gate: {rec['gate']}")
+    rows = rec["against"]["cells"]
+    print("stress: Rotation keyframes, five-seed mean: the port "
+          f"{statistics.mean(len(r['port_breakdowns']['rotation_triggers']) for r in rows)}, "
+          f"the JAX cells {statistics.mean(len(r['jax_breakdowns']['rotation_triggers']) for r in rows)}")
     if "jax" in sys.modules:
         fail("the port imported jax")
     return a["launches"]
+
+
+def dlt_check(torch, np) -> None:
+    """Phase 14 (first): the PnP DLT's null vectors on the committed samples
+    of a long drive (``tests/data/torch_dlt_samples.npz``): as the card
+    solves them (``ransac._dlt_projection``: cuSOLVER's batched float32 eigh
+    of A^T A), as LAPACK's float32 eigh does on the CPU (the JAX package's
+    reference), with ``small_linalg.refine_null_vector``'s correction of
+    the card's, and from the SVD of A on the card: their residuals on the
+    exact normal matrices and their angles to the float64 null vector of
+    the same float32 system, at the 50th, 90th and 99th percentiles.  Fails
+    where the corrected vectors' residuals exceed twice LAPACK's; the
+    card's own are a measurement (ROADMAP Queue 3 item 19)."""
+    from bundle_adjustment_tpu_torch.ops import ransac, small_linalg
+
+    d = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                             "torch_dlt_samples.npz"))
+    X, x = torch.tensor(d["X"]), torch.tensor(d["x"])
+    Xc, xc = X.cuda(), x.cuda()
+    exact = torch.linalg.svd(ransac._dlt_rows(X, x).double())[2][..., -1, :]
+
+    def quantiles(P):
+        r = ransac.dlt_residual(X, x, P).double()
+        p = P.detach().double().cpu().reshape(-1, 12)
+        cos = torch.abs(torch.sum(p * exact, -1)) / torch.linalg.norm(p, dim=-1)
+        sin = torch.sqrt(torch.clamp(1 - cos * cos, min=0))
+        return ([float(torch.quantile(r, q)) for q in (0.5, 0.9, 0.99)],
+                [float(torch.quantile(sin, q)) for q in (0.5, 0.9, 0.99)])
+
+    N = ransac._dlt_normal(Xc, xc)
+    card = quantiles(ransac._dlt_projection(Xc, xc))
+    lapack = quantiles(ransac._dlt_projection(X, x))
+    corrected = quantiles(small_linalg.refine_null_vector(N, small_linalg.eigh(N)[1]))
+    svd = quantiles(small_linalg.svd(ransac._dlt_rows(Xc, xc))[2][..., -1, :])
+    print(f"stress: the PnP DLT's null vectors on {X.shape[0]} committed samples, residual "
+          f"|N p| / |N| and sine of the angle to the float64 null vector at the 50th, 90th, "
+          f"99th percentiles: the card's (cuSOLVER's eigh) {card[0]}, {card[1]}; LAPACK's "
+          f"float32 eigh {lapack[0]}, {lapack[1]}; the card's corrected {corrected[0]}, "
+          f"{corrected[1]}; the SVD of A on the card {svd[0]}, {svd[1]}", flush=True)
+    if not all(a <= 2 * b for a, b in zip(corrected[0], lapack[0])):
+        fail(f"stress: the corrected DLT null vectors miss twice LAPACK's residuals: "
+             f"{corrected[0]} against {lapack[0]}")
 
 
 def sweep_phase(torch) -> None:
@@ -2882,56 +2965,118 @@ def sweep_phase(torch) -> None:
             fail(f"global scale sweep: {res}")
 
 
-#: the routings of ``--routes``: (K3's gate held to D <= 12, K4's gate held
-#: to D <= 12, K3's windows past 12 slots through its plain version)
-ROUTES = {"as shipped": (False, False, False), "K3 at D <= 12": (True, False, False),
-          "K4 at D <= 12": (False, True, False), "both at D <= 12": (True, True, False),
-          "K3 plain past 12": (False, False, True)}
+def profile_phase(torch) -> dict:
+    """Phase 16: the stage splits at the main path's shapes (the module
+    docstring), failing where a stage split misses its 5 % or the
+    phase-clock build of K3 does not build, does not launch or differs from
+    the shipped build.  Each split is gated on its one reading, printed
+    whole.  Returns the phase's launches."""
+    from bundle_adjustment_tpu_torch import kernels
+    from bundle_adjustment_tpu_torch.tools import profile_ba, profile_orb
+
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        orb = profile_orb.main([])
+    print("profile_orb: " + json.dumps(orb), flush=True)
+    if not abs(orb["stages_vs_total_pct"]) <= 5.0:
+        fail(f"profile_orb: the stages' device time {orb['sum_of_stages_ms']} ms is "
+             f"{orb['stages_vs_total_pct']} % from the eager step's "
+             f"{orb['eager_device_total_ms']}")
+    missing = [k for k, n in orb["calls_per_step"].items() if n == 0]
+    if missing:
+        fail(f"profile_orb: stages the step did not run: {missing}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        ba = profile_ba.main([])
+    print("profile_ba: " + json.dumps(ba), flush=True)
+    shapes = ba["k3_phases"]["shapes"]
+    if not all(r["bit_equal"] for r in shapes.values()):
+        fail("profile_ba: K3's phase-clock build differs from the shipped build: "
+             f"{ {k: r['bit_equal'] for k, r in shapes.items()} }")
+    if not all(r["stamps_vs_launch_pct"] is not None and abs(r["stamps_vs_launch_pct"]) <= 5.0
+               for r in shapes.values()):
+        fail("profile_ba: K3's phase stamps are more than 5 % from the launch's device time: "
+             f"{ {k: r['stamps_vs_launch_pct'] for k, r in shapes.items()} }")
+    with contextlib.redirect_stdout(io.StringIO()):
+        pcg = profile_ba.main(["--global-pcg"])
+    print("profile_ba --global-pcg: " + json.dumps(pcg), flush=True)
+    if not all(v > 0 for v in pcg["launches"].values()):
+        fail(f"profile_ba --global-pcg: a K4 role was not launched: {pcg['launches']}")
+    launches = dict(kernels.LAUNCHES)
+    print(f"profile: launches {launches}; phase {time.perf_counter() - t0:.1f} s", flush=True)
+    if not all(v > 0 for v in launches.values()):
+        fail(f"profile: a kernel was not launched in the phase: {launches}")
+    if "jax" in sys.modules:
+        fail("the port imported jax")
+    return launches
 
 
-def routes_study(torch, np, names) -> int:
-    """``--routes``: phase 11's run (a2) once per routing in ``names``."""
+def routes_study(torch, np, names, drives) -> int:
+    """``--routes``: under each routing in ``names`` (``tools/stress.ROUTES``),
+    phase 11's run (a) with its finalize held to the grid solver ("a" in
+    ``drives``), its run (a2) ("a2") and the JAX stress cells' five
+    seeds as phase 14 runs them, four at once ("cells"): per seed the ATE
+    and the breakdowns beside the JAX cells' (``dedup_study.tally_line``),
+    per routing the five-seed mean.  A study, not a gate: it fails only
+    where a run fails."""
     from bundle_adjustment_tpu_torch import device as device_mod
     from bundle_adjustment_tpu_torch import kernels
-    from bundle_adjustment_tpu_torch.config import CAMERA_LEHMAN
-    from bundle_adjustment_tpu_torch.ops import ba_global_kernel as gk
-    from bundle_adjustment_tpu_torch.ops import ba_kernel
+    from bundle_adjustment_tpu_torch.config import CAMERA_LEHMAN, preset_lehman_indoor
+    from bundle_adjustment_tpu_torch.tools import dedup_study, stress
     from bundle_adjustment_tpu_torch.utils.metrics import ate_rmse
     from bundle_adjustment_tpu_torch.utils.synthetic import synthetic_sequence
 
     print(nvidia_smi_line(), flush=True)
     device_mod.set_float32_numerics()
     kernels.build_all()
-    W, H = 1280, 720
-    frames, K, gt_C, _ = synthetic_sequence(
-        n_frames=LEHMAN_FRAMES, width=W, height=H, fx=CAMERA_LEHMAN.fx, seed=LEHMAN_SEED,
-        motion="room", device="cuda")
     work = tempfile.mkdtemp(prefix="chip_smoke_routes_")
-    folder = os.path.join(work, "room")
-    write_pngs(folder, frames)
-    del frames
-    argv = cli_args(folder, K, W, H, preset="lehman_indoor") + ["--consistent-convention"]
-    k3, k4, solve3 = ba_kernel.eligible_shape, gk.eligible_shape_global, ba_kernel.lm_solve
-
-    def k3_12(C, P, D, n_fixed=1):
-        return D <= 12 and k3(C, P, D, n_fixed)
-
-    def k4_12(C, P, D, n_fixed=1):
-        return D <= 12 and k4(C, P, D, n_fixed)
-
-    def plain_past_12(g, **kw):
-        return (ba_kernel.lm_solve_plain if g.cam_slot.shape[1] > 12 else solve3)(g, **kw)
-
-    try:
-        for name in names:
-            cut3, cut4, plain3 = ROUTES[name]
-            ba_kernel.eligible_shape = k3_12 if cut3 else k3
-            gk.eligible_shape_global = k4_12 if cut4 else k4
-            ba_kernel.lm_solve = plain_past_12 if plain3 else solve3
+    root = os.path.dirname(os.path.abspath(__file__))
+    if "a" in drives or "a2" in drives:
+        W, H = 1280, 720
+        frames, K, gt_C, _ = synthetic_sequence(
+            n_frames=LEHMAN_FRAMES, width=W, height=H, fx=CAMERA_LEHMAN.fx, seed=LEHMAN_SEED,
+            motion="room", device="cuda")
+        folder = os.path.join(work, "room")
+        write_pngs(folder, frames)
+        del frames
+        argv = cli_args(folder, K, W, H, preset="lehman_indoor") + ["--consistent-convention"]
+        folder_a = os.path.join(work, "room_a")
+        os.makedirs(folder_a)
+        for f in sorted(os.listdir(folder))[:LEHMAN_A_FRAMES]:
+            os.symlink(os.path.join(folder, f), os.path.join(folder_a, f))
+        argv_a = cli_args(folder_a, K, W, H, preset="lehman_indoor")
+    table = {}
+    for name in names:
+        tag = name.replace(" ", "_").replace("<=", "le")
+        if "a" in drives:
+            # phase 11's run (a) and its finalize held to the grid solver
+            # (``hold_to_grid``), whose failure is printed, not raised
+            t0 = time.perf_counter()
+            with stress.routed("lehman_indoor", **stress.ROUTES[name]):
+                a = run_cli(torch, argv_a + ["--out", os.path.join(work, f"a_{tag}")],
+                            keep=HOLD_TO_GRID["a"])
+            pipe = a["pipe"]
+            ids = pipe.map.sorted_kf_ids()
+            gt = np.stack([gt_C[pipe.map.keyframes[k].frame_idx] for k in ids])
+            ate = ate_rmse(pipe.map.trajectory(False), gt, with_scale=True)
+            extent = float(np.linalg.norm(gt.max(0) - gt.min(0)))
+            b = stress.breakdowns(pipe.log.events)
+            print(f"== {name} (a): keyframes {len(ids)}, ATE {100 * ate / extent:.2f} % of the "
+                  f"extent; Rotation {len(b['rotation_triggers'])}, discarded "
+                  f"{len(b['discarded_frames'])}, failed relocalizations {b['reloc_fail']}; "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            try:
+                hold_to_grid(torch, "a", a["kept"], preset_lehman_indoor().ba)
+            except SystemExit:
+                print(f"== {name} (a): the finalize's hold to the grid solver failed (above)",
+                      flush=True)
+            del a, pipe
+        if "a2" in drives:
             t0 = time.perf_counter()
             split, restore, _ = solver_split(torch)
             try:
-                a = run_cli(torch, argv + ["--out", os.path.join(work, name.replace(" ", "_"))])
+                with stress.routed("lehman_indoor", **stress.ROUTES[name]):
+                    a = run_cli(torch, argv + ["--out", os.path.join(work, tag)])
             finally:
                 restore()
             pipe = a["pipe"]
@@ -2942,13 +3087,16 @@ def routes_study(torch, np, names) -> int:
             ev = pipe.log.events
             closures = [e for e in ev if e["event"] == "loop_closure"]
             fm = np.asarray([e["wall_ms"] for e in a["frames"]])
-            print(f"== {name}: keyframes {len(ids)}, closures {len(closures)} (scale, keyframe, "
-                  f"anchor: {[(e['scale'], e['kf_id'], e['anchor_kf']) for e in closures]}), "
-                  f"ATE {100 * ate / extent:.2f} % of the extent; divergences "
-                  f"{sum(e['event'] == 'ba_diverged' for e in ev)}; longest frame "
-                  f"{fm.max() / 1e3:.2f} s; finalize {a['finalize_s']:.2f} s; solves by solver "
-                  f"{split}; pcg_plain_solver events "
-                  f"{sum(e['event'] == 'pcg_plain_solver' for e in ev)}; "
+            b = stress.breakdowns(ev)
+            print(f"== {name} (a2): keyframes {len(ids)}, closures {len(closures)} (scale, "
+                  f"keyframe, anchor: "
+                  f"{[(e['scale'], e['kf_id'], e['anchor_kf']) for e in closures]}), ATE "
+                  f"{100 * ate / extent:.2f} % of the extent; Rotation "
+                  f"{len(b['rotation_triggers'])}, discarded {len(b['discarded_frames'])}, "
+                  f"pruned {b['pruned_obs']}, culled {b['culled_points']}, divergences "
+                  f"{b['divergences']}; longest frame {fm.max() / 1e3:.2f} s; finalize "
+                  f"{a['finalize_s']:.2f} s; solves by solver {split}; pcg_plain_solver "
+                  f"events {sum(e['event'] == 'pcg_plain_solver' for e in ev)}; "
                   f"{time.perf_counter() - t0:.1f} s", flush=True)
             for i, r in enumerate(a["pcg"]):
                 print(f"   solve {i} ({'finalize' if r['finalize'] else 'polish'}) C={r['C']} "
@@ -2956,8 +3104,32 @@ def routes_study(torch, np, names) -> int:
                       f"{r['iterations']} ({r['stop']}), {r['seconds']:.3f} s, K4 launches "
                       f"{sum(r['k4'].values())}", flush=True)
             del a, pipe
-    finally:
-        ba_kernel.eligible_shape, gk.eligible_shape_global, ba_kernel.lm_solve = k3, k4, solve3
+        if "cells" in drives:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as quiet:
+                rec = dedup_study.main(
+                    ["--seeds", *map(str, STRESS_SEEDS), "--dedup", "3", "--frames",
+                     str(STRESS_FRAMES), "--against", os.path.join(root, STRESS_STUDY),
+                     "--out", os.path.join(work, f"cells_{tag}"), "--jobs", str(STRESS_JOBS),
+                     "--route", name])
+            rows = rec["against"]["cells"]
+            failed = [r["seed"] for r in rows if r["port"].get("failed")]
+            if failed:
+                print(quiet.getvalue()[-4000:])
+                fail(f"--routes {name!r}: the cells of seeds {failed} failed")
+            table[name] = {r["seed"]: dict(ate=r["port"]["ate_pct_of_path"],
+                                           **{k: len(v) if isinstance(v, list) else v
+                                              for k, v in r["port_breakdowns"].items()})
+                           for r in rows}
+            print(f"== {name} (the five JAX cells, {STRESS_JOBS} at once, "
+                  f"{time.perf_counter() - t0:.1f} s): mean ATE "
+                  f"{rec['against']['port']['3']['ate_pct_mean']} % of the path (JAX "
+                  f"{rec['against']['jax']['3']['ate_pct_mean']})", flush=True)
+            for r in rows:
+                print(f"   ATE {r['port']['ate_pct_of_path']} | JAX {r['jax']['ate_pct_of_path']}; "
+                      + dedup_study.tally_line(r), flush=True)
+    if table:
+        print("routes: " + json.dumps(table), flush=True)
     return 0
 
 
@@ -2977,9 +3149,14 @@ def main() -> int:
     ap.add_argument("--tree", default=None, metavar="DIR",
                     help="with --kernel-times: import the port from DIR (a git archive of "
                          "another commit) instead of this checkout")
-    ap.add_argument("--routes", nargs="+", default=None, choices=sorted(ROUTES), metavar="NAME",
-                    help="only drive phase 11's run (a2) under these routings of its solves "
-                         f"(routes_study; {', '.join(repr(k) for k in ROUTES)}) and exit")
+    ap.add_argument("--routes", nargs="+", default=None, metavar="NAME",
+                    help="only drive phase 11's run (a2) and the JAX stress cells under these "
+                         "routings of the solvers and the frontend (routes_study; "
+                         "tools/stress.ROUTES) and exit")
+    ap.add_argument("--route-drives", nargs="+", default=["a2", "cells"],
+                    choices=["a", "a2", "cells"],
+                    help="with --routes: the drives to run under each routing (phase 11's "
+                         "(a) with its finalize hold, (a2), the five JAX cells)")
     args = ap.parse_args()
 
     import numpy as np
@@ -2998,7 +3175,12 @@ def main() -> int:
                               card=nvidia_smi_line(), **times)))
         return 0
     if args.routes:
-        return routes_study(torch, np, args.routes)
+        from bundle_adjustment_tpu_torch.tools.stress import ROUTES
+
+        unknown = sorted(set(args.routes) - set(ROUTES))
+        if unknown:
+            fail(f"--routes: {unknown} are not routings; one of {sorted(ROUTES)}")
+        return routes_study(torch, np, args.routes, args.route_drives)
 
     from bundle_adjustment_tpu_torch import device as device_mod
     from bundle_adjustment_tpu_torch import kernels, native
@@ -3527,6 +3709,11 @@ def main() -> int:
     # -- 15. the global scale sweep at C = 2048 and D = 91 --------------------
     phase_marks.append(("15", time.perf_counter()))
     sweep_phase(torch)
+
+    # -- 16. the stage splits: profile_orb, profile_ba ----------------------
+    phase_marks.append(("16", time.perf_counter()))
+    gc.collect()
+    profile_launches = profile_phase(torch)
     phase_marks.append(("end", time.perf_counter()))
 
     if args.profile:
@@ -3553,7 +3740,8 @@ def main() -> int:
              launches_parallel=parallel["launches"]["hamming_knn2"],
              launches_debug=debug["launches"]["hamming_knn2"],
              launches_lehman_a2=lehman["launches_a2"]["hamming_knn2"],
-             launches_stress=stress_launches["hamming_knn2"]),
+             launches_stress=stress_launches["hamming_knn2"],
+             launches_profile=profile_launches["hamming_knn2"]),
         dict(name="orb_gather40", route="cuda",
              source="bundle_adjustment_tpu_torch/csrc/orb_gather.cu",
              replaces="bundle_adjustment_tpu/ops/orb_pallas.py:97",
@@ -3562,7 +3750,8 @@ def main() -> int:
              launches_parallel=parallel["launches"]["orb_gather40"],
              launches_debug=debug["launches"]["orb_gather40"],
              launches_lehman_a2=lehman["launches_a2"]["orb_gather40"],
-             launches_stress=stress_launches["orb_gather40"]),
+             launches_stress=stress_launches["orb_gather40"],
+             launches_profile=profile_launches["orb_gather40"]),
         dict(name="ba_window_lm", route="cuda",
              source="bundle_adjustment_tpu_torch/csrc/ba_window_lm.cu",
              replaces="bundle_adjustment_tpu/ops/ba_pallas.py:521",
@@ -3571,7 +3760,8 @@ def main() -> int:
              launches_parallel=parallel["launches"]["ba_window_lm"],
              launches_debug=debug["launches"]["ba_window_lm"],
              launches_lehman_a2=lehman["launches_a2"]["ba_window_lm"],
-             launches_stress=stress_launches["ba_window_lm"]),
+             launches_stress=stress_launches["ba_window_lm"],
+             launches_profile=profile_launches["ba_window_lm"]),
     ] + [
         dict(name=role, route="cuda",
              source="bundle_adjustment_tpu_torch/csrc/ba_global_pcg.cu",
@@ -3581,7 +3771,8 @@ def main() -> int:
              launches_parallel=parallel["launches"][role],
              launches_debug=debug["launches"][role],
              launches_lehman_a2=lehman["launches_a2"][role],
-             launches_stress=stress_launches[role])
+             launches_stress=stress_launches[role],
+             launches_profile=profile_launches[role])
         for role, line in zip(K4_ROLES, (339, 522, 583, 621))
     ]}
     print(f"parallel paths: backend {parallel['backend']}, world size "

@@ -39,6 +39,7 @@ changes no bit.  The plain grid PCG solver (the card's solver when
 ``cg_precond_group`` is above 1) gives equal bits on repeat as well.
 """
 
+import os
 import re
 
 import numpy as np
@@ -345,7 +346,10 @@ def test_window_kernel_is_deterministic_and_fills_its_stats_lanes(card):
     stats = a[3].cpu().numpy()
     assert np.isfinite(stats).all()
     assert stats[4] == np.floor(stats[4]) and 1 <= stats[4] <= 50
-    assert stats[5] == 1.0 and 1e-10 <= stats[6] <= 1e8 and stats[7] == 0.0
+    # lane 7: the ops/ba.STOP_TESTS code of the test that ended the loop
+    # (0 the cap, 1 ftol, 2 xtol, 3 stuck)
+    assert stats[5] == 1.0 and 1e-10 <= stats[6] <= 1e8
+    assert stats[7] in ((1.0, 2.0, 3.0) if stats[4] < 50 else (0.0, 1.0, 2.0))
     # the input window is not written to
     assert torch.equal(g.points, _window(card, 13, C=5, n_pts=3000, P=4096, D=5).points)
 
@@ -938,6 +942,44 @@ def test_small_linalg_is_torch_linalg_on_the_card_and_replays(card, shape):
 
 
 @pytest.mark.cuda
+def test_the_null_vector_correction_on_the_card_reaches_lapacks_residual(card):
+    """cuSOLVER's null vectors on the card, corrected by
+    ``small_linalg.refine_null_vector``, on the committed samples of a long
+    drive (``tests/data/torch_dlt_samples.npz``, ``test_torch_dlt``): their
+    residuals on the exact normal matrices at the 50th, 90th and 99th
+    percentiles at most twice LAPACK's float32 ones on the CPU (the JAX
+    package's reference), and a CUDA graph of them replays the eager call's
+    bits.  cuSOLVER's own (the shipped ``ransac._dlt_projection``) miss
+    this: 9.37e-8, 5.28e-7 and 9.01e-7 against LAPACK's 1.39e-8, 7.59e-8
+    and 1.49e-7 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 5)."""
+    from bundle_adjustment_tpu_torch.ops import ransac, small_linalg
+
+    d = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                             "torch_dlt_samples.npz"))
+    X, x = torch.tensor(d["X"]), torch.tensor(d["x"])
+    qs = (0.5, 0.9, 0.99)
+
+    def quantiles(P):
+        r = ransac.dlt_residual(X, x, P).double()
+        return [float(torch.quantile(r, q)) for q in qs]
+
+    N = ransac._dlt_normal(X.to(card), x.to(card))
+
+    def corrected():
+        return small_linalg.refine_null_vector(N, small_linalg.eigh(N)[1])
+
+    got = quantiles(corrected())
+    want = quantiles(ransac._dlt_projection(X, x))
+    assert all(a <= 2 * b for a, b in zip(got, want)), (got, want)
+    eager = corrected()
+    kernels.on_side_stream(card, corrected)
+    graph, out, _ = kernels.capture(card, corrected)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert _bit_equal(out, eager)
+
+
+@pytest.mark.cuda
 def test_ann_bank_search_on_the_card_equals_the_cpu(card):
     """The coarse-to-fine bank search (plain PyTorch, ``ops/ann.py``) on the
     card at a relocalization bank's shape (4000 queries, 32,000
@@ -969,9 +1011,13 @@ def test_ann_bank_search_on_the_card_equals_the_cpu(card):
 @pytest.mark.parametrize("threshold", [16384, 0], ids=["k1", "ann"])
 def test_relocalization_on_the_card(card, threshold):
     """A pipeline on the card over 6 frames, then a forced relocalization of
-    frame 4's keypoints: it succeeds; the bank search launches K1 once when
-    the bank is at most ``reloc_ann_threshold`` descriptors and not at all
-    through the coarse-to-fine search."""
+    the view of the keyframe with the most map points (as ``chip_smoke.py``
+    phase 11 (c) picks its targets): it succeeds; the bank search launches
+    K1 once when the bank is at most ``reloc_ann_threshold`` descriptors and
+    not at all through the coarse-to-fine search.  Which of frames 1-5
+    become keyframes follows the PnP's DLT solver (the JAX package
+    discards frame 4, the port on the CPU frames 3 and 4), so the view is
+    read from the map, not named."""
     import dataclasses
 
     from bundle_adjustment_tpu_torch.models.pipeline import bgr_to_gray
@@ -981,12 +1027,15 @@ def test_relocalization_on_the_card(card, threshold):
     for f in frames[1:6]:
         pipe.process_frame(f)
     assert pipe.map.num_keyframes >= 3
+    best = max(pipe.map.sorted_kf_ids(),
+               key=lambda k: int((pipe.map.keyframes[k].kp_to_mp >= 0).sum()))
+    target = pipe.map.keyframes[best].frame_idx
     pipe.cfg = dataclasses.replace(pipe.cfg, reloc_enabled=True, reloc_ann_threshold=threshold)
     pipe.frame_idx += 1
-    kp = pipe._extract(bgr_to_gray(frames[4]))
+    kp = pipe._extract(bgr_to_gray(frames[target]))
     n_kf = pipe.map.num_keyframes
     before = kernels.LAUNCHES[hamming_kernel.NAME]
-    r = try_relocalize(pipe, frames[4], kp)
+    r = try_relocalize(pipe, frames[target], kp)
     assert r is not None and r["status"] == "relocalized" and r["inliers"] > 15
     assert kernels.LAUNCHES[hamming_kernel.NAME] - before == (1 if threshold else 0)
     assert pipe.map.num_keyframes == n_kf + 1

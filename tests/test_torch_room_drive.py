@@ -27,6 +27,16 @@ stages, closures):
 
     JAX_PLATFORMS=cpu python tests/test_torch_room_drive.py --frames 150 \\
         --convention reference
+
+The same comparison runs on a JAX stress cell's own video (``--cell SEED``:
+``.dedup_study/s{SEED}_d3_cpu/sequence.mp4``, read through cv2 as it is, at
+640x480 with 1500 features and the consistent convention, as
+``tools/stress`` drives it); the test covers seed 3's frames 0-13, through
+the JAX run's Rotation trigger at frame 12, and skips only where cv2 is not
+installed.  ``--first F`` starts the script's comparison at frame F (the
+JAX pipeline runs the frames before it alone):
+
+    JAX_PLATFORMS=cpu python tests/test_torch_room_drive.py --cell 3 --frames 200
 """
 
 import argparse
@@ -36,6 +46,7 @@ import sys
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -56,6 +67,14 @@ torch.set_num_threads(1)
 W, H, LOOP = 320, 240, 600
 FX = 912.7816 * W / 1280          # CAMERA_LEHMAN's focal length at this width
 TIME_KEYS = {"t", "total_ms", "elapsed_s", "wall_ms", "ms"}
+#: the room at 320x240 with 500 features, as the tests run it; a JAX stress
+#: cell's camera as ``tools/stress`` drives it (its render's defaults)
+ROOM = dict(width=W, height=H, fx=FX, features=500)
+CELL = dict(width=640, height=480, fx=450.0, features=1500)
+STUDY = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                     ".dedup_study")
+#: frame -> the JAX map's points before it, of the last ``step_drive``
+MAP_POINTS: dict = {}
 
 
 class JaxDraws:
@@ -84,16 +103,25 @@ def room_frames(n: int):
                                    depth_sort=True) for i in range(n)]
 
 
-def config(mod, consistent: bool):
+def cell_frames(seed: int, n: int):
+    """Frames 0..n-1 of the JAX stress cell ``s{seed}_d3_cpu``'s committed
+    video, as the port reads it (``utils/io.video_frames``: cv2)."""
+    from bundle_adjustment_tpu_torch.utils.io import video_frames
+
+    return list(video_frames(os.path.join(STUDY, f"s{seed}_d3_cpu", "sequence.mp4"), 0, n))
+
+
+def config(mod, consistent: bool, cam: dict = ROOM):
+    w, h, fx = cam["width"], cam["height"], cam["fx"]
     return dataclasses.replace(
         mod.preset_lehman_indoor(),
-        camera=mod.CameraModel(fx=FX, fy=FX, cx=W / 2, cy=H / 2, width=W, height=H),
-        num_features=500, consistent_convention=consistent)
+        camera=mod.CameraModel(fx=fx, fy=fx, cx=w / 2, cy=h / 2, width=w, height=h),
+        num_features=cam["features"], consistent_convention=consistent)
 
 
-def port_from(jp, consistent: bool):
+def port_from(jp, consistent: bool, cam: dict = ROOM):
     """A port pipeline holding a copy of the JAX pipeline ``jp``'s state."""
-    tp = VisualOdometryPipeline(config(tcfg, consistent), log=EventLog(echo=False),
+    tp = VisualOdometryPipeline(config(tcfg, consistent, cam), log=EventLog(echo=False),
                                 device="cpu", draws=JaxDraws(jp._key))
     tp.map = convert.map_store(jp.map, device="cpu")
     tp.map.log = tp.log
@@ -130,14 +158,19 @@ def differences(jres, jevents, tres, tevents) -> list:
     return out
 
 
-def step_drive(frames, consistent: bool):
-    """The JAX pipeline over ``frames``; before each, the port from its
-    state.  Returns (JAX pipeline, [(frame, differences)])."""
-    jp = JaxPipeline(config(jcfg, consistent), log=JaxEventLog(echo=False),
+def step_drive(frames, consistent: bool, cam: dict = ROOM, first: int = 0):
+    """The JAX pipeline over ``frames``; before each from ``first`` on, the
+    port from its state.  Returns (JAX pipeline, [(frame, differences)]);
+    ``MAP_POINTS`` gets the JAX map's points before each compared frame."""
+    jp = JaxPipeline(config(jcfg, consistent, cam), log=JaxEventLog(echo=False),
                      use_pallas_matcher=False)
     steps = []
     for i, f in enumerate(frames):
-        tp = port_from(jp, consistent)
+        if i < first:
+            jp.process_frame(f)
+            continue
+        tp = port_from(jp, consistent, cam)
+        MAP_POINTS[i] = jp.map.num_points
         n0 = len(jp.log.events)
         jres = jp.process_frame(f)
         tres = tp.process_frame(f)
@@ -151,6 +184,51 @@ def test_each_frame_from_the_jax_state_reference_convention():
     assert [d for _, d in steps] == [[]] * len(frames), [s for s in steps if s[1]]
     triggers = [e["reason"] for e in jp.log.events if e["event"] == "keyframe_trigger"]
     assert triggers[:3] == ["Initialization", "Rotation", "Parallax"]
+
+
+#: what the failed PnP's rotation decides on a frame without a map point
+DEGENERATE = ("status: tracked != keyframe", "status: keyframe != tracked",
+              "reason: None != Rotation", "reason: Rotation != None",
+              "keyframe_trigger.rotation_rad", "events: ")
+
+
+def test_each_frame_from_the_jax_state_on_a_stress_cell():
+    """Seed 3's JAX stress cell, frames 0-13 of its own video at 640x480 with
+    1500 features and the consistent convention, each from the JAX state.
+
+    Until frame 12's keyframe triangulates the first points the JAX map
+    holds none, and the fused step's PnP has no tracked correspondence:
+    every 6-point sample is one keypoint six times, whose DLT normal matrix
+    has a ten-dimensional null space, and which vector of it LAPACK returns
+    differs between the two packages' builds (and with their threading: the
+    identity rotation from the JAX package's on frame 1, a half turn from
+    the port's).  On the essential fallback the keyframe cascade reads that
+    failed PnP's rotation (``rotation_rad=sc.rot_mag``, the JAX package's
+    ``models/pipeline.py:580``, the port's alike), so on those frames the
+    two may part on a Rotation keyframe or its angle (the JAX run takes one
+    at frame 12, at pi; the port has taken one at frame 1).  Held: every
+    frame with a map point decides as JAX in every number, and a frame
+    without one parts only in what that rotation decides.
+
+    This runs on the CPU, where the port's DLT solver is LAPACK's: it
+    cannot see the card's (cuSOLVER's vectors, ROADMAP Queue 3 item 19),
+    which ``tests/test_torch_kernels.py``'s
+    ``test_dlt_null_vectors_on_the_card_are_as_accurate_as_lapacks`` and
+    ``chip_smoke.py`` phase 14 hold.  The script mode covers the later
+    frames that have map points (``--first``; PERF.md section 5)."""
+    pytest.importorskip("cv2")
+    frames = cell_frames(3, 14)
+    jp, steps = step_drive(frames, consistent=True, cam=CELL)
+    assert [i for i, _ in steps if MAP_POINTS[i] > 0] == [13]
+    for i, d in steps:
+        if MAP_POINTS[i] > 0:
+            assert d == [], (i, d)
+        else:
+            assert all(x.startswith(DEGENERATE) for x in d), (i, d)
+    rot = [(e["frame_idx"], round(e["rotation_rad"], 3), e["tracked"])
+           for e in jp.log.events
+           if e["event"] == "keyframe_trigger" and e["reason"] == "Rotation"]
+    assert rot == [(12, 3.142, 0)]
 
 
 def tally(pipe) -> dict:
@@ -176,21 +254,32 @@ def main(argv=None):
                                              "frame by frame from the same state")
     ap.add_argument("--frames", type=int, default=150)
     ap.add_argument("--convention", choices=("reference", "consistent"), default="reference")
+    ap.add_argument("--cell", type=int, default=None, metavar="SEED",
+                    help="the JAX stress cell of this seed's video (640x480, 1500 features, "
+                         "the consistent convention) in place of the room")
+    ap.add_argument("--first", type=int, default=0,
+                    help="compare from this frame on (the JAX pipeline runs those before)")
     args = ap.parse_args(argv)
     jax.config.update("jax_platforms", "cpu")
-    consistent = args.convention == "consistent"
-    frames = room_frames(args.frames)
-    jp, steps = step_drive(frames, consistent)
+    if args.cell is not None:
+        cam, consistent = CELL, True
+        frames = cell_frames(args.cell, args.frames)
+        what = f"frames of the JAX stress cell s{args.cell}_d3_cpu at 640x480"
+    else:
+        cam, consistent = ROOM, args.convention == "consistent"
+        frames = room_frames(args.frames)
+        what = f"room frames at {W}x{H}, {args.convention} convention"
+    jp, steps = step_drive(frames, consistent, cam, args.first)
     agree = [i for i, d in steps if not d]
     decided = [i for i, d in steps if not any(x.split(":")[0] in ("status", "reason", "events")
                                                for x in d)]
-    print(f"{args.frames} room frames at {W}x{H}, {args.convention} convention: the port "
-          f"from the JAX state decides as it (status, trigger, events) on {len(decided)} of "
-          f"{len(steps)} frames, and agrees in every number too on {len(agree)}")
+    print(f"{args.frames} {what}: the port from the JAX state decides as it (status, "
+          f"trigger, events) on {len(decided)} of {len(steps)} frames, and agrees in every "
+          f"number too on {len(agree)}")
     for i, d in steps:
         if d:
-            print(f"  frame {i}: " + "; ".join(d))
-    tp = VisualOdometryPipeline(config(tcfg, consistent), log=EventLog(echo=False),
+            print(f"  frame {i} (JAX map points before it: {MAP_POINTS[i]}): " + "; ".join(d))
+    tp = VisualOdometryPipeline(config(tcfg, consistent, cam), log=EventLog(echo=False),
                                 device="cpu", draws=JaxDraws(jax.random.PRNGKey(0)))
     for f in frames:
         tp.process_frame(f)

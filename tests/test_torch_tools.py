@@ -29,7 +29,8 @@ torch.set_num_threads(1)
 def test_stress_on_a_short_room_render_without_cv2(tmp_path, monkeypatch):
     """12 frames of the room (one loop) rendered, written as PNG files and
     driven through the port's CLI on the CPU with cv2 made unimportable;
-    the result has the JAX harness's keys and the two ATE denominators."""
+    the result has the JAX harness's keys, the two ATE denominators, the
+    routing it ran under and its breakdowns."""
     import bundle_adjustment_tpu_torch.utils.io as io_mod
 
     def no_cv2(what, hint=""):
@@ -40,7 +41,9 @@ def test_stress_on_a_short_room_render_without_cv2(tmp_path, monkeypatch):
                      "--out", str(tmp_path)])
     with open(os.path.join(STUDY, "s2_d3_cpu", "stress_result.json")) as f:
         jax_keys = set(json.load(f))
-    assert jax_keys <= set(r) and set(r) - jax_keys == {"ate_pct_of_extent", "device"}
+    assert jax_keys <= set(r) and set(r) - jax_keys == {"ate_pct_of_extent", "device",
+                                                         "route", "breakdowns"}
+    assert r["route"] == "as shipped" and r["breakdowns"]["culled_points"] == r["culled_points"]
     assert r["frames"] == 12 and r["keyframes"] >= 3 and r["device"] == "cpu"
     assert np.isfinite(r["ate_rmse"]) and r["ate_pct_of_extent"] > r["ate_pct_of_path"]
     assert len(os.listdir(tmp_path / "sequence")) == 12
@@ -162,3 +165,115 @@ def test_global_scale_sweep_runs_the_plain_version_on_the_cpu():
         assert res["final_sq"] < 0.05 * res["initial_sq"]
         assert "ms_per_replayed_lm_iteration" not in res    # no time from the CPU
     assert out["device"] == "cpu"
+
+
+@pytest.mark.parametrize("cell, want", [
+    # counted by hand in the committed events.jsonl (grep): the JAX CPU cell
+    # of seed 3 and the JAX TPU cell of seed 2
+    ("s3_d3_cpu", dict(rotation_triggers=[[12, 3.141593, 0, 473]],
+                       discarded_frames=[201, 202, 203, 207, 393, 394, 397, 398, 420, 421,
+                                         426, 427, 434, 435, 443],
+                       pruned_obs=506, culled_points=9, reloc_fail=0, divergences=0)),
+    ("s2_d3_tpu", dict(rotation_triggers=[],
+                       discarded_frames=[202, 219, 235, 236, 237, 238, 370, 383, 384, 405,
+                                         407],
+                       pruned_obs=2213, culled_points=None, reloc_fail=2, divergences=3)),
+])
+def test_breakdowns_of_a_committed_jax_log_equal_a_hand_count(cell, want):
+    """``stress.breakdowns`` (the tally phase 14 and the dedup study print
+    per seed) on a committed JAX run's events: every Rotation trigger with
+    its frame, angle, tracked points and inliers, every discarded frame, and
+    the maintenance counts, as counted by hand; the pruned and culled
+    counts equal the cell's own ``stress_result.json``."""
+    from bundle_adjustment_tpu_torch.utils.event_log import read_events
+
+    run = os.path.join(STUDY, cell)
+    got = stress.breakdowns(read_events(os.path.join(run, "run", "events.jsonl")))
+    with open(os.path.join(run, "stress_result.json")) as f:
+        res = json.load(f)
+    want = dict(want, culled_points=res["culled_points"] if want["culled_points"] is None
+                else want["culled_points"])
+    assert got == want
+    for k in ("pruned_obs", "culled_points", "divergences", "reloc_fail"):
+        assert got[k] == res[k], k
+    assert len(got["discarded_frames"]) == res["frames_discarded"]
+    row = {"seed": 2, "port_breakdowns": got, "jax_breakdowns": got}
+    assert dedup_study.tally_line(row).count(f"Rotation {len(got['rotation_triggers'])}") == 2
+
+
+def test_routes_switch_the_solvers_and_put_them_back():
+    """Each routing of ``stress.ROUTES`` switches what it names inside the
+    block (the CLI's preset, K3's and K4's gates, K3's function, the graph
+    replay, the step's null vectors and SVDs) and puts everything back
+    after it; a switched null vector is still the smallest eigenvalue's."""
+    from bundle_adjustment_tpu_torch import run as run_mod
+    from bundle_adjustment_tpu_torch.models import frontend
+    from bundle_adjustment_tpu_torch.ops import ba_global_kernel as gk
+    from bundle_adjustment_tpu_torch.ops import ba_kernel, small_linalg
+
+    A = torch.tensor(np.random.default_rng(0).normal(size=(3, 4, 4)), dtype=torch.float32)
+    want = torch.linalg.svd(A.double())[2][..., -1, :]
+    before = (run_mod.PRESETS["lehman_indoor"], ba_kernel.eligible_shape,
+              gk.eligible_shape_global, ba_kernel.lm_solve, frontend.TrackStep._replay,
+              small_linalg.null_vector, small_linalg.svd)
+    for name, route in stress.ROUTES.items():
+        with stress.routed("lehman_indoor", **route):
+            cfg = run_mod.PRESETS["lehman_indoor"]()
+            assert cfg.ba.use_pallas_ba == (not route.get("grid_windows", False)), name
+            assert cfg.fused_frontend == (not route.get("staged", False)), name
+            assert (frontend.TrackStep._replay is before[4]) == (
+                not route.get("eager_step", False)), name
+            assert ba_kernel.eligible_shape(5, 8192, 13, 2) == (
+                route.get("k3_max_slots") is None), name
+            assert gk.eligible_shape_global(200, 30000, 13, 1) == (
+                route.get("k4_max_slots") is None), name
+            assert (ba_kernel.lm_solve is before[3]) == (route.get("k3_plain_past") is None)
+            linalg = set(route.get("host_linalg", ())) | set(route.get("linalg64", ()))
+            assert (small_linalg.null_vector is before[5]) == (
+                "eigh" not in linalg and not route.get("null")), name
+            assert (small_linalg.svd is before[6]) == ("svd" not in linalg), name
+            v = small_linalg.null_vector(A)
+            assert v.dtype == A.dtype and v.shape == (3, 4), name
+            assert torch.allclose(torch.abs(torch.sum(v.double() * want, -1)),
+                                  torch.ones(3, dtype=torch.float64), atol=1e-5), name
+        assert (run_mod.PRESETS["lehman_indoor"], ba_kernel.eligible_shape,
+                gk.eligible_shape_global, ba_kernel.lm_solve, frontend.TrackStep._replay,
+                small_linalg.null_vector, small_linalg.svd) == before, name
+
+
+def test_profile_orb_splits_every_stage_of_the_step():
+    """``profile_orb`` at 320x240 with 500 features on the CPU: the JAX
+    tool's keys, every stage of ``utils/stages.STAGES`` run (the ORB ones
+    once per pyramid level), and their host times adding up to the step's
+    less the Python between them."""
+    from bundle_adjustment_tpu_torch.tools import profile_orb
+    from bundle_adjustment_tpu_torch.utils.stages import STAGES
+
+    out = profile_orb.main(["--device", "cpu", "--size", "320x240", "--features", "500",
+                            "--steps", "1"])
+    assert out["metric"] == "orb_extract_breakdown" and out["time"] == "host (cpu)"
+    assert list(out["stage_ms"]) == list(STAGES) == list(out["calls_per_step"])
+    per_level = STAGES[:STAGES.index("dedup + select")]
+    assert all(out["calls_per_step"][k] == 8 for k in per_level)
+    assert out["calls_per_step"]["dedup + select"] == 9        # 8 levels, then the select
+    assert all(out["calls_per_step"][k] == 1 for k in STAGES[len(per_level) + 1:])
+    assert all(v > 0 for v in out["stage_ms"].values())
+    assert 0.8 * out["step_ms"] < out["sum_of_stages_ms"] <= out["step_ms"]
+
+
+def test_profile_ba_prints_the_jax_tools_keys():
+    """``profile_ba`` on a C = 5, P = 256 window and ``--global-pcg`` on a
+    small chain, on the CPU: the JAX tool's metrics and keys, every stage
+    timed and counted; K4's roles are their plain versions there."""
+    from bundle_adjustment_tpu_torch.tools import profile_ba
+
+    out = profile_ba.main(["--device", "cpu", "--points", "256"])
+    stages = ["terms", "assemble", "schur", "solve", "backsub", "cost", "full_lm_iter"]
+    assert out["metric"] == "ba_lm_iteration_breakdown" and out["problem"].startswith("C=5 ")
+    for key in ("stage_us", "stage_flops", "stage_bytes"):
+        assert list(out[key]) == stages, key
+    assert all(v > 0 for v in out["stage_us"].values())
+    assert out["stage_flops"]["assemble"] > 0 and "k3_phases" not in out
+    g = profile_ba.main(["--device", "cpu", "--global-pcg", "--cams", "20", "--points", "400"])
+    assert g["metric"] == "ba_global_pcg_breakdown" and g["lm_iterations"] == 21
+    assert g["time"].startswith("not measured")
