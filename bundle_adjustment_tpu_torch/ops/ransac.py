@@ -281,17 +281,24 @@ def estimate_essential_pose(
 def _dlt_projection(X, x):
     """Batched 6-point DLT for P (..., 3, 4) from X (..., S, 3), x (..., S, 2).
 
-    The null vector of the unnormalised system A p = 0 from a float32 eigh
-    of A^T A, as in the JAX package (``small_linalg.null_vector``: LAPACK's
-    ``syevd`` on the CPU, the JAX package's CPU reference; cuSOLVER's
-    batched solver on the card, whose vectors leave residuals 6 to 7 times
-    LAPACK's: ROADMAP Queue 3 item 19).  That squares A's condition number:
-    with the map a few metres off the origin the vector misses the float64
-    null vector's residual by 5 to 10 times, in both packages alike, and on
-    a sample that is close to coplanar the null space has more than one
-    dimension and the vector is whichever one the solver lands on.  RANSAC
-    over such hypotheses then differs between the packages by chance, in
-    either direction (``tests/test_torch_geometry.py``)."""
+    The null vector of the unnormalised system A p = 0
+    (``small_linalg.null_vector``).  The JAX package takes it from a
+    float32 eigh of A^T A, whose accuracy is its backend's: LAPACK's on the
+    CPU, XLA's Jacobi solver on the TPU.  On the CPU the port takes
+    LAPACK's eigh as the JAX package does there.  On the card it takes the
+    SVD of A (cuSOLVER's gesvdj), as accurate as the TPU's Jacobi vector:
+    cuSOLVER's eigh of A^T A, which the card took before, left residuals
+    |N p| / |N| 6.73, 6.96 and 6.05 times LAPACK's at the 50th, 90th and
+    99th percentiles of the committed samples, the SVD of A 0.23, 0.17 and
+    0.26 times, and the long drive's Rotation keyframes went from 18.8 per
+    seed (the JAX CPU cells 4.0, its TPU cell 0) to 0 (PERF.md section 5).
+    An eigh squares A's condition number: with the map a few metres off
+    the origin the vector misses the float64 null vector's residual by 5
+    to 10 times, in both packages alike on the CPU, and on a sample that is
+    close to coplanar the null space has more than one dimension and the
+    vector is whichever one the solver lands on.  RANSAC over such
+    hypotheses then differs between the packages by chance, in either
+    direction (``tests/test_torch_geometry.py``)."""
     return small_linalg.null_vector(_dlt_rows(X, x)).reshape(X.shape[:-2] + (3, 4))
 
 

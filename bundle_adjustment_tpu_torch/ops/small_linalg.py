@@ -2,9 +2,10 @@
 matrices of the tracked-frame step, in a form that a CUDA graph can capture.
 
 ``models/frontend.track_step`` solves three batches of them: the null vector
-of each 6-point DLT hypothesis' 12x12 normal matrix and of each two-view
-triangulation's 4x4 one (``eigh``), and the SVD of each hypothesis' 3x3
-``M`` (``ops/ransac._pose_from_projection``).  On the card PyTorch (2.11,
+of each 6-point DLT hypothesis' 12x12 system A and of each two-view
+triangulation's 4x4 one (``null_vector``: on the card the SVD of A, on the
+CPU the eigh of A^T A), and the SVD of each hypothesis' 3x3 ``M``
+(``ops/ransac._pose_from_projection``).  On the card PyTorch (2.11,
 CUDA 12.8) runs cuSOLVER for them, ``cusolverDnXsyevBatched`` and
 ``cusolverDnSgesvdjBatched``, and then reads the solver's ``info`` on the
 host, which stops a capture.  ``eigh`` and ``svd`` make the same cuSOLVER
@@ -18,8 +19,18 @@ them there).  ``info`` stays on the card: where PyTorch would have raised
 for a matrix the solver could not finish, the result holds what the solver
 left.
 
-The step's null vectors (the DLT's and the triangulation's) come from
-``null_vector``, an eigh of A^T A as in the JAX package.
+The step's null vectors (the PnP DLT's and the triangulation's) come from
+``null_vector``.  The JAX package takes them from a float32 eigh of A^T A,
+whose accuracy is its backend's: LAPACK's ``syevd`` on the CPU, XLA's
+Jacobi solver on the TPU.  The port reproduces the CPU's on the CPU
+(``torch.linalg.eigh``, LAPACK, bit for bit).  On the card it takes the
+right singular vector of A's smallest singular value from gesvdj (``svd``),
+as accurate as the TPU's Jacobi vector: cuSOLVER's batched eigh of A^T A
+left residuals |N p| / |N| 6.73, 6.96 and 6.05 times LAPACK's at the 50th,
+90th and 99th percentiles on the committed DLT samples, and the long drive
+then took 18.8 Rotation keyframes per seed against the JAX CPU cells' 4.0
+and its TPU cell's 0; the SVD of A leaves 0.23, 0.17 and 0.26 times
+LAPACK's, and 0 Rotation keyframes (PERF.md section 5).
 
 cuSOLVER is the library that PyTorch itself calls on the card; it is loaded
 from the process (PyTorch's CUDA build has it loaded) or from the CUDA
@@ -156,27 +167,36 @@ NULL_GAP = 1e-6
 
 def null_vector(A: torch.Tensor) -> torch.Tensor:
     """The unit vector p (..., n) that minimises |A p| for each square A
-    (..., n, n), as the eigenvector of the smallest eigenvalue of A^T A:
-    ``eigh(A^T A)[1][..., :, 0]`` (LAPACK's float32 ``syevd`` on the CPU, as
-    the JAX package computes it; cuSOLVER's batched float32 solver on the
-    card).  The one place the step's null vectors are taken, so that a
+    (..., n, n): the one place the step's null vectors are taken, so that a
     study can route them (``tools/stress.ROUTES``).
 
-    On the card cuSOLVER's vectors of the PnP DLT's normal matrices
-    (smallest over largest eigenvalue about 1e-10) leave residuals |A^T A p|
-    / |A^T A| 6 to 7 times LAPACK's, and the PnP fails on more frames of a
-    long drive than the reference's (ROADMAP Queue 3 item 19).
-    ``refine_null_vector`` brings the residual to LAPACK's, the SVD of A
-    past it; neither is taken here, for what each does to phase 11's drives
-    (PERF.md section 5)."""
-    N = torch.matmul(A.transpose(-1, -2), A)
-    return eigh(N)[1][..., :, 0]
+    On the CPU the eigenvector of the smallest eigenvalue of A^T A,
+    ``torch.linalg.eigh(A^T A)[1][..., :, 0]``: LAPACK's float32 ``syevd``,
+    as the JAX package computes it on the CPU.  On the card the right
+    singular vector of A's smallest singular value, ``svd(A)[2][..., -1,
+    :]``: cuSOLVER's gesvdj at a tolerance of one float32 epsilon, no host
+    read, capturable in the step's CUDA graph.  A^T A squares A's condition
+    number (the DLT's smallest eigenvalue about 1e-10 of its largest, the
+    next few 1e-9): no float32 eigh of it resolves the vector inside that
+    cluster (LAPACK's is 0.21 off the float64 vector in the median,
+    cuSOLVER's 0.29), the SVD of A does (2.7e-6), as the TPU's Jacobi
+    solver does for the JAX package (its TPU cell takes no Rotation
+    keyframe).  cuSOLVER's eigh of A^T A, which the card took before, left
+    residuals 6.73, 6.96 and 6.05 times LAPACK's at the 50th, 90th and 99th
+    percentiles; the SVD of A leaves 0.23, 0.17 and 0.26 times (PERF.md
+    section 5; the "cuSOLVER eigh" routing keeps the former)."""
+    if A.device.type != "cuda":
+        N = torch.matmul(A.transpose(-1, -2), A)
+        return eigh(N)[1][..., :, 0]
+    return _svd_card(A)[2][..., -1, :]
 
 
 def refine_null_vector(A: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
     """A first-order correction of the first column of the eigenvectors V
-    (..., n, n) of the symmetric A toward A's null vector, on any device
-    (the "corrected eigh" routing).  cuSOLVER's float32 vectors carry a few
+    (..., n, n) of the symmetric A toward A's null vector, on any device:
+    a study route (the "corrected eigh" routing of ``tools/stress``), not
+    the shipped path, which takes the SVD of A on the card
+    (``null_vector``).  cuSOLVER's float32 vectors carry a few
     1e-7 of the eigenvectors of large eigenvalues; with V the solver's
     eigenvectors, v0 -= sum_i (v_i' A v0) / (v_i' A v_i - v0' A v0) v_i over
     every i whose gap exceeds ``NULL_GAP`` of the largest eigenvalue, then
@@ -202,6 +222,13 @@ def svd(A: torch.Tensor):
     ``torch.linalg.svd(A)`` returns them; on the card without a host read."""
     if A.device.type != "cuda":
         return torch.linalg.svd(A)
+    return _svd_card(A)
+
+
+def _svd_card(A: torch.Tensor):
+    """``svd`` on the card: cuSOLVER's gesvdj, batched, on the current
+    stream.  ``null_vector`` calls it by this name, so that a routing of
+    ``svd`` (the pose's nearest rotation) leaves the null vectors alone."""
     lib, handle, _, params, batch, Acm = _prepare(A, "svd")
     n = A.shape[-1]
     s = torch.empty((batch, n), dtype=A.dtype, device=A.device)

@@ -15,10 +15,14 @@ def camera_matrix(K: torch.Tensor, R: torch.Tensor, t: torch.Tensor) -> torch.Te
 
 
 def triangulate_dlt(P1, P2, uv1, uv2):
-    """Linear (DLT) triangulation of N correspondences via the
-    smallest-eigenvalue eigenvector of the 4x4 normal matrix
-    (``small_linalg.null_vector``: ``torch.linalg.eigh``'s solver on each
-    device).  Its sign cancels in the homogeneous divide."""
+    """Linear (DLT) triangulation of N correspondences via the null vector
+    of each 4x4 system A (``small_linalg.null_vector``): on the CPU the
+    smallest-eigenvalue eigenvector of A^T A from LAPACK, as the JAX
+    package computes it there; on the card the SVD of A (cuSOLVER's
+    gesvdj), as accurate as the TPU's Jacobi eigh of the JAX package, where
+    cuSOLVER's eigh of A^T A left the DLT's residuals 6 to 7 times
+    LAPACK's (PERF.md section 5).  Its sign cancels in the homogeneous
+    divide."""
     u1, v1 = uv1[..., 0], uv1[..., 1]
     u2, v2 = uv2[..., 0], uv2[..., 1]
     A = torch.stack(

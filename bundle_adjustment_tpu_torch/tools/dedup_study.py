@@ -20,7 +20,12 @@ The study is gated on the mean, never seed by seed (the JAX package itself
 lands far apart on one seed across backends): it exits with 1 when a cell
 failed or when, for a dedup cell size, the port's mean ATE over the path
 length is above ``--max-mean-ate``, which defaults with ``--against`` to
-the JAX cells' worst seed at that size (12.51 % at 3 px).
+the JAX cells' worst seed at that size (12.51 % at 3 px).  With
+``--against`` it is gated on the tracking breakdowns too, under the same
+convention (``breakdown_gate``): for each dedup cell size the port's mean
+of Rotation keyframes and of discarded frames over the seeds at most the
+JAX cells' worst seed (15 and 26 at 3 px), recorded as
+``breakdown_gate`` in ``dedup_study.json``.
 
     python -m bundle_adjustment_tpu_torch.tools.dedup_study --seeds 2 3 4 5 6 \\
         --dedup 3 --against .dedup_study --out OUT --jobs 4
@@ -182,6 +187,33 @@ def gate(port: dict, limits: dict, cells: list) -> dict:
             "over": over, "passed": not failed and not over}
 
 
+#: the breakdowns ``breakdown_gate`` holds: its name -> ``stress.breakdowns``' key
+GATED_BREAKDOWNS = {"rotation_keyframes": "rotation_triggers",
+                    "discarded_frames": "discarded_frames"}
+
+
+def breakdown_gate(rows: list) -> dict:
+    """The breakdowns' verdict on ``side_by_side``'s rows: for each dedup cell
+    size and each of ``GATED_BREAKDOWNS``, the port's mean count over the
+    seeds at most the JAX cells' worst seed (a seed whose cell failed has
+    no breakdowns and fails the ATE gate)."""
+    sizes = {}
+    for r in rows:
+        sizes.setdefault(f"{r['dedup_px']:g}", []).append(r)
+    out = {}
+    for size, rs in sizes.items():
+        out[size] = {}
+        for name, key in GATED_BREAKDOWNS.items():
+            port = [len(r["port_breakdowns"][key]) for r in rs if "port_breakdowns" in r]
+            jax = [len(r["jax_breakdowns"][key]) for r in rs]
+            mean = statistics.mean(port) if port else None
+            out[size][name] = {"port_mean": mean, "jax_mean": statistics.mean(jax),
+                               "limit": max(jax),
+                               "passed": mean is not None and mean <= max(jax)}
+    return {"by_dedup": out,
+            "passed": all(v["passed"] for by in out.values() for v in by.values())}
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -199,17 +231,20 @@ def build_parser() -> argparse.ArgumentParser:
                          "worst seed at that size; without: no limit)")
     ap.add_argument("--jobs", type=int, default=1, help="cells run at once")
     ap.add_argument("--route", default="as shipped",
-                    help="the stress harness's routing of each cell (stress.ROUTES)")
+                    help="the stress harness's routing of each cell (stress.ROUTES; several "
+                         "joined by '+')")
     return ap
 
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     from bundle_adjustment_tpu_torch import device as device_mod
-    from bundle_adjustment_tpu_torch.tools.stress import ROUTES
+    from bundle_adjustment_tpu_torch.tools.stress import routing
 
-    if args.route not in ROUTES:
-        raise SystemExit(f"--route {args.route!r}: one of {sorted(ROUTES)}")
+    try:
+        routing(args.route)
+    except KeyError as e:
+        raise SystemExit(f"--route {args.route!r}: {e.args[0]}") from None
     device_mod.resolve(args.device)
     os.makedirs(args.out, exist_ok=True)
     todo = [(seed, dedup) for dedup in args.dedup for seed in args.seeds]
@@ -245,12 +280,22 @@ def main(argv=None) -> dict:
     elif args.against:
         limits = {k: v["ate_pct_max"] for k, v in record["against"]["jax"].items()}
     record["gate"] = gate(summary["by_dedup"], limits, cells)
+    if args.against:
+        record["breakdown_gate"] = breakdown_gate(record["against"]["cells"])
     with open(os.path.join(args.out, "dedup_study.json"), "w") as f:
         json.dump(record, f, indent=2)
     print(json.dumps(summary))
     print(json.dumps({"gate": record["gate"]}))
+    if args.against:
+        print(json.dumps({"breakdown_gate": record["breakdown_gate"]}))
     return record
 
 
+def passed(record: dict) -> bool:
+    """The study's exit verdict: the ATE gate and, with ``--against``, the
+    breakdowns' gate."""
+    return record["gate"]["passed"] and record.get("breakdown_gate", {"passed": True})["passed"]
+
+
 if __name__ == "__main__":
-    sys.exit(0 if main()["gate"]["passed"] else 1)
+    sys.exit(0 if passed(main()) else 1)

@@ -48,6 +48,7 @@ import json
 import os
 import subprocess
 import time
+import types
 
 import numpy as np
 
@@ -69,22 +70,35 @@ def device_name(device: str) -> str:
         return f"{torch.cuda.get_device_name(0)} (nvidia-smi not read)"
 
 
-#: the routings of ``--route``: each the keywords of ``routed``.  "grid
-#: windows": every window on the grid solver (``use_pallas_ba=False``, as the
-#: JAX package solves them on the CPU); "K3 plain": K3's function without the
-#: kernel on every window K3 takes; "no graph replay": the staged frontend
-#: (``fused_frontend=False``); "eager step": the fused step run eagerly on
-#: the card, not replayed as a CUDA graph; "CPU eigh": that, with the step's
-#: null vectors (``small_linalg.null_vector``: the PnP DLT's and the
-#: triangulation's, as an eigh of A^T A) and SVDs (the pose's nearest
-#: rotation) solved on the CPU by LAPACK, as the JAX package solves them
-#: there ("only": the one or the other); "float64 ...": those solved on the
-#: card in float64 by ``torch.linalg`` (the inputs cast up, the results
-#: down); "corrected eigh": cuSOLVER's null vectors with
-#: ``small_linalg.refine_null_vector``'s correction; "SVD of A": the null
-#: vectors from the SVD of A on the card (``small_linalg.svd``); the rest
-#: hold K3's or K4's gate to the TPU's 12 slots per point, or send K3's
-#: windows past 12 slots to its plain version
+#: the lane of K4's setup reduction (``red``, 54 lanes per camera: 21 of
+#: the camera block, then the camera gradient's six) that the "K4 setup
+#: gradient lane" routing scales: the gradient's rotation x
+GRADIENT_LANE = 21
+
+
+#: the routings of ``--route``: each the keywords of ``routed``.  "as
+#: shipped": nothing switched (the step's null vectors from the SVD of A on
+#: the card, ``small_linalg.null_vector``); "grid windows": every window on
+#: the grid solver (``use_pallas_ba=False``, as the JAX package solves them
+#: on the CPU); "K3 plain": K3's function without the kernel on every window
+#: K3 takes; "no graph replay": the staged frontend (``fused_frontend=
+#: False``); "eager step": the fused step run eagerly on the card, not
+#: replayed as a CUDA graph; "CPU eigh": that, with the step's null vectors
+#: (the PnP DLT's and the triangulation's, as an eigh of A^T A) and SVDs
+#: (the pose's nearest rotation) solved on the CPU by LAPACK, as the JAX
+#: package solves them there ("only": the one or the other); "float64 ...":
+#: those solved on the card in float64 by ``torch.linalg`` (the inputs cast
+#: up, the results down); "cuSOLVER eigh": the null vectors from cuSOLVER's
+#: batched float32 eigh of A^T A on the card (``small_linalg.eigh``), as the
+#: port took them before it took the SVD of A ("in the PnP DLT", "in
+#: triangulation": at that call site only); "corrected eigh": those with
+#: ``small_linalg.refine_null_vector``'s correction; "K4 setup ...":
+#: planted defects of K4's setup role (``defective_setup``) for phase 11's
+#: holds of ``chip_smoke.py``: the Huber threshold times 1e6 (least-squares
+#: weights) or times 1.5, or one lane of the camera gradient (rotation x)
+#: times 1.5; the rest hold K3's or K4's gate to
+#: the TPU's 12 slots per point, or send K3's windows past 12 slots to its
+#: plain version.  Names joined by "+" run together (``routing``).
 ROUTES = {
     "as shipped": {},
     "grid windows": dict(grid_windows=True),
@@ -96,20 +110,53 @@ ROUTES = {
     "CPU svd only": dict(eager_step=True, host_linalg=("svd",)),
     "float64 eigh": dict(eager_step=True, linalg64=("eigh",)),
     "float64 eigh and svd": dict(eager_step=True, linalg64=("eigh", "svd")),
+    "cuSOLVER eigh": dict(null="eigh"),
+    "cuSOLVER eigh in the PnP DLT": dict(null="eigh", null_at="pnp"),
+    "cuSOLVER eigh in triangulation": dict(null="eigh", null_at="triangulation"),
     "corrected eigh": dict(null="corrected"),
-    "SVD of A": dict(null="svd"),
+    "K4 setup defect": dict(k4_defect=dict(huber=1e6)),
+    "K4 setup Huber x1.5": dict(k4_defect=dict(huber=1.5)),
+    "K4 setup gradient lane x1.5": dict(k4_defect=dict(lane=GRADIENT_LANE, scale=1.5)),
     "K3 at D <= 12": dict(k3_max_slots=12),
     "K4 at D <= 12": dict(k4_max_slots=12),
     "both at D <= 12": dict(k3_max_slots=12, k4_max_slots=12),
     "K3 plain past 12": dict(k3_plain_past=12),
 }
 
+def routing(name: str) -> dict:
+    """The keywords of ``routed`` for a routing of ``ROUTES``, or for
+    several joined by "+" (e.g. "cuSOLVER eigh+K4 setup defect")."""
+    kw = {}
+    for part in name.split("+"):
+        if part not in ROUTES:
+            raise KeyError(f"{part!r} is not a routing; one of {sorted(ROUTES)}")
+        kw.update(ROUTES[part])
+    return kw
+
+
+def defective_setup(setup, huber: float = 1.0, lane: int = None, scale: float = 1.0):
+    """K4's setup role ``setup`` with a planted defect: its Huber weights
+    taken at ``huber`` times the threshold (lane 5 of ``scal``), and lane
+    ``lane`` of its camera reduction times ``scale``; the other roles as
+    they are.  A uniform scale of the weights would not be a defect that
+    any hold could see: the LM's damping is a multiple of the normal
+    matrix's diagonal (``ba._damp``), so the step would not change."""
+    import torch
+
+    def call(cam, ptT, slotT, maskT, uvT, pmask, scal, n_fixed, index=None):
+        scal = torch.cat([scal[:5], scal[5:6] * huber, scal[6:]])
+        out = setup(cam, ptT, slotT, maskT, uvT, pmask, scal, n_fixed, index)
+        if lane is not None:
+            out[3][:, lane].mul_(scale)      # in place: the kernel's buffer
+        return out
+    return call
+
 
 @contextlib.contextmanager
 def routed(preset: str, grid_windows: bool = False, staged: bool = False,
            eager_step: bool = False, host_linalg: tuple = (), linalg64: tuple = (),
-           null: str = None, k3_plain_past: int = None,
-           k3_max_slots: int = None, k4_max_slots: int = None):
+           null: str = None, null_at: str = None, k3_plain_past: int = None,
+           k3_max_slots: int = None, k4_max_slots: int = None, k4_defect: dict = None):
     """The CLI's preset ``preset`` and the solvers' modules switched to a
     routing of ``ROUTES`` for the duration of the block, then put back."""
     import torch
@@ -117,11 +164,12 @@ def routed(preset: str, grid_windows: bool = False, staged: bool = False,
     from bundle_adjustment_tpu_torch import run as run_mod
     from bundle_adjustment_tpu_torch.models import frontend
     from bundle_adjustment_tpu_torch.ops import ba_global_kernel as gk
-    from bundle_adjustment_tpu_torch.ops import ba_kernel, small_linalg
+    from bundle_adjustment_tpu_torch.ops import ba_kernel, ransac, small_linalg, triangulation
 
     orig_preset = run_mod.PRESETS[preset]
     linalg = small_linalg.null_vector, small_linalg.svd
     k3, k4, solve3 = ba_kernel.eligible_shape, gk.eligible_shape_global, ba_kernel.lm_solve
+    solve4 = gk.solve
     replay = frontend.TrackStep._replay
 
     def preset_fn():
@@ -170,20 +218,31 @@ def routed(preset: str, grid_windows: bool = False, staged: bool = False,
         setattr(small_linalg, solvers[name][0], moved(solvers[name][1], lambda A: A.cpu()))
     for name in linalg64:
         setattr(small_linalg, solvers[name][0], moved(solvers[name][1], lambda A: A.double()))
-    if null == "corrected":
-        def corrected(A):
-            N = normal(A)
-            return small_linalg.refine_null_vector(N, small_linalg.eigh(N)[1])
+    def corrected(A):
+        N = normal(A)
+        return small_linalg.refine_null_vector(N, small_linalg.eigh(N)[1])
 
-        small_linalg.null_vector = corrected
-    elif null == "svd":
-        small_linalg.null_vector = lambda A: small_linalg.svd(A)[2][..., -1, :]
+    nulls = dict(corrected=corrected,
+                 eigh=lambda A: small_linalg.eigh(normal(A))[1][..., :, 0])
+    # a call site alone: its module reads small_linalg through a namespace
+    # whose null_vector is the routing's
+    site = dict(pnp=ransac, triangulation=triangulation).get(null_at)
+    if null and site is not None:
+        names = {k: getattr(small_linalg, k) for k in dir(small_linalg) if not k.startswith("__")}
+        site.small_linalg = types.SimpleNamespace(**dict(names, null_vector=nulls[null]))
+    elif null:
+        small_linalg.null_vector = nulls[null]
+    if k4_defect:
+        roles = gk._KERNELS._replace(setup=defective_setup(gk._KERNELS.setup, **k4_defect))
+        gk.solve = lambda grid, n_fixed=1, **opts: solve4(grid, n_fixed, **dict(opts, roles=roles))
     try:
         yield
     finally:
         small_linalg.null_vector, small_linalg.svd = linalg
+        ransac.small_linalg = triangulation.small_linalg = small_linalg
         run_mod.PRESETS[preset] = orig_preset
         ba_kernel.eligible_shape, gk.eligible_shape_global, ba_kernel.lm_solve = k3, k4, solve3
+        gk.solve = solve4
         frontend.TrackStep._replay = replay
 
 
@@ -317,8 +376,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--png", action="store_true",
                     help="write the render as a folder of PNG files (no cv2 needed) in "
                          "place of sequence.mp4")
-    ap.add_argument("--route", default="as shipped", choices=sorted(ROUTES),
-                    help="the routing of the run's solvers and frontend (ROUTES)")
+    ap.add_argument("--route", default="as shipped",
+                    help="the routing of the run's solvers and frontend (ROUTES; several "
+                         "joined by '+')")
     ap.add_argument("--hold-windows", default=None, metavar="DIR",
                     help="solve every K3 window also through the grid solver and K3's "
                          "plain version; records and the kept windows in DIR")
@@ -415,7 +475,7 @@ def main(argv=None) -> dict:
            "--size", f"{WIDTH}x{HEIGHT}", "--consistent-convention",
            "--features", str(args.features), "--device", dev.type]
 
-    route = dict(ROUTES[args.route])
+    route = routing(args.route)
     if args.staged:
         route["staged"] = True
     orig_dedup = orb_mod._DEDUP_CELL_PX

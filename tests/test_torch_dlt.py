@@ -13,10 +13,10 @@ file's script mode (needs cv2 for the video):
 
 On the CPU the port's null vectors are LAPACK's eigh of A^T A, as the JAX
 package's are; ``small_linalg.refine_null_vector`` (the "corrected eigh" routing)
-brings a basis perturbed as the card's solver leaves it back to LAPACK's
-residual.  The SVD of A (the "SVD of A" routing, ``tools/stress.ROUTES``)
-is held to LAPACK's eigh and to float64.  The card's own vectors are held
-in ``tests/test_torch_kernels.py``.
+brings a basis perturbed as cuSOLVER's eigh leaves it back to LAPACK's
+residual.  The SVD of A (the card's shipped null vectors) is held to
+LAPACK's eigh and to float64, here through LAPACK's SVD.  The card's own
+vectors are held in ``tests/test_torch_kernels.py``.
 """
 
 import argparse
@@ -99,7 +99,7 @@ def sines(P: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
 
 @pytest.mark.parametrize("what", ["dlt", "triangulation"])
 def test_the_svd_of_a_is_as_accurate_as_lapacks_eigh_and_nearer_float64(what):
-    """The null vector from the SVD of A (the "SVD of A" routing), here
+    """The null vector from the SVD of A (the card's shipped one), here
     through LAPACK's float32 SVD: on the DLT's samples (and on the triangulation's
     4x4 systems of the same points seen from two cameras) its residuals at
     the 50th, 90th and 99th percentiles at most LAPACK's eigh of A^T A's,
@@ -138,6 +138,54 @@ def test_the_svd_of_a_is_as_accurate_as_lapacks_eigh_and_nearer_float64(what):
     s_eigh, s_svd = quantiles(sines(eigh, A)), quantiles(sines(svd, A))
     assert s_svd[0] <= 0.01 * s_eigh[0] or s_svd[0] <= 1e-6, (s_svd, s_eigh)
     assert all(a <= b + 1e-6 for a, b in zip(s_svd, s_eigh)), (s_svd, s_eigh)
+
+
+def _triangulation_systems():
+    """The 4x4 systems of the samples' points seen from two cameras."""
+    from bundle_adjustment_tpu_torch.ops import triangulation
+
+    X, _ = samples()
+    K = torch.tensor([[450.0, 0, 320], [0, 450.0, 240], [0, 0, 1]])
+    P1 = triangulation.camera_matrix(K, torch.eye(3), torch.zeros(3))
+    R2 = torch.tensor([[0.995, 0, 0.0998], [0, 1, 0], [-0.0998, 0, 0.995]])
+    P2 = triangulation.camera_matrix(K, R2, torch.tensor([-0.3, 0.0, 0.0]))
+    pts = X.reshape(-1, 3)[:2048] + torch.tensor([0.0, 0.0, 4.0])
+
+    def project(P):
+        h = torch.cat([pts, torch.ones_like(pts[:, :1])], 1) @ P.T
+        return h[:, :2] / h[:, 2:]
+
+    (u1, v1), (u2, v2) = project(P1).T, project(P2).T
+    return torch.stack([u1[:, None] * P1[2] - P1[0], v1[:, None] * P1[2] - P1[1],
+                        u2[:, None] * P2[2] - P2[0], v2[:, None] * P2[2] - P2[1]], dim=-2)
+
+
+@pytest.mark.parametrize("what", ["dlt", "triangulation"])
+def test_the_cpu_branch_of_null_vector_is_lapacks_eigh_bit_for_bit(what):
+    """On the CPU ``null_vector`` (the PnP DLT's and the triangulation's) is
+    the first column of ``torch.linalg.eigh`` of A^T A, bit for bit: the
+    JAX package's CPU function, whatever the card takes."""
+    X, x = samples()
+    A = ransac._dlt_rows(X, x) if what == "dlt" else _triangulation_systems()
+    N = torch.matmul(A.transpose(-1, -2), A)
+    assert torch.equal(small_linalg.null_vector(A), torch.linalg.eigh(N)[1][..., :, 0])
+
+
+def test_the_card_branchs_function_meets_the_card_tests_rules_on_the_cpu():
+    """The card branch's function, ``small_linalg.svd(A)[2][..., -1, :]``,
+    here through LAPACK's float32 SVD on the committed samples: residuals
+    |N p| / |N| at most twice LAPACK's eigh's at the 50th, 90th and 99th
+    percentiles and a median sine to the float64 null vector of at most
+    1e-4, the rules ``tests/test_torch_kernels.py``'s
+    ``test_dlt_null_vectors_on_the_card_are_as_accurate_as_lapacks`` holds
+    the card to."""
+    X, x = samples()
+    A = ransac._dlt_rows(X, x)
+    v = small_linalg.svd(A)[2][..., -1, :]
+    got = quantiles(ransac.dlt_residual(X, x, v))
+    want = quantiles(ransac.dlt_residual(X, x, ransac._dlt_projection(X, x)))
+    assert all(a <= 2 * b for a, b in zip(got, want)), (got, want)
+    assert quantiles(sines(v, A))[0] <= 1e-4
 
 
 def test_a_degenerate_sample_keeps_a_null_vector():

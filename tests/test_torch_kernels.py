@@ -949,9 +949,11 @@ def test_the_null_vector_correction_on_the_card_reaches_lapacks_residual(card):
     residuals on the exact normal matrices at the 50th, 90th and 99th
     percentiles at most twice LAPACK's float32 ones on the CPU (the JAX
     package's reference), and a CUDA graph of them replays the eager call's
-    bits.  cuSOLVER's own (the shipped ``ransac._dlt_projection``) miss
-    this: 9.37e-8, 5.28e-7 and 9.01e-7 against LAPACK's 1.39e-8, 7.59e-8
-    and 1.49e-7 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 5)."""
+    bits.  cuSOLVER's own (the "cuSOLVER eigh" routing, the card's before
+    it took the SVD of A) miss this: 9.37e-8, 5.28e-7 and 9.01e-7 against
+    LAPACK's 1.39e-8, 7.59e-8 and 1.49e-7 (NVIDIA H100 80GB HBM3, 700.00 W;
+    PERF.md section 5).  A study route: the shipped vectors are held by
+    ``test_dlt_null_vectors_on_the_card_are_as_accurate_as_lapacks``."""
     from bundle_adjustment_tpu_torch.ops import ransac, small_linalg
 
     d = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
@@ -974,6 +976,49 @@ def test_the_null_vector_correction_on_the_card_reaches_lapacks_residual(card):
     eager = corrected()
     kernels.on_side_stream(card, corrected)
     graph, out, _ = kernels.capture(card, corrected)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert _bit_equal(out, eager)
+
+
+@pytest.mark.cuda
+def test_dlt_null_vectors_on_the_card_are_as_accurate_as_lapacks(card):
+    """The card's shipped PnP DLT null vectors (``ransac._dlt_projection`` on
+    CUDA tensors: the SVD of A, cuSOLVER's gesvdj) on the committed samples
+    of a long drive (``tests/data/torch_dlt_samples.npz``): their residuals
+    |N p| / |N| on the exact normal matrices at most twice LAPACK's float32
+    eigh's on the CPU (the JAX package's reference) at the 50th, 90th and
+    99th percentiles, and the sine of their angle to the float64 null
+    vector of the same float32 system at most 1e-4 in the median; a CUDA
+    graph of them replays the eager call's bits.  cuSOLVER's eigh of A^T A,
+    which the card took before, fails both: 6.73, 6.96 and 6.05 times
+    LAPACK's residuals, a median sine of 0.293 (NVIDIA H100 80GB HBM3,
+    700.00 W; PERF.md section 5)."""
+    from bundle_adjustment_tpu_torch.ops import ransac
+
+    d = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                             "torch_dlt_samples.npz"))
+    X, x = torch.tensor(d["X"]), torch.tensor(d["x"])
+    Xc, xc = X.to(card), x.to(card)
+    qs = (0.5, 0.9, 0.99)
+
+    def residuals(P):
+        r = ransac.dlt_residual(X, x, P).double()
+        return [float(torch.quantile(r, q)) for q in qs]
+
+    def shipped():
+        return ransac._dlt_projection(Xc, xc)
+
+    eager = shipped()
+    got, want = residuals(eager), residuals(ransac._dlt_projection(X, x))
+    assert all(a <= 2 * b for a, b in zip(got, want)), (got, want)
+    exact = torch.linalg.svd(ransac._dlt_rows(X, x).double())[2][..., -1, :]
+    p = eager.double().cpu().reshape(exact.shape)
+    cos = torch.abs(torch.sum(p * exact, -1)) / torch.linalg.norm(p, dim=-1)
+    sine = torch.sqrt(torch.clamp(1 - cos * cos, min=0))
+    assert float(torch.quantile(sine, 0.5)) <= 1e-4, float(torch.quantile(sine, 0.5))
+    kernels.on_side_stream(card, shipped)
+    graph, out, _ = kernels.capture(card, shipped)
     graph.replay()
     torch.cuda.synchronize()
     assert _bit_equal(out, eager)

@@ -37,9 +37,24 @@ installed.  ``--first F`` starts the script's comparison at frame F (the
 JAX pipeline runs the frames before it alone):
 
     JAX_PLATFORMS=cpu python tests/test_torch_room_drive.py --cell 3 --frames 200
+
+``--dlt svd`` runs the script with the DLT null vectors (the PnP's and the
+two-view triangulation's) taken from the SVD of A in both packages, inside
+the script's own process and for the duration of the run
+(``dlt_substituted``): the JAX package's ``ops.ransac._dlt_projection`` and
+``ops.triangulation.triangulate_dlt`` replaced by functions that return
+``jnp.linalg.svd(A)[2][-1]`` of the same system (the JAX package's files
+are not changed; its jit caches are cleared on the way in and out), and
+the port's ``small_linalg.null_vector`` routed to ``torch.linalg.svd``,
+what the port takes on the card.  The free runs' tallies then say what
+each package decides under an accurate DLT:
+
+    JAX_PLATFORMS=cpu python tests/test_torch_room_drive.py --frames 150 \
+        --convention reference --dlt svd
 """
 
 import argparse
+import contextlib
 import dataclasses
 import os
 import sys
@@ -211,8 +226,8 @@ def test_each_frame_from_the_jax_state_on_a_stress_cell():
     without one parts only in what that rotation decides.
 
     This runs on the CPU, where the port's DLT solver is LAPACK's: it
-    cannot see the card's (cuSOLVER's vectors, ROADMAP Queue 3 item 19),
-    which ``tests/test_torch_kernels.py``'s
+    cannot see the card's (the SVD of A, ROADMAP Queue 3 item 19), which
+    ``tests/test_torch_kernels.py``'s
     ``test_dlt_null_vectors_on_the_card_are_as_accurate_as_lapacks`` and
     ``chip_smoke.py`` phase 14 hold.  The script mode covers the later
     frames that have map points (``--first``; PERF.md section 5)."""
@@ -229,6 +244,109 @@ def test_each_frame_from_the_jax_state_on_a_stress_cell():
            for e in jp.log.events
            if e["event"] == "keyframe_trigger" and e["reason"] == "Rotation"]
     assert rot == [(12, 3.142, 0)]
+
+
+def _jax_dlt_svd(X, x, w=None):
+    """The JAX package's ``ransac._dlt_projection`` with the null vector
+    from the SVD of A: the same rows, ``jnp.linalg.svd(A)[2][-1]``."""
+    import jax.numpy as jnp
+
+    Xh = jnp.concatenate([X, jnp.ones((X.shape[0], 1), X.dtype)], axis=1)
+    zeros = jnp.zeros_like(Xh)
+    A = jnp.concatenate([jnp.concatenate([Xh, zeros, -x[:, 0:1] * Xh], axis=1),
+                         jnp.concatenate([zeros, Xh, -x[:, 1:2] * Xh], axis=1)], axis=0)
+    if w is not None:
+        A = A * jnp.concatenate([w, w])[:, None]
+    return jnp.linalg.svd(A)[2][-1].reshape(3, 4)
+
+
+def _jax_triangulate_svd(P1, P2, uv1, uv2):
+    """The JAX package's ``triangulation.triangulate_dlt`` with the null
+    vector of each 4x4 system from the SVD of A."""
+    import jax.numpy as jnp
+
+    u1, v1 = uv1[..., 0], uv1[..., 1]
+    u2, v2 = uv2[..., 0], uv2[..., 1]
+    A = jnp.stack([u1[:, None] * P1[2] - P1[0], v1[:, None] * P1[2] - P1[1],
+                   u2[:, None] * P2[2] - P2[0], v2[:, None] * P2[2] - P2[1]], axis=-2)
+    Xh = jnp.linalg.svd(A)[2][..., -1, :]
+    w = Xh[..., 3]
+    return Xh[..., :3] / (w + jnp.where(w >= 0, 1e-6, -1e-6))[..., None]
+
+
+@contextlib.contextmanager
+def dlt_substituted(dlt: str):
+    """Both packages' DLT null vectors as ``dlt`` names them for the block:
+    "eigh", each package's own (an eigh of A^T A), or "svd", the SVD of A
+    in both (the JAX functions replaced, the port's ``null_vector``
+    routed), then put back; JAX's jit caches are cleared on the way in and
+    out, so that no trace of the other kind is reused."""
+    if dlt == "eigh":
+        yield
+        return
+    from bundle_adjustment_tpu.ops import ransac as jax_ransac
+    from bundle_adjustment_tpu.ops import triangulation as jax_triangulation
+    from bundle_adjustment_tpu_torch.ops import small_linalg
+
+    saved = (jax_ransac._dlt_projection, jax_triangulation.triangulate_dlt,
+             small_linalg.null_vector)
+    jax_ransac._dlt_projection = _jax_dlt_svd
+    jax_triangulation.triangulate_dlt = _jax_triangulate_svd
+    small_linalg.null_vector = lambda A: torch.linalg.svd(A)[2][..., -1, :]
+    jax.clear_caches()
+    try:
+        yield
+    finally:
+        (jax_ransac._dlt_projection, jax_triangulation.triangulate_dlt,
+         small_linalg.null_vector) = saved
+        jax.clear_caches()
+
+
+def test_the_svd_substitution_takes_both_packages_and_puts_them_back():
+    """``dlt_substituted("svd")`` (the script's ``--dlt svd``): inside the
+    block a jitted call of the JAX package's ``_dlt_projection`` traced
+    before it gives the SVD of A's null vector, and so do its triangulation
+    and the port's ``null_vector``; after it every function is the
+    package's own again and the same jitted call gives its earlier bits."""
+    import jax.numpy as jnp
+
+    from bundle_adjustment_tpu.ops import ransac as jax_ransac
+    from bundle_adjustment_tpu.ops import triangulation as jax_triangulation
+    from bundle_adjustment_tpu_torch.ops import ransac, small_linalg
+
+    d = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                             "torch_dlt_samples.npz"))
+    X, x = d["X"][:64], d["x"][:64]
+    A = ransac._dlt_rows(torch.tensor(X), torch.tensor(x))
+    want = torch.linalg.svd(A.double())[2][..., -1, :]
+    dlt = jax.jit(jax.vmap(lambda X, x: jax_ransac._dlt_projection(X, x)))
+    K = jnp.array([[450.0, 0, 320], [0, 450.0, 240], [0, 0, 1]])
+    P1 = jax_triangulation.camera_matrix(K, jnp.eye(3), jnp.zeros(3))
+    P2 = jax_triangulation.camera_matrix(K, jnp.eye(3), jnp.array([-0.3, 0.0, 0.0]))
+    uv = jnp.asarray(x[:, 0] * 450.0 + np.array([320.0, 240.0]), jnp.float32)
+    tri = jax.jit(lambda a, b: jax_triangulation.triangulate_dlt(P1, P2, a, b))
+    saved = (jax_ransac._dlt_projection, jax_triangulation.triangulate_dlt,
+             small_linalg.null_vector)
+    before, tri_before = np.asarray(dlt(X, x)), np.asarray(tri(uv, uv + 5.0))
+
+    def sine(P):
+        p = torch.tensor(np.asarray(P), dtype=torch.float64).reshape(want.shape)
+        cos = torch.abs(torch.sum(p * want, -1)) / torch.linalg.norm(p, dim=-1)
+        return torch.sqrt(torch.clamp(1 - cos * cos, min=0))
+
+    with dlt_substituted("svd"):
+        inside = np.asarray(dlt(X, x))
+        assert float(sine(inside).median()) < 1e-4 < float(sine(before).median())
+        assert jax_triangulation.triangulate_dlt is _jax_triangulate_svd
+        assert not np.array_equal(np.asarray(tri(uv, uv + 5.0)), tri_before)
+        v = small_linalg.null_vector(A)
+        assert torch.equal(v, torch.linalg.svd(A)[2][..., -1, :])
+    assert (jax_ransac._dlt_projection, jax_triangulation.triangulate_dlt,
+            small_linalg.null_vector) == saved
+    assert np.array_equal(np.asarray(dlt(X, x)), before)
+    assert np.array_equal(np.asarray(tri(uv, uv + 5.0)), tri_before)
+    with dlt_substituted("eigh"):
+        assert small_linalg.null_vector is saved[2]
 
 
 def tally(pipe) -> dict:
@@ -259,8 +377,18 @@ def main(argv=None):
                          "the consistent convention) in place of the room")
     ap.add_argument("--first", type=int, default=0,
                     help="compare from this frame on (the JAX pipeline runs those before)")
+    ap.add_argument("--dlt", choices=("eigh", "svd"), default="eigh",
+                    help="the DLT null vectors of both packages: each one's own eigh of "
+                         "A^T A, or the SVD of A (dlt_substituted)")
     args = ap.parse_args(argv)
     jax.config.update("jax_platforms", "cpu")
+    with dlt_substituted(args.dlt):
+        drive_and_tally(args)
+
+
+def drive_and_tally(args):
+    """The script's comparison from the JAX state and its free runs'
+    tallies (``main``)."""
     if args.cell is not None:
         cam, consistent = CELL, True
         frames = cell_frames(args.cell, args.frames)
@@ -273,6 +401,7 @@ def main(argv=None):
     agree = [i for i, d in steps if not d]
     decided = [i for i, d in steps if not any(x.split(":")[0] in ("status", "reason", "events")
                                                for x in d)]
+    what += f", DLT null vectors: {args.dlt}"
     print(f"{args.frames} {what}: the port from the JAX state decides as it (status, "
           f"trigger, events) on {len(decided)} of {len(steps)} frames, and agrees in every "
           f"number too on {len(agree)}")

@@ -141,6 +141,67 @@ def test_dedup_study_exits_nonzero_past_its_limit_or_on_a_failed_cell(tmp_path):
     assert not v["passed"] and v["failed_cells"] == [[3, 3.0]] and v["over"] == {}
 
 
+def _committed_rows():
+    """``side_by_side``'s rows for the committed 3 px cells read as port cells."""
+    cells = [c for c in _committed_cells() if c["dedup_px"] == 3.0]
+    for c in cells:
+        c["run_dir"] = os.path.join(STUDY, dedup_study.cell_name(c["seed"], 3.0, "cpu"), "run")
+    return dedup_study.side_by_side(cells, STUDY, [3.0])["cells"]
+
+
+@pytest.mark.parametrize("extra_rot, extra_disc, rot_ok, disc_ok", [
+    (0, 0, True, True), (11 * 5, 0, True, True), (11 * 5 + 1, 0, False, True),
+    (0, 14 * 5 + 2, True, True), (0, 14 * 5 + 3, True, False)])
+def test_breakdown_gate_holds_the_means_to_the_jax_cells_worst_seed(extra_rot, extra_disc,
+                                                                     rot_ok, disc_ok):
+    """On the committed JAX cells' breakdowns (Rotation keyframes 1, 1, 1,
+    15, 2: mean 4, worst 15; discarded frames 7, 15, 0, 26, 10: mean 11.6,
+    worst 26) the gate's limits are the worst seeds; a port row whose
+    five-seed mean reaches a limit passes, one past it fails (the extra
+    counts added to seed 2's port breakdowns), and ``passed`` follows both
+    gates."""
+    rows = _committed_rows()
+    port = rows[0]["port_breakdowns"]
+    port["rotation_triggers"] = port["rotation_triggers"] + [[0, 0.1, 0, 0]] * extra_rot
+    port["discarded_frames"] = port["discarded_frames"] + [0] * extra_disc
+    v = dedup_study.breakdown_gate(rows)
+    rot, disc = v["by_dedup"]["3"]["rotation_keyframes"], v["by_dedup"]["3"]["discarded_frames"]
+    assert (rot["limit"], rot["jax_mean"], disc["limit"], disc["jax_mean"]) == (15, 4, 26, 11.6)
+    assert rot["port_mean"] == (4 * 5 + extra_rot) / 5
+    assert disc["port_mean"] == (58 + extra_disc) / 5
+    assert (rot["passed"], disc["passed"], v["passed"]) == (rot_ok, disc_ok, rot_ok and disc_ok)
+    ate = {"passed": True}
+    assert dedup_study.passed({"gate": ate, "breakdown_gate": v}) == (rot_ok and disc_ok)
+    assert not dedup_study.passed({"gate": {"passed": False}, "breakdown_gate": v})
+    assert dedup_study.passed({"gate": ate})             # no --against: the ATE gate alone
+
+
+def test_dedup_study_records_the_breakdown_gate_and_exits_on_it(tmp_path):
+    """With ``--against`` the study records ``breakdown_gate`` in
+    ``dedup_study.json`` and exits with 1 when it fails, the ATE gate
+    passing: the committed cells as the port's pass it, and with seed 3's
+    run swapped for one that discards 80 frames more they do not."""
+    import subprocess
+
+    _copy_cells(tmp_path)
+    cmd = [sys.executable, "-m", "bundle_adjustment_tpu_torch.tools.dedup_study", "--device",
+           "cpu", "--dedup", "3", "--out", str(tmp_path), "--against", STUDY]
+    assert subprocess.run(cmd, cwd=REPO, capture_output=True).returncode == 0
+    rec = json.loads((tmp_path / "dedup_study.json").read_text())
+    assert rec["gate"]["passed"] and rec["breakdown_gate"]["passed"]
+    events = tmp_path / dedup_study.cell_name(3, 3.0, "cpu") / "run" / "events.jsonl"
+    lines = events.read_text().splitlines()
+    extra = [json.dumps({"event": "frame_discarded", "frame_idx": 1000 + i, "t": 0.0})
+             for i in range(80)]
+    events.write_text("\n".join(lines + extra) + "\n")
+    assert len(dedup_study.cell_breakdowns(str(events.parent))["discarded_frames"]) == \
+        15 + 80
+    assert subprocess.run(cmd, cwd=REPO, capture_output=True).returncode == 1
+    rec = json.loads((tmp_path / "dedup_study.json").read_text())
+    assert rec["gate"]["passed"] and not rec["breakdown_gate"]["passed"]
+    assert rec["breakdown_gate"]["by_dedup"]["3"]["discarded_frames"]["port_mean"] == 27.6
+
+
 def test_global_problem_equals_benchs():
     """The sweep's problem: ``synthetic_global_problem`` given the JAX
     sweep's generator gives ``bench.make_global_problem``'s arrays."""
@@ -202,21 +263,24 @@ def test_breakdowns_of_a_committed_jax_log_equal_a_hand_count(cell, want):
 
 
 def test_routes_switch_the_solvers_and_put_them_back():
-    """Each routing of ``stress.ROUTES`` switches what it names inside the
-    block (the CLI's preset, K3's and K4's gates, K3's function, the graph
-    replay, the step's null vectors and SVDs) and puts everything back
-    after it; a switched null vector is still the smallest eigenvalue's."""
+    """Each routing of ``stress.ROUTES`` (and two joined by "+") switches
+    what it names inside the block (the CLI's preset, K3's and K4's gates,
+    K3's function, the graph replay, the step's null vectors and SVDs, at
+    one call site or both, K4's solve under the planted defect) and puts
+    everything back after it; a switched null vector is still the smallest
+    eigenvalue's."""
     from bundle_adjustment_tpu_torch import run as run_mod
     from bundle_adjustment_tpu_torch.models import frontend
     from bundle_adjustment_tpu_torch.ops import ba_global_kernel as gk
-    from bundle_adjustment_tpu_torch.ops import ba_kernel, small_linalg
+    from bundle_adjustment_tpu_torch.ops import ba_kernel, ransac, small_linalg, triangulation
 
     A = torch.tensor(np.random.default_rng(0).normal(size=(3, 4, 4)), dtype=torch.float32)
     want = torch.linalg.svd(A.double())[2][..., -1, :]
     before = (run_mod.PRESETS["lehman_indoor"], ba_kernel.eligible_shape,
               gk.eligible_shape_global, ba_kernel.lm_solve, frontend.TrackStep._replay,
-              small_linalg.null_vector, small_linalg.svd)
-    for name, route in stress.ROUTES.items():
+              small_linalg.null_vector, small_linalg.svd, gk.solve)
+    for name, route in list(stress.ROUTES.items()) + [
+            ("cuSOLVER eigh+K4 setup defect", stress.routing("cuSOLVER eigh+K4 setup defect"))]:
         with stress.routed("lehman_indoor", **route):
             cfg = run_mod.PRESETS["lehman_indoor"]()
             assert cfg.ba.use_pallas_ba == (not route.get("grid_windows", False)), name
@@ -229,16 +293,143 @@ def test_routes_switch_the_solvers_and_put_them_back():
                 route.get("k4_max_slots") is None), name
             assert (ba_kernel.lm_solve is before[3]) == (route.get("k3_plain_past") is None)
             linalg = set(route.get("host_linalg", ())) | set(route.get("linalg64", ()))
+            at = route.get("null_at")
             assert (small_linalg.null_vector is before[5]) == (
-                "eigh" not in linalg and not route.get("null")), name
+                "eigh" not in linalg and not (route.get("null") and not at)), name
             assert (small_linalg.svd is before[6]) == ("svd" not in linalg), name
-            v = small_linalg.null_vector(A)
-            assert v.dtype == A.dtype and v.shape == (3, 4), name
-            assert torch.allclose(torch.abs(torch.sum(v.double() * want, -1)),
-                                  torch.ones(3, dtype=torch.float64), atol=1e-5), name
+            assert (gk.solve is before[7]) == (not route.get("k4_defect")), name
+            sites = dict(pnp=ransac, triangulation=triangulation)
+            for site, mod in sites.items():
+                assert (mod.small_linalg is small_linalg) == (at != site), (name, site)
+                assert mod.small_linalg.svd is small_linalg.svd, (name, site)
+            for null_vector in [small_linalg.null_vector] + [
+                    mod.small_linalg.null_vector for mod in sites.values()]:
+                v = null_vector(A)
+                assert v.dtype == A.dtype and v.shape == (3, 4), name
+                assert torch.allclose(torch.abs(torch.sum(v.double() * want, -1)),
+                                      torch.ones(3, dtype=torch.float64), atol=1e-5), name
         assert (run_mod.PRESETS["lehman_indoor"], ba_kernel.eligible_shape,
                 gk.eligible_shape_global, ba_kernel.lm_solve, frontend.TrackStep._replay,
-                small_linalg.null_vector, small_linalg.svd) == before, name
+                small_linalg.null_vector, small_linalg.svd, gk.solve) == before, name
+        assert ransac.small_linalg is triangulation.small_linalg is small_linalg, name
+
+
+@pytest.mark.parametrize("name, passes", [("as shipped", True), ("K4 setup defect", False)])
+def test_phase_11s_hold_passes_k4_and_catches_the_planted_defect(monkeypatch, name, passes):
+    """``chip_smoke.hold_to_grid`` on a ring of 40 cameras seen 14 times each
+    on the CPU (K4's plain versions, ``torch.cuda``'s calls stubbed), under
+    a routing as ``chip_smoke.py --routes`` runs it: K4 as it ships passes
+    every rule; with the planted defect of ``stress.ROUTES``' "K4 setup
+    defect" (its Huber weights dropped in the setup role) one LM iteration
+    from the start misses the grid solver's, and so does the hold; as
+    ``--routes`` studies it, along K4's path no state of the shipped K4
+    misses, and the converged rule, run though the capped end points hold,
+    finds K4 and the float64 witness converged."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from bundle_adjustment_tpu_torch.config import preset_lehman_indoor
+    from bundle_adjustment_tpu_torch.ops import ba
+    from bundle_adjustment_tpu_torch.ops import ba_global_kernel as gk
+    from bundle_adjustment_tpu_torch.ops.ba_grid import from_flat
+    from bundle_adjustment_tpu_torch.utils.synthetic import synthetic_ring_problem
+
+    for fn in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
+    cfg = preset_lehman_indoor().ba
+    pr = synthetic_ring_problem(0, C=40, P=300, D=14)
+    g = from_flat(ba.BAProblem(**{k: torch.as_tensor(v) for k, v in pr.items()}))
+    skw = dict(max_iterations=20, huber_delta=cfg.huber_delta, lambda_init=cfg.lambda_init,
+               lambda_up=cfg.lambda_up, lambda_down=cfg.lambda_down,
+               lambda_min=cfg.lambda_min, lambda_max=cfg.lambda_max, ftol=cfg.ftol,
+               xtol=cfg.xtol)
+    with stress.routed("lehman_indoor", **stress.routing(name)):
+        st = gk.solve(g, cg_forcing=True, n_fixed=1, cg_iters=cfg.cg_iters, cg_tol=cfg.cg_tol,
+                      **skw)[3]
+        rec = dict(C=40, initial_cost=float(st.initial_cost), final_cost=float(st.final_cost),
+                   iterations=int(st.iterations), stop=ba.STOP_TESTS[int(st.stop)],
+                   seconds=0.0)
+        v = chip_smoke.hold_to_grid(torch, "a", {"finalize": (g, 1, skw, rec)}, cfg)["finalize"]
+        s = chip_smoke.hold_to_grid(torch, "a", {"finalize": (g, 1, skw, rec)}, cfg,
+                                    study=True)["finalize"]
+    assert v["from_start"] == v["passed"] == passes, v
+    assert v["capped_cost"] and v["capped_witness"] and v["converged"] is None, v
+    assert v["path_misses"] is None, v
+    assert {k: s[k] for k in ("from_start", "capped_cost", "capped_witness", "passed")} == \
+        {k: v[k] for k in ("from_start", "capped_cost", "capped_witness", "passed")}, s
+    if passes:
+        assert s["path_misses"] == 0 and s["converged"] is True, s
+
+
+@pytest.mark.parametrize("k4, grid32, grid64, met, limit", [
+    ((100.5, "ftol"), (103.0, "xtol"), (100.0, "ftol"), True, 0.06),
+    ((105.0, "xtol"), (103.0, "xtol"), (100.0, "ftol"), True, 0.06),
+    ((107.0, "xtol"), (103.0, "xtol"), (100.0, "ftol"), False, 0.06),
+    ((95.0, "ftol"), (103.0, "cap"), (100.0, "xtol"), False, 0.01),   # float32 grid at its cap
+    ((100.5, "ftol"), (103.0, "cap"), (100.0, "xtol"), True, 0.01),
+    ((100.0, "ftol"), (100.0, "ftol"), (100.0, "cap"), False, None),  # the witness at its cap
+    ((100.0, "cap"), (100.0, "ftol"), (100.0, "ftol"), False, None),  # K4 at its cap
+    ((100.0, "stuck"), (100.0, "ftol"), (100.0, "ftol"), False, None),
+])
+def test_converged_rule_counts_only_converged_solves(k4, grid32, grid64, met, limit):
+    """``chip_smoke.converged_rule``: K4 within 1 % of the float64 witness or
+    at most twice as far as the float32 grid solver, met only where K4 and
+    the witness stopped by ``ftol`` or ``xtol``; a float32 grid solver that
+    stopped by its cap widens nothing."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    r = chip_smoke.converged_rule(k4, grid32, grid64)
+    assert r["met"] is met, r
+    assert r["limit"] == pytest.approx(limit) if limit is not None else r["limit"] is None, r
+
+
+def test_window_floor_prints_the_jax_tools_keys():
+    """``window_floor`` at two tiny windows on the CPU (K3's plain version):
+    the JAX tool's keys per P and on the verdict line, 4 observations per
+    point, each solve run to its cap (10 and 50 LM iterations)."""
+    from bundle_adjustment_tpu_torch.tools import window_floor
+
+    out = window_floor.main(["--device", "cpu", "--points", "32", "64", "--reps", "1",
+                             "--trials", "1"])
+    assert {"metric", "P_span", "time_ratio", "latency_bound", "note"} <= set(out)
+    assert out["metric"] == "window_kernel_floor" and out["P_span"] == "32->64 (2x points)"
+    assert out["time"] == "host (cpu)" and out["beyond"] is None
+    for row, P in zip(out["rows"], (32, 64)):
+        assert row["P"] == P and row["obs"] == 4 * P and row["lm_iterations"] == [10, 50]
+        assert np.isfinite(row["us_per_lm_iteration"])
+    assert out["latency_bound"] == (out["time_ratio"] < 2.0)
+
+
+def test_fps_bench_prints_the_jax_tools_keys():
+    """``fps_bench`` over 6 frames at 192x144 on the CPU: the JAX tool's
+    keys, the three modes (pipelined, fused, staged) in its order."""
+    from bundle_adjustment_tpu_torch.tools import fps_bench
+
+    out = fps_bench.main(["--device", "cpu", "--frames", "6", "--warmup", "2", "--size",
+                          "192x144", "--features", "150"])
+    assert set(out) == {"metric", "pipelined_fps", "fused_fps", "staged_fps",
+                        "pipelined_tracked_ms", "fused_tracked_ms", "staged_tracked_ms",
+                        "pp_overlap_speedup", "tracked_speedup", "tracked_frames",
+                        "keyframes", "frames", "backend", "device"}
+    assert out["metric"] == "frontend_fps" and out["frames"] == 6 and out["backend"] == "cpu"
+    assert all(out[k] > 0 for k in ("pipelined_fps", "fused_fps", "staged_fps"))
+    assert len(out["tracked_frames"]) == len(out["keyframes"]) == 3
+    assert all(k >= 1 for k in out["keyframes"])
+
+
+def test_fps_bench_first_run_probe_with_prewarm():
+    """``fps_bench --first-run-probe --prewarm`` on the CPU: one pipelined
+    pass after an unmeasured one over another sequence, the JAX tool's
+    keys."""
+    from bundle_adjustment_tpu_torch.tools import fps_bench
+
+    out = fps_bench.main(["--device", "cpu", "--frames", "5", "--warmup", "2", "--size",
+                          "192x144", "--features", "150", "--first-run-probe", "--prewarm"])
+    assert set(out) == {"metric", "first_run_fps", "tracked_ms", "tracked_frames",
+                        "keyframes", "prewarm_s", "frames", "backend", "device"}
+    assert out["metric"] == "first_run_fps" and out["first_run_fps"] > 0
+    assert out["prewarm_s"] > 0 and out["keyframes"] >= 1
 
 
 def test_profile_orb_splits_every_stage_of_the_step():
