@@ -355,6 +355,21 @@ def _reproj_err_norm(R, t, X, x):
     return torch.where(bad, torch.full_like(err, 1e12), err)
 
 
+def _hypotheses(u, X, uv, valid, K, reproj_threshold_px: float, num_hyp: int):
+    """The draw and score stage of ``estimate_pnp_pose``, before the
+    winner's polish: the normalised image points x, the squared threshold
+    in normalised coordinates, and per hypothesis its six sample indices
+    (num_hyp, 6), its pose (Rs, ts) from the DLT and its inlier count."""
+    Kf = K.to(uv.dtype)
+    x = pixel_to_normalized(Kf, uv)
+    f = (Kf[0, 0] + Kf[1, 1]) * 0.5
+    thr_norm_sq = (reproj_threshold_px / f) ** 2
+    idx = _sample_indices(u, valid, num_hyp, 6)
+    Rs, ts = _pose_from_projection(_dlt_projection(X[idx], x[idx]))
+    counts = torch.sum((_reproj_err_norm(Rs, ts, X, x) < thr_norm_sq) & valid, dim=-1)
+    return x, thr_norm_sq, idx, Rs, ts, counts
+
+
 def estimate_pnp_pose(
     u: torch.Tensor,
     X: torch.Tensor,
@@ -367,15 +382,9 @@ def estimate_pnp_pose(
 ) -> PoseResult:
     """PnP RANSAC (world -> camera) from 3D-2D correspondences.  ``u``:
     uniforms of shape ``pnp_draw_shape(num_hyp)``."""
-    Kf = K.to(uv.dtype)
-    x = pixel_to_normalized(Kf, uv)
-    f = (Kf[0, 0] + Kf[1, 1]) * 0.5
-    thr_norm_sq = (reproj_threshold_px / f) ** 2
+    x, thr_norm_sq, _, Rs, ts, counts = _hypotheses(u, X, uv, valid, K, reproj_threshold_px,
+                                                    num_hyp)
     dt = x.dtype
-
-    idx = _sample_indices(u, valid, num_hyp, 6)
-    Rs, ts = _pose_from_projection(_dlt_projection(X[idx], x[idx]))
-    counts = torch.sum((_reproj_err_norm(Rs, ts, X, x) < thr_norm_sq) & valid, dim=-1)
     best = torch.argmax(counts)
     R, t = _take(Rs, best), _take(ts, best)
     eye6 = torch.eye(6, dtype=dt, device=x.device)

@@ -266,6 +266,34 @@ def breakdowns(events: list) -> dict:
     }
 
 
+def tally(events: list, keyframes: int) -> dict:
+    """A drive's decisions from its events, in the form that both packages'
+    event logs give: the keyframes, the statuses, the keyframe triggers by
+    reason and the "Rotation" ones, the discarded frames (``frame_discarded``
+    events, as ``breakdowns`` counts them: a frame whose relocalization then
+    succeeds counts too) by ``why`` and the first of them, relocalizations
+    (successes/attempts) and failed ones, ``loop_reject`` stages and
+    closures."""
+    def count(event, key):
+        out = {}
+        for e in events:
+            if e["event"] == event:
+                out[e[key]] = out.get(e[key], 0) + 1
+        return out
+
+    relocs = [e for e in events if e["event"] == "relocalization"]
+    discarded = [e["frame_idx"] for e in events if e["event"] == "frame_discarded"]
+    triggers = count("keyframe_trigger", "reason")
+    return dict(keyframes=keyframes, statuses=count("frame_timing", "status"),
+                triggers=triggers, rotation=triggers.get("Rotation", 0),
+                discarded=len(discarded), discarded_why=count("frame_discarded", "why"),
+                first_discarded=discarded[0] if discarded else None,
+                relocalizations=f"{sum(bool(e['success']) for e in relocs)}/{len(relocs)}",
+                reloc_fail=sum(not e["success"] for e in relocs),
+                loop_reject=count("loop_reject", "stage"),
+                closures=sum(e["event"] == "loop_closure" for e in events))
+
+
 @contextlib.contextmanager
 def hold_windows(out_dir: str):
     """Every window K3 takes inside the block solved once more through the

@@ -239,6 +239,18 @@ routing (printed, not raised), and per seed of the cells the ATE and the
 breakdowns beside the JAX cells', and the five-seed mean.  About four
 minutes per routing and drive on one H100.
 
+``--pnp-study [--pnp-out FILE]`` only drives phase 11's
+run (a): once with every PnP recorded under the shipped SVD of A (the fused
+step run eagerly, so that its PnP can be read) and once under LAPACK's eigh
+(``tools/pnp_study``); prints where the two drives part, the samples' facts
+of every PnP (repeated points, sigma_11 / sigma_12 of A), and saves the
+fused step's PnP of the first discarded tracked frames and the first failed
+and successful relocalizations from the first parting frame on (under 1 MB;
+``tests/data/torch_run_a_pnp.npz``); then drives (a) at each draw seed
+under both (``PNP_SEEDS``, or 0 to N-1 with ``--pnp-seeds N``), each tally
+and the spread printed.  About ten minutes with four seeds (an "as
+shipped" drive about 21 s, a "CPU eigh" one about 80 s).
+
 The line before the last is the kernels' JSON record (``launches``: the
 main path's, phase 6, for K1 to K3 and the global path's, phase 9, for K4;
 ``launches_lehman_indoor``: phase 11's run (a); ``launches_parallel``: rank
@@ -263,6 +275,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -3461,6 +3474,211 @@ def routes_study(torch, np, names, drives) -> int:
     return 0
 
 
+#: ``--pnp-study``: the routings (``tools/stress.ROUTES``) whose PnP
+#: problems are recorded on run (a): the shipped SVD of A with the fused
+#: step run eagerly, so that its PnP can be read (a replay cannot be), and
+#: LAPACK's eigh of A^T A, the JAX package's CPU function; the routings of
+#: the draw-seed drives; the draw seeds (0 is the shipped drive's); of each
+#: recorded drive, from the first frame where the two part, the fused step's
+#: PnP of so many discarded tracked frames and so many failed and
+#: successful relocalizations kept; the file's size limit
+PNP_RECORDED = {"svd": "eager step", "eigh": "CPU eigh"}
+PNP_SEED_ROUTES = ("as shipped", "CPU eigh")
+PNP_SEEDS = (0, 1, 2, 3)
+PNP_KEEP = dict(step=4, reloc_failed=4, reloc_succeeded=4)
+PNP_MAX_BYTES = 1 << 20
+
+
+def pnp_drive(torch, np, argv: list, gt_C, out: str, routing: str, seed: int = 0,
+              records: list = None) -> tuple:
+    """Run (a) through the CLI under ``routing`` with the pipeline's draws
+    from ``seed`` (``models/pipeline.Draws``), its PnP problems appended to
+    ``records`` when given (``tools/pnp_study.recording``).  Returns its
+    tally (ATE over the keyframes' ground-truth extent and
+    ``stress.tally``), each frame's (status, keyframe trigger) and the
+    frames with a ``frame_discarded`` event."""
+    from bundle_adjustment_tpu_torch.models import pipeline as pipeline_mod
+    from bundle_adjustment_tpu_torch.tools import pnp_study, stress
+    from bundle_adjustment_tpu_torch.utils.metrics import ate_rmse
+
+    draws = pipeline_mod.Draws
+    pipeline_mod.Draws = lambda _seed=0, device="cuda": draws(seed, device)
+    try:
+        with stress.routed("lehman_indoor", **stress.routing(routing)), \
+                (pnp_study.recording(records) if records is not None
+                 else contextlib.nullcontext()):
+            a = run_cli(torch, argv + ["--out", out])
+    finally:
+        pipeline_mod.Draws = draws
+    pipe = a["pipe"]
+    ev = pipe.log.events
+    ids = pipe.map.sorted_kf_ids()
+    gt = np.stack([gt_C[pipe.map.keyframes[k].frame_idx] for k in ids])
+    ate = ate_rmse(pipe.map.trajectory(False), gt, with_scale=True)
+    extent = float(np.linalg.norm(gt.max(0) - gt.min(0)))
+    decisions = {e["frame_idx"]: [e["status"], None] for e in ev if e["event"] == "frame_timing"}
+    for e in ev:
+        if e["event"] == "keyframe_trigger":
+            decisions[e["frame_idx"]][1] = e["reason"]
+    tally = dict(ate_pct=round(100 * ate / extent, 3), **stress.tally(ev, len(ids)))
+    discarded = {e["frame_idx"] for e in ev if e["event"] == "frame_discarded"}
+    return tally, {f: tuple(d) for f, d in decisions.items()}, discarded
+
+
+def pnp_keep(records: list, decisions: dict, discarded: set, first: int, gate: int) -> list:
+    """Of one recorded drive's PnP problems, from frame ``first`` on: the
+    fused step's at ``first`` and at the first discarded tracked frames
+    after it, and the first failed and the first successful
+    relocalizations (``num_inliers`` above ``gate``), ``PNP_KEEP`` of
+    each.  The step's last record of a frame is the one the frame used (a
+    speculative step that the map made stale is issued again)."""
+    step = {}
+    for r in records:
+        if r["kind"] == "step" and r["frame"] >= first and r["frame"] in decisions:
+            step[r["frame"]] = r
+    frames = [first] + [f for f in sorted(discarded) if f > first and f in step]
+    kept = [step[f] for f in frames[:PNP_KEEP["step"] + 1] if f in step]
+    for ok, key in ((False, "reloc_failed"), (True, "reloc_succeeded")):
+        kept += [r for r in records if r["kind"] == "reloc" and r["frame"] >= first
+                 and (r["ok"] and r["num_inliers"] > gate) == ok][:PNP_KEEP[key]]
+    return kept
+
+
+def pnp_facts(np, records: list) -> dict:
+    """Over ``records``: PnP problems, hypotheses, samples that repeat a
+    point, samples whose A has a null space of two or more dimensions
+    (sigma_11 / sigma_12 below ``pnp_study.DEGENERATE_RATIO``), winners
+    (the first hypothesis of the most inliers) that are either, and the
+    ratio's quartiles."""
+    from bundle_adjustment_tpu_torch.tools import pnp_study
+
+    out = dict(problems=len(records), samples=0, repeats=0, multi_dim=0, winners_degenerate=0)
+    ratios = []
+    for r in records:
+        rep, ratio = pnp_study.sample_facts(r["X"], r["uv"], r["K"], r["idx"])
+        win = int(np.argmax(r["counts"]))
+        out["samples"] += len(rep)
+        out["repeats"] += int(rep.sum())
+        out["multi_dim"] += int((ratio < pnp_study.DEGENERATE_RATIO).sum())
+        out["winners_degenerate"] += int(pnp_study.degenerate(rep[win], ratio[win]))
+        ratios.append(ratio)
+    if ratios:
+        q = np.percentile(np.concatenate(ratios), [25, 50, 75])
+        out["ratio_quartiles"] = [float(f"{v:.4g}") for v in q]
+    return out
+
+
+def pnp_study_run(torch, np, seeds, out_path: str) -> int:
+    """``--pnp-study``: run (a) under the shipped SVD of A and under
+    LAPACK's eigh (``PNP_RECORDED``) with every PnP recorded; the first
+    frames where the two drives part; the PnP problems ``pnp_keep`` picks
+    from there, each printed with its samples' facts (``pnp_study.
+    sample_facts``: repeats, sigma_11 / sigma_12 of A, the winner's) and
+    saved to ``out_path`` (``pnp_study.save``, kept under
+    ``PNP_MAX_BYTES``); the facts over every PnP of each drive by kind;
+    then run (a) under ``PNP_SEED_ROUTES`` at each draw seed of ``seeds``,
+    each tally printed, and the spread per routing.  A study, not a gate:
+    it fails only where a run fails."""
+    from bundle_adjustment_tpu_torch import device as device_mod
+    from bundle_adjustment_tpu_torch import kernels
+    from bundle_adjustment_tpu_torch.config import CAMERA_LEHMAN, preset_lehman_indoor
+    from bundle_adjustment_tpu_torch.tools import pnp_study
+    from bundle_adjustment_tpu_torch.utils.synthetic import synthetic_sequence
+
+    card = nvidia_smi_line()
+    print(card, flush=True)
+    device_mod.set_float32_numerics()
+    kernels.build_all()
+    work = tempfile.mkdtemp(prefix="chip_smoke_pnp_")
+    W, H = 1280, 720
+    frames, K, gt_C, _ = synthetic_sequence(
+        n_frames=LEHMAN_FRAMES, width=W, height=H, fx=CAMERA_LEHMAN.fx, seed=LEHMAN_SEED,
+        motion="room", device="cuda")
+    folder = os.path.join(work, "room_a")
+    write_pngs(folder, frames[:LEHMAN_A_FRAMES])
+    del frames
+    argv = cli_args(folder, K, W, H, preset="lehman_indoor")
+    gate = preset_lehman_indoor().pose_inlier_numbers
+
+    recorded = {}
+    for key, routing in PNP_RECORDED.items():
+        t0 = time.perf_counter()
+        records = []
+        tally, dec, disc = pnp_drive(torch, np, argv, gt_C, os.path.join(work, f"rec_{key}"),
+                                     routing, records=records)
+        recorded[key] = (records, tally, dec, disc)
+        print(f"== recorded, {routing!r} ({key}): {json.dumps(tally)}; {len(records)} PnPs; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    (rs, _, ds, _), (re_, _, de, _) = recorded["svd"], recorded["eigh"]
+    parted = [f for f in sorted(set(ds) | set(de)) if ds.get(f) != de.get(f)]
+    print(f"pnp study: the drives part at {len(parted)} of {len(set(ds) | set(de))} frames; "
+          "the first (frame: SVD's, eigh's status and trigger): "
+          + "; ".join(f"{f}: {ds.get(f)}, {de.get(f)}" for f in parted[:8]), flush=True)
+    facts = {key: {kind: pnp_facts(np, [r for r in recs if r["kind"] == kind])
+                   for kind in pnp_study.KINDS}
+             for key, (recs, *_rest) in recorded.items()}
+    print("pnp study, every PnP of the recorded drives: " + json.dumps(facts), flush=True)
+    # before the second keyframe triangulates, the step's PnP has no valid
+    # row (every sample one slot six times, ROADMAP Queue 3 record 21):
+    # the problems are kept from the first parting frame where both
+    # drives' steps have six valid rows
+    def step_n(recs, f):
+        return max([r["n"] for r in recs if r["kind"] == "step" and r["frame"] == f],
+                   default=0)
+
+    posed = [f for f in parted if min(step_n(rs, f), step_n(re_, f)) >= 6]
+    first = posed[0] if posed else (parted[0] if parted else None)
+    print(f"pnp study: the first parting frame {parted[0] if parted else None}, the first "
+          f"with six valid rows in both steps {first}", flush=True)
+    kept = [dict(r, routing=key) for key, (recs, _, dec, disc) in recorded.items()
+            for r in pnp_keep(recs, dec, disc, first, gate)] if parted else []
+    low = pnp_study.DEGENERATE_RATIO
+    for r in kept:
+        rep, ratio = pnp_study.sample_facts(r["X"], r["uv"], r["K"], r["idx"])
+        win = int(np.argmax(r["counts"]))
+        print(f"   {r['routing']} {r['kind']} frame {r['frame']}: n {r['n']}, ok {r['ok']}, "
+              f"inliers {r['num_inliers']} (most of a hypothesis {int(r['counts'].max())}), "
+              f"samples repeating a point {int(rep.sum())} of {len(rep)}, sigma_11/sigma_12 "
+              f"below {low:g} {int((ratio < low).sum())} (median {float(np.median(ratio)):.4g}); "
+              f"the winner {win}: repeats {bool(rep[win])}, ratio {float(ratio[win]):.4g}",
+              flush=True)
+    while kept:
+        pnp_study.save(out_path, kept, card=card, pose_inlier_numbers=gate,
+                       pnp_scale_min_tracked=preset_lehman_indoor().pnp_scale_min_tracked,
+                       first_parting_frame=parted[0], first_posed_parting_frame=first)
+        if os.path.getsize(out_path) <= PNP_MAX_BYTES:
+            break
+        kept.remove(max(kept, key=lambda r: len(r["X"])))
+    if kept:
+        print(f"pnp study: {len(kept)} problems saved to {out_path} "
+              f"({os.path.getsize(out_path)} bytes)", flush=True)
+    del recorded, rs, re_
+    gc.collect()
+
+    seed_rows = {}
+    for seed in seeds:
+        for routing in PNP_SEED_ROUTES:
+            t0 = time.perf_counter()
+            tag = routing.replace(" ", "_")
+            tally, _, _ = pnp_drive(torch, np, argv, gt_C,
+                                    os.path.join(work, f"seed{seed}_{tag}"), routing, seed)
+            seed_rows.setdefault(routing, []).append(dict(seed=seed, **tally))
+            print(f"== draw seed {seed}, {routing!r}: {json.dumps(tally)}; "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for routing, rows in seed_rows.items():
+        spread = {k: [min(r[k] for r in rows), statistics.mean(r[k] for r in rows),
+                      statistics.stdev(r[k] for r in rows) if len(rows) > 1 else 0.0,
+                      max(r[k] for r in rows)]
+                  for k in ("keyframes", "discarded", "rotation", "reloc_fail", "ate_pct")}
+        print(f"pnp study, {routing!r} over draw seeds {list(seeds)} (min, mean, standard "
+              f"deviation, max): "
+              + json.dumps(spread), flush=True)
+    print("pnp study: " + json.dumps(dict(card=card, seeds=seed_rows, facts=facts,
+                                          parted=parted[:20])), flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    return 0
+
+
 def main() -> int:
     script_t0 = time.perf_counter()
     phase_marks = []       # (phase, its start on the host clock)
@@ -3488,6 +3706,16 @@ def main() -> int:
                     help="only drive phase 11's run (a2) and the JAX stress cells under these "
                          "routings of the solvers and the frontend (routes_study; "
                          "tools/stress.ROUTES) and exit")
+    ap.add_argument("--pnp-study", action="store_true",
+                    help="only run (a) with its PnP problems recorded under the shipped SVD "
+                         "of A and LAPACK's eigh, save those of the first frames where the two "
+                         "part to --pnp-out, then run (a) at each draw seed of --pnp-seeds "
+                         "under both (pnp_study_run) and exit")
+    ap.add_argument("--pnp-seeds", type=int, default=len(PNP_SEEDS), metavar="N",
+                    help="with --pnp-study: run (a) at draw seeds 0 to N-1 (default: "
+                         "PNP_SEEDS)")
+    ap.add_argument("--pnp-out", default=os.path.join("build", "torch_run_a_pnp.npz"),
+                    help="with --pnp-study: the file of the saved PnP problems")
     ap.add_argument("--route-drives", nargs="+", default=["a2", "cells"],
                     choices=["a", "a2", "cells"],
                     help="with --routes: the drives to run under each routing (phase 11's "
@@ -3514,6 +3742,9 @@ def main() -> int:
                      main_path=main_path_times(torch, args.frames, args.seed))
         print(json.dumps(dict(tree=tree, card=nvidia_smi_line(), **times)))
         return 0
+    if args.pnp_study:
+        os.makedirs(os.path.dirname(os.path.abspath(args.pnp_out)), exist_ok=True)
+        return pnp_study_run(torch, np, range(args.pnp_seeds), args.pnp_out)
     if args.routes:
         from bundle_adjustment_tpu_torch.tools.stress import routing
 

@@ -17,7 +17,7 @@ float within 1e-3 + 1e-2 of the JAX value relatively (a rotation angle of
 a few milliradians from an arccos carries float32 rounding of a few
 percent; a BA cost carries the order of float32 sums).
 
-The test runs frames 0-12 of a 600-frame loop at 320x240 with 500
+The first test runs frames 0-12 of a 600-frame loop at 320x240 with 500
 features, ``preset_lehman_indoor`` otherwise as it ships: the reference
 pose convention, relocalization, culling and loop closure on.  Run as a
 script, the same comparison covers a longer drive under either pose
@@ -51,6 +51,25 @@ each package decides under an accurate DLT:
 
     JAX_PLATFORMS=cpu python tests/test_torch_room_drive.py --frames 150 \
         --convention reference --dlt svd
+
+``--camera lehman`` takes run (a)'s own camera in place of the 320x240
+room: ``chip_smoke.py`` phase 11's 1280x720 frames of seed 2's room (the
+first 150 of its 600-frame loop) with CAMERA_LEHMAN's fx (fy = fx, the
+principal point at the image centre, as ``synthetic_sequence`` builds K)
+and 4000 features.  ``--run jax`` or ``--run port`` runs one package's
+free run alone (several can run at once on a CPU of several cores),
+``--run compare`` the comparison alone (its JAX pipeline is that
+package's free run); each tally gives keyframes, triggers, discarded
+frames by ``why``, relocalizations and the first discarded frame
+(``tools/stress.tally``).  ``--seed S`` gives both packages draw seed S
+(``jax_pipeline``), ``--pyramid jax`` the port's ORB pyramid levels from the
+JAX package's resize (``jax_pyramid``: at this size the one ORB layer where
+the two part; ``test_at_run_a_size_the_two_orbs_part_only_by_the_pyramid``
+holds that on frame 1), and ``--pnp-at F ...`` holds each relocalization
+PnP of those compared frames to the JAX package's (``held_pnp_lines``):
+
+    JAX_PLATFORMS=cpu python tests/test_torch_room_drive.py --camera lehman \
+        --frames 150 --dlt svd --run compare --threads 2
 """
 
 import argparse
@@ -82,39 +101,51 @@ torch.set_num_threads(1)
 W, H, LOOP = 320, 240, 600
 FX = 912.7816 * W / 1280          # CAMERA_LEHMAN's focal length at this width
 TIME_KEYS = {"t", "total_ms", "elapsed_s", "wall_ms", "ms"}
-#: the room at 320x240 with 500 features, as the tests run it; a JAX stress
-#: cell's camera as ``tools/stress`` drives it (its render's defaults)
+#: the room at 320x240 with 500 features, as the tests run it; the room at
+#: the preset's own 1280x720 with CAMERA_LEHMAN's fx (fy = fx, the centre
+#: at the image's, as ``synthetic_sequence`` builds K) and 4000 features,
+#: as ``chip_smoke.py`` phase 11 drives run (a); a JAX stress cell's camera
+#: as ``tools/stress`` drives it (its render's defaults)
 ROOM = dict(width=W, height=H, fx=FX, features=500)
+LEHMAN = dict(width=1280, height=720, fx=912.7816, features=4000)
 CELL = dict(width=640, height=480, fx=450.0, features=1500)
+CAMERAS = dict(room=ROOM, lehman=LEHMAN)
 STUDY = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                      ".dedup_study")
 #: frame -> the JAX map's points before it, of the last ``step_drive``
 MAP_POINTS: dict = {}
+#: frame -> (the port's PnP records, the JAX package's) at the frames of
+#: ``step_drive``'s ``pnp_at``
+PNP_HELD: dict = {}
 
 
 class JaxDraws:
     """The JAX pipeline's key schedule from ``key`` on, as the port's
-    ``draws``: split once per sequential RANSAC call, fold_in(PRNGKey(1),
-    frame) for the fused step."""
+    ``draws``: split once per sequential RANSAC call, fold_in(``dispatch``,
+    frame) for the fused step (the JAX pipeline's ``_key`` and
+    ``_dispatch_key``, PRNGKey(0) and PRNGKey(1) as it starts)."""
 
-    def __init__(self, key):
+    def __init__(self, key, dispatch=None):
         self._key = key
+        self._dispatch = jax.random.PRNGKey(1) if dispatch is None else dispatch
 
     def next(self, shape):
         self._key, k = jax.random.split(self._key)
         return torch.as_tensor(np.array(jax.random.uniform(k, shape)))
 
     def for_frame(self, frame_idx, shape, out=None):
-        k = jax.random.fold_in(jax.random.PRNGKey(1), frame_idx)
+        k = jax.random.fold_in(self._dispatch, frame_idx)
         u = torch.as_tensor(np.array(jax.random.uniform(k, shape)))
         return u if out is None else out.copy_(u)
 
 
-def room_frames(n: int):
-    """Frames 0..n-1 of a ``LOOP``-frame loop of the room at W x H."""
-    K = np.array([[FX, 0, W / 2], [0, FX, H / 2], [0, 0, 1.0]])
+def room_frames(n: int, cam: dict = ROOM):
+    """Frames 0..n-1 of a ``LOOP``-frame loop of seed 2's room at ``cam``'s
+    size and focal length."""
+    w, h, fx = cam["width"], cam["height"], cam["fx"]
+    K = np.array([[fx, 0, w / 2], [0, fx, h / 2], [0, 0, 1.0]])
     planes = synthetic._room_planes(np.random.default_rng(2))
-    return [synthetic.render_frame(K, *synthetic.room_pose(i, LOOP)[:2], planes, W, H,
+    return [synthetic.render_frame(K, *synthetic.room_pose(i, LOOP)[:2], planes, w, h,
                                    depth_sort=True) for i in range(n)]
 
 
@@ -137,7 +168,7 @@ def config(mod, consistent: bool, cam: dict = ROOM):
 def port_from(jp, consistent: bool, cam: dict = ROOM):
     """A port pipeline holding a copy of the JAX pipeline ``jp``'s state."""
     tp = VisualOdometryPipeline(config(tcfg, consistent, cam), log=EventLog(echo=False),
-                                device="cpu", draws=JaxDraws(jp._key))
+                                device="cpu", draws=JaxDraws(jp._key, jp._dispatch_key))
     tp.map = convert.map_store(jp.map, device="cpu")
     tp.map.log = tp.log
     tp.frame_idx, tp._lost_frames = jp.frame_idx, jp._lost_frames
@@ -173,12 +204,78 @@ def differences(jres, jevents, tres, tevents) -> list:
     return out
 
 
-def step_drive(frames, consistent: bool, cam: dict = ROOM, first: int = 0):
-    """The JAX pipeline over ``frames``; before each from ``first`` on, the
-    port from its state.  Returns (JAX pipeline, [(frame, differences)]);
-    ``MAP_POINTS`` gets the JAX map's points before each compared frame."""
+def jax_pipeline(consistent: bool, cam: dict = ROOM, seed: int = 0):
+    """The JAX pipeline of the comparison, its Hamming matcher the Pallas
+    kernel's XLA twin (``use_pallas_matcher=False``), which needs no
+    interpret mode on the CPU.  Draw seed ``seed`` starts its keys at
+    PRNGKey(2 seed) (sequential RANSAC) and PRNGKey(2 seed + 1) (the fused
+    step): seed 0 is the package's own schedule."""
     jp = JaxPipeline(config(jcfg, consistent, cam), log=JaxEventLog(echo=False),
                      use_pallas_matcher=False)
+    jp._key, jp._dispatch_key = jax.random.PRNGKey(2 * seed), jax.random.PRNGKey(2 * seed + 1)
+    return jp
+
+
+def jax_pnp_counts(idx, X, uv, valid, K, thr_px):
+    """Per hypothesis of the (H, 6) sample indices ``idx`` the JAX
+    package's inlier count, as its ``estimate_pnp_pose`` scores them before
+    the polish (its ``_dlt_projection``, ``_pose_from_projection`` and
+    ``_reproj_err_norm``)."""
+    import jax.numpy as jnp
+
+    from bundle_adjustment_tpu.ops import ransac as jax_ransac
+    from bundle_adjustment_tpu.ops.projection import pixel_to_normalized
+
+    x = pixel_to_normalized(K, uv)
+    thr = (thr_px / ((K[0, 0] + K[1, 1]) * 0.5)) ** 2
+    Rs, ts = jax.vmap(lambda i: jax_ransac._pose_from_projection(
+        jax_ransac._dlt_projection(X[i], x[i])))(idx)
+    return jax.vmap(lambda R, t: jnp.sum((jax_ransac._reproj_err_norm(R, t, X, x) < thr)
+                                         & valid))(Rs, ts)
+
+
+@contextlib.contextmanager
+def jax_pnp_recorded(records: list):
+    """The JAX package's ``ransac.estimate_pnp_pose`` wrapped in this
+    process for the block: each call made outside a trace (relocalization's
+    and loop closure's; the fused step's runs inside its jitted step and
+    is not seen) appended to ``records`` with its valid rows, K, the sample
+    indices its key draws, its per-hypothesis counts (``jax_pnp_counts``)
+    and its ``ok`` and inlier count; then put back."""
+    from bundle_adjustment_tpu.ops import ransac as jax_ransac
+
+    orig = jax_ransac.estimate_pnp_pose
+
+    def call(key, X, uv, valid, K, reproj_threshold_px=8.0, num_hyp=128, polish_iters=5):
+        res = orig(key, X, uv, valid, K, reproj_threshold_px=reproj_threshold_px,
+                   num_hyp=num_hyp, polish_iters=polish_iters)
+        if not isinstance(X, jax.core.Tracer):
+            idx = jax_ransac._sample_indices(key, valid, num_hyp, 6)
+            n = int(np.sum(valid))
+            records.append(dict(
+                X=np.asarray(X)[:n], uv=np.asarray(uv)[:n], n=n, K=np.asarray(K),
+                idx=np.asarray(idx), ok=bool(res.ok), num_inliers=int(res.num_inliers),
+                counts=np.asarray(jax.jit(jax_pnp_counts, static_argnames=("thr_px",))(
+                    idx, X, uv, valid, K, thr_px=float(reproj_threshold_px)))))
+        return res
+
+    jax_ransac.estimate_pnp_pose = call
+    try:
+        yield records
+    finally:
+        jax_ransac.estimate_pnp_pose = orig
+
+
+def step_drive(frames, consistent: bool, cam: dict = ROOM, first: int = 0, pnp_at=(),
+               seed: int = 0):
+    """The JAX pipeline over ``frames``; before each from ``first`` on, the
+    port from its state.  Returns (JAX pipeline, [(frame, differences)]);
+    ``MAP_POINTS`` gets the JAX map's points before each compared frame, and
+    ``PNP_HELD`` both packages' relocalization and loop-closure PnPs on each
+    frame of ``pnp_at`` (``pnp_study.recording``, ``jax_pnp_recorded``)."""
+    from bundle_adjustment_tpu_torch.tools import pnp_study
+
+    jp = jax_pipeline(consistent, cam, seed)
     steps = []
     for i, f in enumerate(frames):
         if i < first:
@@ -187,10 +284,55 @@ def step_drive(frames, consistent: bool, cam: dict = ROOM, first: int = 0):
         tp = port_from(jp, consistent, cam)
         MAP_POINTS[i] = jp.map.num_points
         n0 = len(jp.log.events)
-        jres = jp.process_frame(f)
-        tres = tp.process_frame(f)
+        held = ([], []) if i in pnp_at else None
+        with (jax_pnp_recorded(held[1]) if held else contextlib.nullcontext()):
+            jres = jp.process_frame(f)
+        with (pnp_study.recording(held[0]) if held else contextlib.nullcontext()):
+            tres = tp.process_frame(f)
+        if held:
+            PNP_HELD[i] = ([r for r in held[0] if r["kind"] != "step"], held[1])
         steps.append((i, differences(jres, jp.log.events[n0:], tres, tp.log.events)))
     return jp, steps
+
+
+def held_pnp_lines(frame: int) -> list:
+    """One line per PnP of ``PNP_HELD[frame]``: the port's and the JAX
+    package's valid rows (equal, or their largest difference), the samples
+    (equal?), the samples that repeat a point or whose A has a null space of
+    two or more dimensions (``pnp_study``), the sound samples whose counts
+    differ, each package's winner and whether it is degenerate, the
+    polished inlier counts, and per sound sample scored apart both counts,
+    the float64 hypothesis' (``pnp_study.float64_counts``) and A's
+    sigma_11 / sigma_12 and sigma_1 / sigma_12."""
+    from bundle_adjustment_tpu_torch.tools import pnp_study
+
+    port, jx = PNP_HELD[frame]
+    out = [] if len(port) == len(jx) else [
+        f"frame {frame}: the port made {len(port)} PnPs outside its step, JAX {len(jx)}"]
+    for t, j in zip(port, jx):
+        same_rows = t["n"] == j["n"]
+        diff = (max(float(np.abs(t["X"][:t["n"]] - j["X"]).max(initial=0)),
+                    float(np.abs(t["uv"][:t["n"]] - j["uv"]).max(initial=0)))
+                if same_rows else None)
+        rep, ratio = pnp_study.sample_facts(t["X"], t["uv"], t["K"], t["idx"])
+        deg = pnp_study.degenerate(rep, ratio)
+        wt, wj = int(np.argmax(t["counts"])), int(np.argmax(j["counts"]))
+        apart = np.flatnonzero((t["counts"] != j["counts"]) & ~deg)
+        s = torch.linalg.svdvals(pnp_study.dlt_systems(t["X"], t["uv"], t["K"], t["idx"][apart]))
+        c64 = pnp_study.float64_counts(t["X"], t["uv"], t["K"], t["idx"][apart], t["n"])
+        detail = [f"sample {h}: port {int(t['counts'][h])}, JAX {int(j['counts'][h])}, "
+                  f"float64 {int(c)}, sigma_11/sigma_12 {float(ratio[h]):.4g}, sigma_1/sigma_12 "
+                  f"{float(sv[0] / sv[-1]):.4g}" for h, c, sv in zip(apart, c64, s)]
+        out.append(
+            f"frame {frame} {t['kind']}: valid rows port {t['n']}, JAX {j['n']} (largest "
+            f"difference {diff}); samples equal {np.array_equal(t['idx'], j['idx'])}; "
+            f"degenerate {int(deg.sum())} of {len(deg)} (repeating a point {int(rep.sum())}); "
+            f"sound samples scored apart {int((t['counts'] != j['counts'])[~deg].sum())}; "
+            f"winner port {wt} ({'degenerate' if deg[wt] else 'sound'}, "
+            f"{int(t['counts'][wt])}), JAX {wj} ({'degenerate' if deg[wj] else 'sound'}, "
+            f"{int(j['counts'][wj])}); inliers port {t['num_inliers']}, JAX {j['num_inliers']}"
+            + "".join(f"; {d}" for d in detail))
+    return out
 
 
 def test_each_frame_from_the_jax_state_reference_convention():
@@ -244,6 +386,71 @@ def test_each_frame_from_the_jax_state_on_a_stress_cell():
            for e in jp.log.events
            if e["event"] == "keyframe_trigger" and e["reason"] == "Rotation"]
     assert rot == [(12, 3.142, 0)]
+
+
+def keypoint_sets(jkp, tkp):
+    """The two packages' valid keypoints (x, y to 1e-3 px, pyramid level)
+    of one frame: (the common ones as (JAX slot, port slot) pairs, the
+    count only in JAX's set, the count only in the port's)."""
+    def keyed(xy, level, valid):
+        return {(round(float(x), 3), round(float(y), 3), int(lv)): i
+                for i, ((x, y), lv, v) in enumerate(zip(xy, level, valid)) if v}
+
+    j = keyed(np.asarray(jkp.xy), np.asarray(jkp.level), np.asarray(jkp.valid))
+    t = keyed(tkp.xy.numpy(), tkp.level.numpy(), tkp.valid.numpy())
+    return [(j[k], t[k]) for k in j.keys() & t.keys()], len(j.keys() - t.keys()), \
+        len(t.keys() - j.keys())
+
+
+#: the port's pyramid levels against the float64 resize (the same weights,
+#: float64 sums) on a 0-255 image: float32 rounding of a few-term sum
+PYRAMID_TOL = 1e-4
+#: the share of descriptor bits of common keypoints that may differ: the
+#: blur's float32 rounding puts a BRIEF pair's two samples at equality on
+#: either side (8 to 25 bits of some 900,000 on frames 0, 1, 50, 56)
+DESC_BITS_TOL = 1e-4
+
+
+def test_at_run_a_size_the_two_orbs_part_only_by_the_pyramid():
+    """Frame 1 of run (a)'s drive at 1280x720 with 4000 features
+    (``LEHMAN``): the port's pyramid levels (``orb.resize_bilinear``) are
+    the float64 resize within ``PYRAMID_TOL``; given the JAX package's
+    level images (``jax_pyramid``) the port's ORB gives the JAX package's
+    keypoint set, and their descriptors differ in at most ``DESC_BITS_TOL``
+    of the bits.  With each package's own pyramid the sets part by a few
+    dozen keypoints (printed; the JAX package's ``jax.image.resize`` is up
+    to about 1.3e-3 off the float64 resize on the CPU, the port's 4e-5):
+    where the room drives at this size part from the JAX state, this is
+    their first layer (PERF.md section 5)."""
+    import jax.numpy as jnp
+
+    from bundle_adjustment_tpu.ops import orb as jorb
+    from bundle_adjustment_tpu_torch.models.pipeline import bgr_to_gray
+    from bundle_adjustment_tpu_torch.ops import orb
+
+    gray = bgr_to_gray(room_frames(2, LEHMAN)[1])
+    c = tcfg.preset_lehman_indoor()
+    kw = dict(num_features=LEHMAN["features"], levels=c.pyramid_levels,
+              scale=c.pyramid_scale, threshold=float(c.fast_threshold), height=720, width=1280)
+    img = torch.as_tensor(gray).to(torch.float32)
+    for lvl in range(1, c.pyramid_levels):
+        sf = c.pyramid_scale ** lvl
+        hw = (max(int(round(720 / sf)), 64), max(int(round(1280 / sf)), 64))
+        ref = (orb._resize_weights(720, hw[0], img.device).double().T @ img.double()
+               @ orb._resize_weights(1280, hw[1], img.device).double())
+        assert float((orb.resize_bilinear(img, hw).double() - ref).abs().max()) <= PYRAMID_TOL
+    jkp = jorb.extract(jnp.asarray(gray), **kw)
+    own = keypoint_sets(jkp, orb.extract(torch.as_tensor(gray), **kw))
+    with jax_pyramid(True):
+        tkp = orb.extract(torch.as_tensor(gray), **kw)
+    common, only_j, only_t = keypoint_sets(jkp, tkp)
+    print(f"frame 1 at 1280x720: keypoints in one set only, each package's own pyramid: JAX "
+          f"{own[1]}, port {own[2]} (common {len(own[0])}); on JAX's level images: JAX "
+          f"{only_j}, port {only_t} (common {len(common)})")
+    assert (only_j, only_t) == (0, 0) and len(common) > 3000
+    jd, td = np.asarray(jkp.desc).view(np.uint32), tkp.desc.numpy().view(np.uint32)
+    bits = sum(int(np.unpackbits((jd[a] ^ td[b]).view(np.uint8)).sum()) for a, b in common)
+    assert bits <= DESC_BITS_TOL * 256 * len(common), bits
 
 
 def _jax_dlt_svd(X, x, w=None):
@@ -302,6 +509,33 @@ def dlt_substituted(dlt: str):
         jax.clear_caches()
 
 
+@contextlib.contextmanager
+def jax_pyramid(on: bool):
+    """For the block, when ``on``, the port's ORB pyramid levels
+    (``ops/orb.resize_bilinear``) taken from the JAX package's
+    ``jax.image.resize``, then put back.  At 1280x720 the two resizes part
+    by float32 rounding (up to about 2e-3 on a 0-255 image, on a third of
+    each level's pixels), which moves FAST corners and subpixel offsets:
+    13 to 48 of some 3,550 keypoints per frame are in one package's set
+    only.  On the same level images the two ORBs give the same keypoint
+    sets (PERF.md section 5), so this isolates every layer after the
+    pyramid."""
+    if not on:
+        yield
+        return
+    import jax.numpy as jnp
+
+    from bundle_adjustment_tpu_torch.ops import orb
+
+    saved = orb.resize_bilinear
+    orb.resize_bilinear = lambda img, hw: torch.as_tensor(np.array(jax.image.resize(
+        jnp.asarray(img.cpu().numpy()), tuple(hw), method="bilinear")), device=img.device)
+    try:
+        yield
+    finally:
+        orb.resize_bilinear = saved
+
+
 def test_the_svd_substitution_takes_both_packages_and_puts_them_back():
     """``dlt_substituted("svd")`` (the script's ``--dlt svd``): inside the
     block a jitted call of the JAX package's ``_dlt_projection`` traced
@@ -350,21 +584,30 @@ def test_the_svd_substitution_takes_both_packages_and_puts_them_back():
 
 
 def tally(pipe) -> dict:
-    ev = pipe.log.events
+    """A free run's decisions (``tools/stress.tally``, as ``chip_smoke.py
+    --pnp-study`` tallies the card's drives)."""
+    from bundle_adjustment_tpu_torch.tools import stress
 
-    def count(event, key):
-        out = {}
-        for e in ev:
-            if e["event"] == event:
-                out[e[key]] = out.get(e[key], 0) + 1
-        return out
+    return stress.tally(pipe.log.events, pipe.map.num_keyframes)
 
-    relocs = [e for e in ev if e["event"] == "relocalization"]
-    return dict(keyframes=pipe.map.num_keyframes, statuses=count("frame_timing", "status"),
-                triggers=count("keyframe_trigger", "reason"),
-                relocalizations=f"{sum(e['success'] for e in relocs)}/{len(relocs)}",
-                loop_reject=count("loop_reject", "stage"),
-                closures=sum(e["event"] == "loop_closure" for e in ev))
+
+def jax_free_run(frames, consistent: bool, cam: dict, seed: int = 0):
+    """The JAX pipeline alone over ``frames``, as ``step_drive`` runs it."""
+    jp = jax_pipeline(consistent, cam, seed)
+    for f in frames:
+        jp.process_frame(f)
+    return jp
+
+
+def port_free_run(frames, consistent: bool, cam: dict, seed: int = 0):
+    """The port alone over ``frames`` on the CPU, with the JAX pipeline's
+    key schedule of draw seed ``seed`` (``jax_pipeline``, ``JaxDraws``)."""
+    tp = VisualOdometryPipeline(config(tcfg, consistent, cam), log=EventLog(echo=False),
+                                device="cpu", draws=JaxDraws(jax.random.PRNGKey(2 * seed),
+                                                             jax.random.PRNGKey(2 * seed + 1)))
+    for f in frames:
+        tp.process_frame(f)
+    return tp
 
 
 def main(argv=None):
@@ -372,6 +615,9 @@ def main(argv=None):
                                              "frame by frame from the same state")
     ap.add_argument("--frames", type=int, default=150)
     ap.add_argument("--convention", choices=("reference", "consistent"), default="reference")
+    ap.add_argument("--camera", choices=sorted(CAMERAS), default="room",
+                    help="the room at 320x240 with 500 features (room), or at run (a)'s "
+                         "1280x720 with CAMERA_LEHMAN's fx and 4000 features (lehman)")
     ap.add_argument("--cell", type=int, default=None, metavar="SEED",
                     help="the JAX stress cell of this seed's video (640x480, 1500 features, "
                          "the consistent convention) in place of the room")
@@ -380,9 +626,24 @@ def main(argv=None):
     ap.add_argument("--dlt", choices=("eigh", "svd"), default="eigh",
                     help="the DLT null vectors of both packages: each one's own eigh of "
                          "A^T A, or the SVD of A (dlt_substituted)")
+    ap.add_argument("--run", choices=("all", "compare", "jax", "port"), default="all",
+                    help="the comparison from the JAX state, whose JAX pipeline runs free, "
+                         "then the port's free run (all); the comparison alone (compare); "
+                         "one package's free run alone (jax, port)")
+    ap.add_argument("--threads", type=int, default=1, help="torch's CPU threads")
+    ap.add_argument("--pyramid", choices=("own", "jax"), default="own",
+                    help="the port's ORB pyramid levels from its own resize, or from the JAX "
+                         "package's jax.image.resize (jax_pyramid)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="draw seed of both packages' RANSAC keys (jax_pipeline); 0 is the "
+                         "JAX package's own schedule")
+    ap.add_argument("--pnp-at", type=int, nargs="+", default=[], metavar="FRAME",
+                    help="on these compared frames, hold each relocalization and loop-closure "
+                         "PnP of the port to the JAX package's (held_pnp_lines)")
     args = ap.parse_args(argv)
     jax.config.update("jax_platforms", "cpu")
-    with dlt_substituted(args.dlt):
+    torch.set_num_threads(args.threads)
+    with dlt_substituted(args.dlt), jax_pyramid(args.pyramid == "jax"):
         drive_and_tally(args)
 
 
@@ -394,26 +655,36 @@ def drive_and_tally(args):
         frames = cell_frames(args.cell, args.frames)
         what = f"frames of the JAX stress cell s{args.cell}_d3_cpu at 640x480"
     else:
-        cam, consistent = ROOM, args.convention == "consistent"
-        frames = room_frames(args.frames)
-        what = f"room frames at {W}x{H}, {args.convention} convention"
-    jp, steps = step_drive(frames, consistent, cam, args.first)
+        cam, consistent = CAMERAS[args.camera], args.convention == "consistent"
+        frames = room_frames(args.frames, cam)
+        what = (f"room frames at {cam['width']}x{cam['height']} with {cam['features']} "
+                f"features, {args.convention} convention")
+    what += (f", DLT null vectors: {args.dlt}, draw seed {args.seed}, the port's pyramid: "
+             f"{args.pyramid}")
+    if args.run in ("jax", "port"):
+        run = jax_free_run if args.run == "jax" else port_free_run
+        print(f"{args.frames} {what}: free run: {args.run} "
+              f"{tally(run(frames, consistent, cam, args.seed))}", flush=True)
+        return
+    jp, steps = step_drive(frames, consistent, cam, args.first, set(args.pnp_at), args.seed)
     agree = [i for i, d in steps if not d]
-    decided = [i for i, d in steps if not any(x.split(":")[0] in ("status", "reason", "events")
-                                               for x in d)]
-    what += f", DLT null vectors: {args.dlt}"
+
+    def alike(keys):
+        return [i for i, d in steps if not any(x.split(":")[0] in keys for x in d)]
+
     print(f"{args.frames} {what}: the port from the JAX state decides as it (status, "
-          f"trigger, events) on {len(decided)} of {len(steps)} frames, and agrees in every "
-          f"number too on {len(agree)}")
+          f"trigger, events) on {len(alike(('status', 'reason', 'events')))} of {len(steps)} "
+          f"frames (status and trigger on {len(alike(('status', 'reason')))}), and agrees in "
+          f"every number too on {len(agree)}")
     for i, d in steps:
         if d:
             print(f"  frame {i} (JAX map points before it: {MAP_POINTS[i]}): " + "; ".join(d))
-    tp = VisualOdometryPipeline(config(tcfg, consistent, cam), log=EventLog(echo=False),
-                                device="cpu", draws=JaxDraws(jax.random.PRNGKey(0)))
-    for f in frames:
-        tp.process_frame(f)
-    print(f"free runs: JAX {tally(jp)}")
-    print(f"           port {tally(tp)}")
+    for i in sorted(PNP_HELD):
+        for line in held_pnp_lines(i):
+            print("  " + line)
+    print(f"free runs: JAX {tally(jp)}", flush=True)
+    if args.run == "all":
+        print(f"           port {tally(port_free_run(frames, consistent, cam, args.seed))}")
 
 
 if __name__ == "__main__":

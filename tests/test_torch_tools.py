@@ -262,6 +262,31 @@ def test_breakdowns_of_a_committed_jax_log_equal_a_hand_count(cell, want):
     assert dedup_study.tally_line(row).count(f"Rotation {len(got['rotation_triggers'])}") == 2
 
 
+@pytest.mark.parametrize("cell", ["s3_d3_cpu", "s2_d3_tpu"])
+def test_tally_of_a_committed_jax_log_agrees_with_its_result(cell):
+    """``stress.tally`` (what ``chip_smoke.py --pnp-study`` and the room
+    drive script print for both packages) on a committed JAX run's events:
+    its discards, Rotation keyframes and failed relocalizations are
+    ``breakdowns``' counts, and its relocalizations, discards, closures and
+    statuses agree with the cell's own ``stress_result.json``."""
+    from bundle_adjustment_tpu_torch.utils.event_log import read_events
+
+    run = os.path.join(STUDY, cell)
+    events = read_events(os.path.join(run, "run", "events.jsonl"))
+    with open(os.path.join(run, "stress_result.json")) as f:
+        res = json.load(f)
+    got = stress.tally(events, res["keyframes"])
+    b = stress.breakdowns(events)
+    assert (got["discarded"], got["rotation"], got["reloc_fail"]) == \
+        (len(b["discarded_frames"]), len(b["rotation_triggers"]), b["reloc_fail"])
+    assert got["first_discarded"] == b["discarded_frames"][0]
+    attempts = res["reloc_success"] + res["reloc_fail"]
+    assert got["relocalizations"] == f"{res['reloc_success']}/{attempts}"
+    assert (got["discarded"], got["closures"]) == (res["frames_discarded"], res["loop_closures"])
+    assert sum(got["discarded_why"].values()) == got["discarded"]
+    assert sum(got["statuses"].values()) == res["frames"]
+
+
 def test_routes_switch_the_solvers_and_put_them_back():
     """Each routing of ``stress.ROUTES`` (and two joined by "+") switches
     what it names inside the block (the CLI's preset, K3's and K4's gates,
