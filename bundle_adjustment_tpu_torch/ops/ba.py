@@ -337,6 +337,14 @@ def _solve_normal_equations(rvecs, tvecs, points, p: BAProblem, lam, delta, n_fi
     return d_r, d_t, dp
 
 
+def next_lambda(lam, accept, lambda_up, lambda_down, lambda_min, lambda_max):
+    """The LM damping after an iteration (tensors): ``lambda_down`` times it
+    where the step was accepted, at least ``lambda_min``; else
+    ``lambda_up`` times it, at most ``lambda_max``."""
+    return torch.where(accept, torch.clamp(lam * lambda_down, min=lambda_min),
+                       torch.clamp(lam * lambda_up, max=lambda_max))
+
+
 def _lm_iteration(step, cost_at, rv, tv, pt, lam, cost, b0, blast, *, lambda_up,
                   lambda_down, lambda_min, lambda_max, ftol, xtol, cg_tol, cg_forcing,
                   group=None):
@@ -374,8 +382,7 @@ def _lm_iteration(step, cost_at, rv, tv, pt, lam, cost, b0, blast, *, lambda_up,
     tv = torch.where(accept, tv2, tv)
     pt = torch.where(accept, pt2, pt)
     cost = torch.where(accept, new_cost, cost)
-    lam = torch.where(accept, torch.clamp(lam * lambda_down, min=lambda_min),
-                      torch.clamp(lam * lambda_up, max=lambda_max))
+    lam = next_lambda(lam, accept, lambda_up, lambda_down, lambda_min, lambda_max)
     stuck = (~accept) & (lam >= lambda_max)
     return (rv, tv, pt, lam, cost, b0, blast), stop_code(accept, ftol_met, xtol_met, stuck)
 

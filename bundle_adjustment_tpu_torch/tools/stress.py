@@ -36,7 +36,12 @@ windows where they part and those just before the run's first Rotation
 keyframe (``DIR/w*.npz``, the live points only), for the CPU tests to hold
 to the JAX package.  The result carries ``breakdowns``: each Rotation
 trigger, each discarded frame and the map's maintenance counts, read from
-the run's events (``breakdowns``).
+the run's events (``breakdowns``).  ``hold_window`` and ``window_rule``
+(rules (a)-(c)) hold the long drive's windows past 12 slots and those that
+diverge to K3's plain version and the grid solver (``chip_smoke.py``
+phase 11, ``tests/test_torch_stress_windows.py``), per LM state along a
+path where whole solves cannot be held (``lm_path``; ``chip_smoke.py``
+phase 9 walks K4's so).
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import time
@@ -294,19 +300,73 @@ def tally(events: list, keyframes: int) -> dict:
                 closures=sum(e["event"] == "loop_closure" for e in events))
 
 
+def stats_summary(stats) -> dict:
+    """A solve's ``BAStats`` as numbers: its initial and final cost and
+    squared cost, LM iterations, the stop test (``ba.STOP_TESTS``; "cap"
+    for a solver that records none), and whether it diverged as the
+    pipeline rejects a window (its squared cost did not fall)."""
+    from bundle_adjustment_tpu_torch.ops.ba import STOP_TESTS
+
+    return dict(initial_cost=float(stats.initial_cost), final_cost=float(stats.final_cost),
+                initial_sq=float(stats.initial_sq), final_sq=float(stats.final_sq),
+                iterations=int(stats.iterations),
+                stop=STOP_TESTS[int(stats.stop)] if stats.stop is not None else "cap",
+                diverged=float(stats.final_sq) >= float(stats.initial_sq))
+
+
+def save_window(out_dir: str, index: int, grid, n_fixed: int) -> str:
+    """Save a window's problem as ``out_dir/w{index:04d}.npz``, its live
+    points only (the fields of ``BAProblemGrid`` and ``n_fixed``); returns
+    the path."""
+    keep = grid.point_mask.bool().nonzero().flatten()
+    path = os.path.join(out_dir, f"w{index:04d}.npz")
+    np.savez_compressed(
+        path, n_fixed=n_fixed,
+        **{k: getattr(grid, k).index_select(0, keep).cpu().numpy()
+           if k in ("points", "cam_slot", "uv", "mask", "point_mask")
+           else getattr(grid, k).cpu().numpy() for k in grid._fields})
+    return path
+
+
+def hold_window(grid, kw: dict, solvers=("k3", "plain", "grid")) -> dict:
+    """One window (``grid``, the solver's keyword arguments ``kw``, its
+    ``n_fixed`` among them) solved on its device by each of ``solvers``:
+    "k3" (``ba_kernel.lm_solve``: the kernel on the card, its plain version
+    on the CPU), "plain" (K3's plain version), "grid" (the grid dense
+    solver), "plain64" and "grid64" (the last two in float64).  Returns
+    each solve's ``stats_summary`` and its seconds (to a device
+    synchronise), keyed by solver."""
+    import torch
+
+    from bundle_adjustment_tpu_torch.ops import ba_grid, ba_kernel
+
+    g64 = (type(grid)(*(t.double() if t.is_floating_point() else t for t in grid))
+           if any(name.endswith("64") for name in solvers) else None)
+    runs = dict(k3=(ba_kernel.lm_solve, grid), plain=(ba_kernel.lm_solve_plain, grid),
+                grid=(ba_grid.ba_solve_grid_impl, grid),
+                plain64=(ba_kernel.lm_solve_plain, g64),
+                grid64=(ba_grid.ba_solve_grid_impl, g64))
+    out = {}
+    for name in solvers:
+        fn, g = runs[name]
+        t0 = time.perf_counter()
+        out[name] = stats_summary(fn(g, **kw)[3])
+        if g.rvecs.is_cuda:
+            torch.cuda.synchronize()
+        out[name]["seconds"] = time.perf_counter() - t0
+    return out
+
+
 @contextlib.contextmanager
 def hold_windows(out_dir: str):
     """Every window K3 takes inside the block solved once more through the
     grid solver and K3's plain version on the same input (on its device):
     their final costs, iterations and stop tests (``ba.STOP_TESTS``) beside
     K3's in ``records`` (yielded; one dict per window, with the frame whose
-    local BA made it), each window saved as ``out_dir/w{index}.npz`` (its live points only;
-    ``select_windows`` keeps a few)."""
-    import numpy as np
-
+    local BA made it), each window saved as ``out_dir/w{index}.npz``
+    (``save_window``; ``select_windows`` keeps a few)."""
     from bundle_adjustment_tpu_torch.models.pipeline import VisualOdometryPipeline
     from bundle_adjustment_tpu_torch.ops import ba_grid, ba_kernel
-    from bundle_adjustment_tpu_torch.ops.ba import STOP_TESTS
 
     os.makedirs(out_dir, exist_ok=True)
     records, frame = [], {"idx": -1}
@@ -317,29 +377,17 @@ def hold_windows(out_dir: str):
         frame["idx"] = self.frame_idx
         return orig_lba(self, *a, **kw)
 
-    def summary(stats):
-        return dict(initial_sq=float(stats.initial_sq), final_sq=float(stats.final_sq),
-                    final_cost=float(stats.final_cost), iterations=int(stats.iterations),
-                    stop=STOP_TESTS[int(stats.stop)],
-                    diverged=float(stats.final_sq) >= float(stats.initial_sq))
-
     def held(grid, n_fixed=1, **kw):
         res = solve3(grid, n_fixed=n_fixed, **kw)
-        live = grid.point_mask.bool()
         P, D = grid.cam_slot.shape
         rec = dict(index=len(records), frame=frame["idx"], C=int(grid.rvecs.shape[0]),
-                   n_fixed=int(n_fixed), P=int(P), P_live=int(live.sum()), D=int(D),
-                   opts=dict(kw), k3=summary(res[3]))
+                   n_fixed=int(n_fixed), P=int(P), P_live=int(grid.point_mask.sum()),
+                   D=int(D), opts=dict(kw), k3=stats_summary(res[3]))
         for name, fn in (("grid", ba_grid.ba_solve_grid_impl),
                          ("plain", ba_kernel.lm_solve_plain)):
-            rec[name] = summary(fn(grid, n_fixed=n_fixed, **kw)[3])
+            rec[name] = stats_summary(fn(grid, n_fixed=n_fixed, **kw)[3])
         records.append(rec)
-        keep = live.nonzero().flatten()
-        np.savez_compressed(
-            os.path.join(out_dir, f"w{rec['index']:04d}.npz"), n_fixed=n_fixed,
-            **{k: getattr(grid, k).index_select(0, keep).cpu().numpy()
-               if k in ("points", "cam_slot", "uv", "mask", "point_mask")
-               else getattr(grid, k).cpu().numpy() for k in grid._fields})
+        save_window(out_dir, rec["index"], grid, n_fixed)
         return res
 
     ba_kernel.lm_solve = held
@@ -351,12 +399,404 @@ def hold_windows(out_dir: str):
         VisualOdometryPipeline.run_local_ba = orig_lba
 
 
-def parted(rec: dict) -> bool:
-    """Whether K3 and the grid solver part on a held window: final costs
-    more than 1 % apart, another stop, or one diverges and not the other."""
-    a, b = rec["k3"], rec["grid"]
+def parted(rec: dict, a: str = "k3", b: str = "grid") -> bool:
+    """Whether two solves of a held window part (by default K3 and the grid
+    solver): final costs more than 1 % apart, another stop, or one diverges
+    and not the other."""
+    a, b = rec[a], rec[b]
     return (abs(a["final_cost"] - b["final_cost"]) > 0.01 * max(abs(b["final_cost"]), 1e-12)
             or a["stop"] != b["stop"] or a["diverged"] != b["diverged"])
+
+
+def lm_path(solve_a, solve_b, grid, kw: dict):
+    """``solve_a``'s LM path on ``grid``, one iteration at a time: its
+    one-iteration solve (``max_iterations=1``) chained from the start, each
+    from the state and damping the previous one left (``solve_a``'s
+    accept/reject and ``ba.next_lambda``), and at each state ``solve_b``'s
+    one LM iteration from the same state and damping.  Both start each
+    state from the same inputs, so no rounding is carried from one state to
+    the next.  Yields per state its record (``iteration``, ``lam``, the
+    start cost, each solve's end cost and whether it accepted, and ``gap``,
+    |a - b| / |b|), the state and the one-iteration arguments; stops after
+    ``kw``'s ``max_iterations`` states or where ``solve_a``'s step meets a
+    stop test."""
+    import torch
+
+    from bundle_adjustment_tpu_torch.ops import ba
+
+    lam, state = kw.get("lambda_init", 1e-3), grid
+    for n in range(kw.get("max_iterations", 50)):
+        one = dict(kw, max_iterations=1, lambda_init=lam)
+        rv, tv, pt, a = solve_a(state, **one)
+        b = solve_b(state, **one)[3]
+        ca, cb = float(a.final_cost), float(b.final_cost)
+        rec = dict(iteration=n, lam=lam, start=float(a.initial_cost), a=ca, b=cb,
+                   a_accepted=bool(a.accepted), b_accepted=bool(b.accepted),
+                   gap=abs(ca - cb) / max(abs(cb), 1e-30))
+        yield rec, state, one
+        state = state._replace(rvecs=rv, tvecs=tv, points=pt)
+        lam = float(ba.next_lambda(
+            torch.tensor(lam, dtype=torch.float64), torch.tensor(rec["a_accepted"]),
+            kw.get("lambda_up", 4.0), kw.get("lambda_down", 0.5),
+            kw.get("lambda_min", 1e-10), kw.get("lambda_max", 1e8)))
+        if int(a.stop) != 0:
+            break
+
+
+def path_summary(states: list) -> dict:
+    """``lm_path``'s records of one path: the states compared, the worst
+    gap and its iteration, the states where the two solves decide otherwise
+    (accept or reject), and those where the first ends above and below the
+    second."""
+    worst = max(states, key=lambda r: r["gap"])
+    return dict(states=len(states), worst=worst["gap"], at=worst["iteration"],
+                decide_otherwise=sum(r["a_accepted"] != r["b_accepted"] for r in states),
+                higher=sum(r["a"] > r["b"] for r in states),
+                lower=sum(r["a"] < r["b"] for r in states))
+
+
+def float32_path(grid, kw: dict) -> dict:
+    """Rule (a)'s test of one window: K3's path on ``grid`` as it runs it
+    (``ba_kernel.lm_solve``: the kernel on the card, its plain version on
+    the CPU), one LM iteration at a time, and at each state its plain
+    version's one LM iteration from the same state and damping, both in
+    float32 (``lm_path``); ``path_summary`` of the states."""
+    from bundle_adjustment_tpu_torch.ops import ba_kernel
+
+    return path_summary([r for r, _, _ in lm_path(
+        ba_kernel.lm_solve, ba_kernel.lm_solve_plain, grid, kw)])
+
+
+def grid_point_inverse(V, lam, point_mask):
+    """The grid solver's inverse of the damped point blocks
+    (``ba._inv3(ba._damp(V, lam))``, dead points 0), in the signature of K3's
+    plain version's ``ba_kernel._inv3_damped`` (the TPU kernel's formula):
+    the same algebra, its products associated otherwise."""
+    import torch
+
+    from bundle_adjustment_tpu_torch.ops import ba
+
+    inv = ba._inv3(ba._damp(V, lam))
+    return torch.where(point_mask[:, None, None], inv, torch.zeros_like(inv))
+
+
+@contextlib.contextmanager
+def one_point_inverse():
+    """K3's plain version with the grid solver's point-block inverse
+    (``grid_point_inverse``) inside the block."""
+    from bundle_adjustment_tpu_torch.ops import ba_kernel
+
+    own = ba_kernel._inv3_damped
+    ba_kernel._inv3_damped = grid_point_inverse
+    try:
+        yield
+    finally:
+        ba_kernel._inv3_damped = own
+
+
+def float64_path(grid, kw: dict) -> dict:
+    """Rule (b)'s path test of one window: K3's function's path on ``grid``
+    in float64 (``lm_solve_plain``), one LM iteration at a time, and at
+    each state the grid dense solver's one LM iteration from the same state
+    and damping, the point blocks inverted by one formula in both
+    (``one_point_inverse``, ``lm_path``); ``path_summary`` of the
+    states."""
+    from bundle_adjustment_tpu_torch.ops import ba_grid, ba_kernel
+
+    g64 = type(grid)(*(t.double() if t.is_floating_point() else t for t in grid))
+    with one_point_inverse():
+        return path_summary([r for r, _, _ in lm_path(
+            ba_kernel.lm_solve_plain, ba_grid.ba_solve_grid_impl, g64, kw)])
+
+
+#: rule (b)'s test of the point-block inverse: blocks of a condition number
+#: below this, where float64 resolves the inverse to about 1e-16 times it
+INVERSE_COND = 1e8
+#: and the relative gap the two formulas may show there
+INVERSE_REL = 1e-9
+
+
+def point_inverse_gap(grid, kw: dict) -> dict:
+    """K3's plain version's point-block inverse (``ba_kernel._inv3_damped``)
+    against the grid solver's (``grid_point_inverse``) in float64 on every
+    live point block of ``grid`` at its start state, damped by
+    ``lambda_init``: the worst relative gap over the blocks of a condition
+    number below ``INVERSE_COND``, their number and that of the others
+    (which the two formulas round apart, each as well as the other)."""
+    import torch
+
+    from bundle_adjustment_tpu_torch.ops import ba, ba_kernel
+
+    g = type(grid)(*(t.double() if t.is_floating_point() else t for t in grid))
+    live = (g.mask > 0).double()
+    r, _, Jp = ba_kernel._slot_terms(g.rvecs, g.tvecs, g.points, g, live, with_jac=True)
+    delta, lam = kw.get("huber_delta", 1.0), kw.get("lambda_init", 1e-3)
+    a = torch.abs(r)
+    w = torch.where(a <= delta, torch.ones_like(a), delta / torch.clamp(a, min=1e-12)) \
+        * g.mask[..., None]
+    V = torch.einsum("pdki,pdkj->pij", Jp * w[..., None], Jp)
+    k3 = ba_kernel._inv3_damped(V, lam, g.point_mask)
+    ref = grid_point_inverse(V, lam, g.point_mask)
+    gap = torch.linalg.matrix_norm(k3 - ref) / torch.linalg.matrix_norm(ref).clamp(min=1e-300)
+    sound = g.point_mask & (torch.linalg.cond(ba._damp(V, lam)) < INVERSE_COND)
+    return dict(worst=float(gap[sound].max()) if bool(sound.any()) else 0.0,
+                sound=int(sound.sum()), ill=int(g.point_mask.sum() - sound.sum()))
+
+
+def sign_test_p(k: int, n: int, share: float = 0.5) -> float:
+    """The one-sided binomial p-value of ``k`` or more of ``n`` at
+    ``share`` (1/2: the sign test)."""
+    if share == 0.5:
+        return sum(math.comb(n, i) for i in range(k, n + 1)) / (1 << n)
+    return math.fsum(math.exp(math.log(math.comb(n, i)) + i * math.log(share)
+                              + (n - i) * math.log1p(-share)) for i in range(k, n + 1))
+
+
+#: rule (a): at every state of K3's float32 path its plain version's one LM
+#: iteration from it ends within this relative cost of K3's
+#: (``float32_path``)
+FLOAT32_REL = 0.1
+#: and over the states where they end apart, K3 ends above (or below) its
+#: plain version on a share of them that a one-sided binomial test at this
+#: share does not place above it at ``SIGN_LEVEL``.  Both bounds from the
+#: CPU: over the 2,629 states of (a2)'s 63 windows, the plain version with
+#: the grid solver's point-block inverse or with its points in another
+#: order ends up to 2.9e-2 from the plain version and the higher on
+#: 50.1-52.1 % of the states; with a camera counted once per point or a
+#: step of 0.9 times the right one, the higher on 79-83 %
+STATE_SHARE = 0.55
+#: the share test of one window, read beside rule (a) and not gated: K3
+#: built as it ships (FMA contraction) reaches 9.0e-11 on one of (a2)'s
+#: windows and built without it 1.4e-5 on another drive's, where the plain
+#: version in another float order reaches 1.3e-2 at its least over the 63
+#: windows (CPU): float32 evaluates the cost of these windows' states apart
+#: (K3's and its plain version's costs of one start state up to 2.8e-3
+#: apart, 25 % without contraction), and a path selects the states its own
+#: solver's rounding favours (ROADMAP Queue 3)
+WINDOW_LEVEL = 1e-6
+
+
+def share_p(higher: int, lower: int) -> float:
+    """The one-sided binomial p-value at ``STATE_SHARE`` of the larger of
+    ``higher`` and ``lower`` among the states where two solves end apart."""
+    return sign_test_p(max(higher, lower), higher + lower, STATE_SHARE)
+#: rule (b): at every state of K3's function's float64 path the grid
+#: solver's one LM iteration from it ends within this relative cost of K3's
+#: function's (``float64_path``); and the whole float64 solves' agreement
+#: (``float64_agree``) is read at this tolerance
+FLOAT64_REL = 1e-4
+#: the states of K3's function's float64 path that rule (b) compares on a
+#: window whose whole float64 solves agree (all of them where they part)
+PATH_STATES = 8
+#: rules (a) and (c): the one-sided sign tests' level
+SIGN_LEVEL = 0.01
+
+
+def float64_agree(rec: dict) -> bool:
+    """Whether the whole float64 solves of K3's function and the grid solver
+    agree on one window: final costs within ``FLOAT64_REL``, LM iterations
+    within 1, the same stop test.  Read, not a rule: float order parts
+    whole float64 solves on the drive's ill-conditioned windows (the same
+    solver with the points in another order parts as far), and a step with
+    the wrong curvature still converges to the same minimum."""
+    a, b = rec["plain64"], rec["grid64"]
+    return (abs(a["final_cost"] - b["final_cost"])
+            <= FLOAT64_REL * max(abs(b["final_cost"]), 1e-30)
+            and abs(a["iterations"] - b["iterations"]) <= 1 and a["stop"] == b["stop"])
+
+
+def float64_holds(rec: dict) -> bool:
+    """Rule (b) on one window: every state of K3's function's float64 path
+    compared (``path64``, ``float64_path``) within ``FLOAT64_REL`` of the
+    grid solver's one LM iteration from it, and the point-block inverses
+    within ``INVERSE_REL`` (``inverse``, ``point_inverse_gap``)."""
+    return (rec["path64"]["worst"] <= FLOAT64_REL
+            and rec["inverse"]["worst"] <= INVERSE_REL)
+
+
+def hold_float64(rec: dict, grid, kw: dict) -> dict:
+    """Rule (b)'s tests on one window whose float64 pair ``rec`` holds
+    (``plain64``, ``grid64``): its point-block inverses
+    (``point_inverse_gap``) and K3's function's float64 path
+    (``float64_path``), over every state where the whole float64 solves
+    part and over its first ``PATH_STATES`` where they agree.  Returns the
+    two, to be added to ``rec``."""
+    agree = float64_agree(rec)
+    return dict(inverse=point_inverse_gap(grid, kw), whole_agree=agree,
+                path64=float64_path(grid, kw if not agree else dict(
+                    kw, max_iterations=min(PATH_STATES, kw.get("max_iterations", 50)))))
+
+
+def near_plain(rec: dict) -> bool:
+    """The whole float32 solves of one window, read beside rule (a): K3's
+    final cost within 1 % of its plain version's, or within 1 % of the
+    float64 plain version's or at most twice as far from it as the float32
+    plain version (the float64 witness)."""
+    k, p = rec["k3"]["final_cost"], rec["plain"]["final_cost"]
+    w = rec.get("plain64", {}).get("final_cost")
+    return abs(k - p) <= 0.01 * abs(p) or w is not None and (
+        abs(k - w) <= 0.01 * abs(w) or abs(k - w) <= 2 * abs(p - w))
+
+
+def window_rule(records: list) -> dict:
+    """The holds of the long drive's windows (``hold_window``'s solves, one
+    record per window with its ``index``) by three rules:
+
+    (a) K3 against its plain version per state (``path32``,
+        ``float32_path``): from every state of K3's float32 path the two
+        one-iteration solves end within ``FLOAT32_REL`` of each other, and
+        over all states of all windows where they end apart, K3 ends above
+        (or below) its plain version on no larger share than a binomial
+        test at ``STATE_SHARE`` allows at ``SIGN_LEVEL`` (``share_p``; K3
+        the higher on k of n).  The windows whose own states fail that test
+        at ``WINDOW_LEVEL`` are listed (``split``), not gated.  Each state starts both from the same inputs, so
+        the float32 rounding of far points that parts whole float32 solves
+        by up to 24 % (any float32 solver, drawn anew by a relative 1e-6
+        move of the points) is not carried along a path; the windows whose
+        whole K3 and plain solves part (``near_plain`` fails) are listed;
+    (b) K3's function and the grid solver's are one algorithm in float64 on
+        every window held so (``hold_float64``, ``float64_holds``): from
+        each state of K3's function's float64 path one LM iteration of each
+        ends within ``FLOAT64_REL``, the point blocks inverted by one
+        formula, and K3's point-block inverse is the grid solver's within
+        ``INVERSE_REL`` on blocks float64 resolves; past that a window is an
+        algorithmic difference (the windows whose whole float64 solves part,
+        ``float64_agree``, are listed);
+    (c) over the n windows where the float32 K3 and grid solves part
+        (``parted``), K3 ends higher on k: the one-sided binomial p-value
+        of k of n at 1/2 must not fall below ``SIGN_LEVEL``; the mean of
+        (K3 - grid) / grid over them and its standard error beside it.
+
+    Returns each rule's verdict with the windows that fail it, and
+    ``passed``."""
+    fail_a = [r["index"] for r in records if r["path32"]["worst"] > FLOAT32_REL]
+    n_a = sum(r["path32"]["higher"] + r["path32"]["lower"] for r in records)
+    k_a = sum(r["path32"]["higher"] for r in records)
+    p_a = share_p(k_a, n_a - k_a)
+    least = min(records, key=lambda r: share_p(r["path32"]["higher"], r["path32"]["lower"]))
+    worst_a = max(records, key=lambda r: r["path32"]["worst"])
+    with64 = [r for r in records if "path64" in r]
+    fail_b = [r["index"] for r in with64 if not float64_holds(r)]
+    parted64 = [r["index"] for r in with64 if not r["whole_agree"]]
+    part = [r for r in records if parted(r)]
+    gaps = np.array([(r["k3"]["final_cost"] - r["grid"]["final_cost"])
+                     / max(abs(r["grid"]["final_cost"]), 1e-30) for r in part])
+    k = sum(r["k3"]["final_cost"] > r["grid"]["final_cost"] for r in part)
+    p = sign_test_p(k, len(part))
+    c = dict(n=len(part), k=k, p=p, passed=p >= SIGN_LEVEL,
+             mean_gap=float(gaps.mean()) if len(gaps) else 0.0,
+             stderr=float(gaps.std(ddof=1) / math.sqrt(len(gaps))) if len(gaps) > 1 else 0.0,
+             windows=[r["index"] for r in part])
+    a = dict(passed=not fail_a and p_a >= SIGN_LEVEL, failures=fail_a,
+             states=sum(r["path32"]["states"] for r in records), n=n_a, k=k_a, p=p_a,
+             worst=worst_a["path32"]["worst"], worst_window=worst_a["index"],
+             least_p=share_p(least["path32"]["higher"], least["path32"]["lower"]),
+             least_window=least["index"],
+             split=[r["index"] for r in records
+                    if share_p(r["path32"]["higher"], r["path32"]["lower"]) < WINDOW_LEVEL],
+             decide_otherwise=sum(r["path32"]["decide_otherwise"] for r in records),
+             whole_parted=[r["index"] for r in records if not near_plain(r)])
+    return dict(a=a, b=dict(passed=not fail_b, failures=fail_b, whole_parted=parted64,
+                            windows=len(with64),
+                            worst_path=max([r["path64"]["worst"] for r in with64] or [0.0]),
+                            worst_inverse=max([r["inverse"]["worst"] for r in with64] or [0.0])),
+                c=c, passed=a["passed"] and not fail_b and c["passed"])
+
+
+def hold_one(grid, kw: dict, float64: bool) -> dict:
+    """One window's holds: without ``float64``, K3, its plain version and
+    the grid solver in float32 (``hold_window``) and rule (a)'s float32
+    path (``path32``, ``float32_path``); with it, the float64 pair
+    (``plain64``, ``grid64``) and rule (b)'s tests (``hold_float64``)."""
+    if not float64:
+        return dict(hold_window(grid, kw), path32=float32_path(grid, kw))
+    out = hold_window(grid, kw, ("plain64", "grid64"))
+    return dict(out, **hold_float64(out, grid, kw))
+
+
+def _worker_start():
+    """A hold worker's process: one torch thread, and the card's float32
+    numerics as the drive ran them (``device.set_float32_numerics``)."""
+    import torch
+
+    from bundle_adjustment_tpu_torch import device
+
+    torch.set_num_threads(1)
+    device.set_float32_numerics()
+
+
+def _hold_saved(job) -> dict:
+    """``hold_one`` on a window saved by ``window_holds`` (a worker's job:
+    its path and ``float64``)."""
+    import torch
+
+    from bundle_adjustment_tpu_torch.ops.ba_grid import BAProblemGrid
+
+    path, float64 = job
+    saved = torch.load(path, weights_only=False)
+    return hold_one(BAProblemGrid(*saved["grid"]), saved["kw"], float64)
+
+
+@contextlib.contextmanager
+def window_holds(windows: list, workers: int):
+    """A function ``hold(indices, float64)`` that runs ``hold_one`` on the
+    windows of ``windows`` ((grid, solver arguments) pairs) at ``indices``
+    and returns their records in that order: in this process with
+    ``workers`` 0, else in ``workers`` processes started for the block (the
+    windows saved whole for them, each solve on the windows' device; the
+    solves are launch-bound on the host) and stopped at its end."""
+    if not workers:
+        yield lambda indices, float64: [hold_one(*windows[i], float64) for i in indices]
+        return
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    import torch
+
+    tmp = tempfile.mkdtemp(prefix="window_holds_")
+    paths = []
+    for i, (grid, kw) in enumerate(windows):
+        paths.append(os.path.join(tmp, f"{i}.pt"))
+        torch.save(dict(grid=list(grid), kw=kw), paths[-1])
+    pool = multiprocessing.get_context("spawn").Pool(workers, initializer=_worker_start)
+    try:
+        yield lambda indices, float64: pool.map(
+            _hold_saved, [(paths[i], float64) for i in indices], chunksize=1)
+    finally:
+        pool.terminate()
+        pool.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def float64_choice(records: list, spread: int = 16) -> list:
+    """The positions in ``records`` of the windows whose float64 pair
+    ``hold_window`` runs: every one where the float32 solves part (K3 and
+    the grid solver, or K3 and its plain version) or that diverged in the
+    drive (``drive_diverged``), and ``spread`` of the others at even steps
+    through the drive."""
+    odd = {i for i, r in enumerate(records)
+           if parted(r) or parted(r, "k3", "plain") or r.get("drive_diverged")}
+    rest = [i for i in range(len(records)) if i not in odd]
+    step = max(len(rest) / spread, 1.0) if spread else 1.0
+    return sorted(odd | {rest[int(j * step)] for j in range(min(spread, len(rest)))})
+
+
+def wide_window_choice(records: list, rule: dict, most: int = 12) -> list:
+    """The indices of the windows to commit for the CPU tests, at most
+    ``most``, in the order of their claim: every one that diverged in the
+    drive, those that fail rule (a) or (b), then those where the float32 K3
+    and grid solves part the most."""
+    first = [r["index"] for r in records if r.get("drive_diverged")]
+    first += [i for i in rule["a"]["failures"] + rule["b"]["failures"] if i not in first]
+
+    def gap(r):
+        return abs(r["k3"]["final_cost"] - r["grid"]["final_cost"]) \
+            / max(abs(r["grid"]["final_cost"]), 1e-30)
+
+    rest = sorted((r for r in records if parted(r) and r["index"] not in first),
+                  key=gap, reverse=True)
+    return (first + [r["index"] for r in rest])[:most]
 
 
 def select_windows(out_dir: str, records: list, events: list, before: int = 3,

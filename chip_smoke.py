@@ -108,7 +108,23 @@ Phases, each of which exits non-zero when it fails:
    stopped by ``ftol`` or ``xtol`` and K4 within 1 % of float64 or at most
    twice as far from it as a converged float32 grid solver,
    ``converged_rule``), and
-   (a2)'s first window past 12 slots by K3 against its plain version; each
+   every window of (a2) that K3 took with more than 12 slots per point and
+   every one that diverged (``solver_split`` keeps them; after the drive,
+   ``hold_wide_windows``): each solved again through K3 (ending as in the
+   drive), its plain version and the grid dense solver in float32, the
+   last two in float64 where the float32 solves part or the window
+   diverged and on 16 others, one line per window, each saved
+   (``w####.npz``, ``windows.json``) in the run's output directory or
+   ``--windows-out``, and held by ``tools/stress.window_rule``: (a) K3
+   against its plain version per state of K3's float32 path (one LM
+   iteration of each from the same state and damping: within 10 % at
+   every state, and K3 above, or below, on no more of all the states than
+   a binomial test at a share of 0.55 allows), (b) K3's function against
+   the grid
+   solver's in float64 per state of its path with one point-block inverse,
+   and that inverse against the grid solver's, (c) the sign test of the
+   float32 K3 and grid solves where they part; the diverged windows'
+   solves that diverge again; each
    run held to ``LEHMAN_BOUNDS`` (keyframes,
    ATE, closures), (a2) to the keyframes and closures it makes as it
    ships (``LEHMAN_DECISIONS``), and K1's first launch
@@ -1462,9 +1478,14 @@ LEHMAN_DECISIONS = {"a2": (283, 6)}
 # keyframes rescaled with its frames: 560 over 600 at first).  A ceiling
 # against a broken drive, not an accuracy gate: one seed's ATE moves with
 # the order of float32 sums ((a2): 15.52 % with the plain solvers, 15.93 %
-# with K4 alone, 27.41 % with K3 and K4, ``--routes``).  Accuracy is gated
-# on the mean over the JAX stress cell's five seeds, in phase 14; (a2)'s
-# ceiling was 20 % while its windows past 12 slots took the grid solver
+# with K4 alone, 27.41 % with K3 and K4, 26.82 % with K3's plain version,
+# ``--routes``, before the step's DLT took the SVD of A).  On every window
+# of (a2) past 12 slots and the diverged one, K3's function is the grid
+# solver's algorithm in float64 and the float32 solves part with no side
+# favoured (``hold_wide_windows``): the split by window solver is float
+# order.  Accuracy is gated on the mean over the JAX stress cell's five
+# seeds, in phase 14; (a2)'s ceiling was 20 % while its windows past 12
+# slots took the grid solver
 LEHMAN_BOUNDS = {"a": (280, 40.0, 0), "a2": (400, 40.0, 1)}
 
 
@@ -1562,34 +1583,46 @@ def global_solves(tag: str, a: dict) -> None:
         fail(f"{tag}: a global solve launched no K4 role, or finalize made none: {a['pcg']}")
 
 
-def solver_split(torch):
+def solver_split(torch, keep_windows: bool = False):
     """Wrap the window solvers to count each call by solver: the window LM
     kernel K3 (``ba_kernel.lm_solve`` on a window inside its gate; apart,
     the windows of more than 12 slots per point and the largest D), the
     grid LM (dense camera solve, by shape, or PCG), the flat LM (the pose
     refine's masked loop, or not); returns (counts, a function that puts
-    them back, the first K3 window past 12 slots as (grid, its arguments)
-    in a list)."""
+    them back, the kept windows).  With ``keep_windows`` every K3 window of
+    more than 12 slots per point and every K3 window that diverged (its
+    squared cost did not fall, so the pipeline logs ``ba_diverged``) is
+    kept after its solve, for ``hold_wide_windows``: a clone of its grid,
+    its arguments, its position among the drive's K3 calls and K3's stats
+    (``stress.stats_summary``)."""
     from bundle_adjustment_tpu_torch.ops import ba, ba_grid, ba_kernel
     from bundle_adjustment_tpu_torch.ops.ba_grid import BAProblemGrid
+    from bundle_adjustment_tpu_torch.tools.stress import stats_summary
 
-    counts, wide = {}, []
+    counts, kept, calls = {}, [], [0]
 
     def add(key):
         counts[key] = counts.get(key, 0) + 1
 
-    def k3(a, kw):
-        g = a[0]
+    orig_k3 = ba_kernel.lm_solve
+
+    def k3(g, **kw):
         P, D = g.cam_slot.shape
         if not ba_kernel.kernel_eligible(g, kw.get("n_fixed", 1)):
             add(f"lm_solve outside K3's gate C={g.rvecs.shape[0]} P={P} D={D}")
         elif D > 12:        # the grid solver took these before K3's gate lost D <= 12
             add("K3, D > 12")
             counts["K3, largest D"] = max(counts.get("K3, largest D", 0), D)
-            if not wide:
-                wide.append((BAProblemGrid(*(t.clone() for t in g)), dict(kw)))
         else:
             add("K3")
+        res = orig_k3(g, **kw)
+        if keep_windows:
+            st = stats_summary(res[3])
+            if D > 12 or st["diverged"]:
+                kept.append(dict(grid=BAProblemGrid(*(t.clone() for t in g)), kw=dict(kw),
+                                 call=calls[0], k3_drive=st, drive_diverged=st["diverged"]))
+        calls[0] += 1
+        return res
 
     def grid(a, kw):
         g = a[0]
@@ -1600,7 +1633,8 @@ def solver_split(torch):
     def flat(a, kw):
         add("flat masked (pose refine)" if kw.get("masked") else "flat")
 
-    origs = [(ba_kernel, "lm_solve", recorded(ba_kernel, "lm_solve", k3)),
+    ba_kernel.lm_solve = k3
+    origs = [(ba_kernel, "lm_solve", orig_k3),
              (ba_grid, "ba_solve_grid_impl", recorded(ba_grid, "ba_solve_grid_impl", grid)),
              (ba, "ba_solve_impl", recorded(ba, "ba_solve_impl", flat))]
 
@@ -1608,35 +1642,137 @@ def solver_split(torch):
         for mod, name, fn in origs:
             setattr(mod, name, fn)
 
-    return counts, restore, wide
+    return counts, restore, kept
 
 
-def hold_wide_window(torch, wide: list) -> None:
-    """The drive's first window of more than 12 slots per point (a keyframe
-    seeing a point through several keypoints), which the grid solver took
-    before K3's gate lost the TPU's D <= 12: K3 against its plain version,
-    final cost within 1 % and LM iterations within 2 as in phase 5, the
-    grid solver's solve printed beside them."""
-    from bundle_adjustment_tpu_torch.ops import ba_grid, ba_kernel
+#: the windows past 12 slots that do not part whose float64 pair
+#: ``hold_wide_windows`` runs as well, at even steps through the drive
+FLOAT64_SPREAD = 16
+#: the processes ``hold_wide_windows`` solves in: the window solves are
+#: launch-bound on the host (63 windows of (a2), 241.8 s in one process on
+#: an NVIDIA H100 80GB HBM3 machine)
+HOLD_WORKERS = 6
 
-    if not wide:
-        fail("lehman_indoor (a2): no window past 12 slots went through K3")
-    g, kw = wide.pop()
-    runs = {"K3": ba_kernel.lm_solve, "its plain version": ba_kernel.lm_solve_plain,
-            "the grid solver": ba_grid.ba_solve_grid_impl}
-    res = {}
-    for name, fn in runs.items():
-        st = fn(g, **kw)[3]
-        torch.cuda.synchronize()
-        res[name] = (float(st.initial_cost), float(st.final_cost), int(st.iterations))
-    P, D = g.cam_slot.shape
-    print(f"lehman_indoor (a2): the first window past 12 slots, C={g.rvecs.shape[0]} P={P} D={D} "
-          f"({int((g.mask > 0).sum())} live slots): " + "; ".join(
-              f"{name} {c0:.6g} -> {c1:.6g} in {n}" for name, (c0, c1, n) in res.items()))
-    (_, k, nk), (_, p, np_) = res["K3"], res["its plain version"]
-    if not (math.isfinite(k) and abs(k - p) <= 1e-2 * p and abs(nk - np_) <= 2):
-        fail(f"lehman_indoor (a2): K3 on the window past 12 slots differs from its plain "
-             f"version: {res}")
+
+def hold_wide_windows(torch, kept: list, n_wide: int, n_diverged: int, out_dir: str,
+                      study: bool = False, workers: int = None) -> dict:
+    """Phase 11 (a2), after the drive: every window K3 took with more than 12
+    slots per point (``n_wide`` by ``solver_split``'s count) and every
+    window that diverged (``n_diverged``, the drive's ``ba_diverged`` window
+    events), as ``solver_split`` kept them, solved again on the card through
+    K3 (which must end as in the drive: the kernel is deterministic), its
+    plain version and the grid dense solver in float32, and the last two in
+    float64 on every window where the float32 solves part or that diverged
+    and on ``FLOAT64_SPREAD`` others (``stress.hold_window``,
+    ``stress.float64_choice``); on every window, K3's float32 path held to
+    its plain version per state (``stress.float32_path``, rule (a)); on
+    those with the float64 pair, rule (b)'s float64 path and point-block
+    inverse (``stress.hold_float64``).  One line per window (C, live
+    points, D, n_fixed, each solve's initial and final cost, LM iterations
+    and stop test, the paths' worst gaps), the diverged windows' replays
+    (which of the solves diverge), and the verdicts of
+    ``stress.window_rule``'s rules (a)-(c).  Saves each window (its live
+    points) as ``out_dir/w####.npz``, every record and the verdicts as
+    ``out_dir/windows.json``, and the windows to commit for the CPU tests
+    (``stress.wide_window_choice``) in it.  The solves run in ``workers``
+    processes on the card (``stress.window_holds``; by default
+    ``HOLD_WORKERS``, 0: in this one).  Fails, unless ``study``, where a
+    rule fails, K3 ends otherwise than in the drive, or the kept windows are
+    not the drive's."""
+    workers = HOLD_WORKERS if workers is None else workers
+    from bundle_adjustment_tpu_torch.tools import stress
+
+    t0 = time.perf_counter()
+    os.makedirs(out_dir, exist_ok=True)
+    wide = [w for w in kept if w["grid"].cam_slot.shape[1] > 12]
+    diverged = [w for w in kept if w["drive_diverged"]]
+    if (len(wide), len(diverged)) != (n_wide, n_diverged) or not wide:
+        msg = (f"lehman_indoor (a2): kept {len(wide)} windows past 12 slots and {len(diverged)} "
+               f"diverged ones, where the drive made {n_wide} and {n_diverged}")
+        if not study:
+            fail(msg)
+        print(msg, flush=True)
+    records = []
+    for i, w in enumerate(kept):
+        g = w["grid"]
+        P, D = g.cam_slot.shape
+        records.append(dict(index=i, call=w["call"], C=int(g.rvecs.shape[0]),
+                            n_fixed=int(w["kw"].get("n_fixed", 1)), P=int(P),
+                            P_live=int(g.point_mask.sum()), D=int(D),
+                            opts={k: v for k, v in w["kw"].items() if k != "n_fixed"},
+                            drive_diverged=w["drive_diverged"], k3_drive=w["k3_drive"]))
+        stress.save_window(out_dir, i, g, records[-1]["n_fixed"])
+    with stress.window_holds([(w["grid"], w["kw"]) for w in kept], workers) as hold:
+        t1 = time.perf_counter()
+        for r, out in zip(records, hold(range(len(kept)), False)):
+            r.update(out)
+        t2 = time.perf_counter()
+        pairs = stress.float64_choice(records, FLOAT64_SPREAD)
+        for i, out in zip(pairs, hold(pairs, True)):
+            records[i].update(out)
+    stage_s = dict(float32=t2 - t1, float64=time.perf_counter() - t2)
+    rule = stress.window_rule(records)
+    names = ("k3", "plain", "grid", "plain64", "grid64")
+    for r in records:
+        p32 = r["path32"]
+        print(f"lehman_indoor (a2) window {r['index']} (K3 call {r['call']}"
+              f"{', diverged in the drive' if r['drive_diverged'] else ''}): C={r['C']} "
+              f"P_live={r['P_live']} D={r['D']} n_fixed={r['n_fixed']}; " + "; ".join(
+                  f"{n} {r[n]['initial_cost']:.6g} -> {r[n]['final_cost']:.6g} in "
+                  f"{r[n]['iterations']} ({r[n]['stop']}{', diverged' if r[n]['diverged'] else ''})"
+                  for n in names if n in r)
+              + f"; float32 path over {p32['states']} states, worst gap {p32['worst']:.3e} "
+              f"(iteration {p32['at']}, {p32['decide_otherwise']} decided otherwise, K3 the "
+              f"higher on {p32['higher']}, the lower on {p32['lower']})"
+              + (f"; float64 path over {r['path64']['states']} states, worst gap "
+                 f"{r['path64']['worst']:.3e} (iteration {r['path64']['at']}, "
+                 f"{r['path64']['decide_otherwise']} decided otherwise), point-block inverse "
+                 f"{r['inverse']['worst']:.3e} ({r['inverse']['ill']} blocks past the "
+                 f"condition bound)" if "path64" in r else ""), flush=True)
+    replays = {r["index"]: [n for n in names if n in r and r[n]["diverged"]]
+               for r in records if r["drive_diverged"]}
+    print(f"lehman_indoor (a2): {len(replays)} windows diverged in the drive; the solves that "
+          f"diverge on each: {replays}", flush=True)
+    redone = [r["index"] for r in records
+              if {k: v for k, v in r["k3"].items() if k != "seconds"} != r["k3_drive"]]
+    chosen = stress.wide_window_choice(records, rule)
+    a, c = rule["a"], rule["c"]
+    seconds = {n: sum(r[n]["seconds"] for r in records if n in r) for n in names}
+    print(f"lehman_indoor (a2): {len(records)} windows held ({len(wide)} past 12 slots, D "
+          f"{min(r['D'] for r in records)}-{max(r['D'] for r in records)}; float64 pairs on "
+          f"{rule['b']['windows']}); K3 again ends otherwise than in the drive on {redone}: "
+          f"(a) K3 against its plain version per state of its float32 path, {a['states']} "
+          f"states: worst gap {a['worst']:.3e} (window {a['worst_window']}, bound "
+          f"{stress.FLOAT32_REL}), {a['decide_otherwise']} decided otherwise, over all K3 the "
+          f"higher on k = {a['k']} of the n = {a['n']} where they end apart, p = {a['p']:.4g} "
+          f"at a share of {stress.STATE_SHARE}: "
+          f"{'holds' if a['passed'] else 'fails on ' + str(a['failures'])} (read, not gated: "
+          f"the share test of one window at least p = {a['least_p']:.3g} on window "
+          f"{a['least_window']}, below {stress.WINDOW_LEVEL} on {a['split']}; the whole float32 "
+          f"solves part beyond 1 % and the float64 witness on {a['whole_parted']}); "
+          f"(b) K3's function against the grid solver's in float64, per state of its path "
+          f"(worst {rule['b']['worst_path']:.3e}) and the point-block inverse (worst "
+          f"{rule['b']['worst_inverse']:.3e}), "
+          f"{'holds' if rule['b']['passed'] else 'fails on ' + str(rule['b']['failures'])} "
+          f"(the whole float64 solves part on {rule['b']['whole_parted']}); "
+          f"(c) the float32 K3 and grid solves part on n = {c['n']}, K3 the higher on k = "
+          f"{c['k']}, one-sided p = {c['p']:.4g} (fails below {stress.SIGN_LEVEL}), mean "
+          f"(K3 - grid) / grid {c['mean_gap']:+.4%} +- {c['stderr']:.4%}: "
+          f"{'holds' if c['passed'] else 'fails'}; to commit {chosen}; seconds by solver "
+          f"{ {n: round(s, 1) for n, s in seconds.items()} } in {workers or 1} processes, "
+          f"the float32 and float64 stages {stage_s['float32']:.1f} and "
+          f"{stage_s['float64']:.1f} s, in all "
+          f"{time.perf_counter() - t0:.1f} s; saved in {out_dir}", flush=True)
+    with open(os.path.join(out_dir, "windows.json"), "w") as f:
+        json.dump(dict(rule=rule, chosen=chosen, redone=redone, seconds=dict(
+            seconds, stages=stage_s, workers=workers, all=time.perf_counter() - t0),
+            windows=records), f,
+            indent=1)
+    if not study and (redone or not rule["passed"]):
+        fail(f"lehman_indoor (a2): the windows past 12 slots or that diverged fail "
+             f"stress.window_rule, or K3 ends otherwise than in the drive on {redone}: "
+             f"{json.dumps({k: rule[k] for k in 'abc'})}")
+    return dict(rule=rule, chosen=chosen, records=len(records), redone=redone)
 
 
 #: the LM cap of ``hold_to_grid``'s converged rule, for K4 and the grid
@@ -1666,42 +1802,37 @@ def converged_rule(k4: tuple, grid32: tuple, grid64: tuple) -> dict:
 
 
 def lm_path_hold(torch, g, step: dict, n_iterations: int) -> dict:
-    """K4's path on the problem ``g``, one LM iteration at a time: K4's
-    one-iteration solve (``step``: CG to its cap) chained from the start,
-    each from the state and damping the previous one left (the LM's
-    accept/reject and lambda update), and at each state the plain grid PCG
-    solver's one LM iteration from the same state and damping, in float32
-    and, as the witness, in float64.  A state holds where K4 lands within
-    1 % of the float32 grid solver and decides alike, or, past the start,
-    where the two float32 paths part (an 8-iteration CG at a small damping
-    parts with the order of float32 sums), where K4 lands within 1 % of the
-    float64 grid solver or at most twice as far from it as the float32 grid
-    solver (``near_float64``); the start holds only by the first test.
-    Stops after ``n_iterations`` or where K4's step meets a stop test.
-    Returns the iterations held, the worst gap to the float32 grid solver,
-    each state's numbers, the states that fail and whether the start
-    holds."""
+    """K4's path on the problem ``g``, one LM iteration at a time
+    (``stress.lm_path``): K4's one-iteration solve (``step``: CG to its cap)
+    chained from the start, each from the state and damping the previous
+    one left, and at each state the plain grid PCG solver's one LM
+    iteration from the same state and damping, in float32 and, as the
+    witness, in float64.  A state holds where K4 lands within 1 % of the
+    float32 grid solver and decides alike, or, past the start, where the
+    two float32 paths part (an 8-iteration CG at a small damping parts with
+    the order of float32 sums), where K4 lands within 1 % of the float64
+    grid solver or at most twice as far from it as the float32 grid solver
+    (``near_float64``); the start holds only by the first test.  Stops
+    after ``n_iterations`` or where K4's step meets a stop test.  Returns
+    the iterations held, the worst gap to the float32 grid solver, each
+    state's numbers, the states that fail and whether the start holds."""
     from bundle_adjustment_tpu_torch.ops import ba_grid
     from bundle_adjustment_tpu_torch.ops import ba_global_kernel as gk
+    from bundle_adjustment_tpu_torch.tools.stress import lm_path
 
-    lam = step.get("lambda_init", 1e-3)
-    up, down = step.get("lambda_up", 4.0), step.get("lambda_down", 0.5)
-    lo, hi = step.get("lambda_min", 1e-10), step.get("lambda_max", 1e8)
-    state, worst, states, failures, accepted, n = g, (0.0, -1), [], [], 0, 0
-    while n < n_iterations:
-        one = dict(step, lambda_init=lam)
-        rv, tv, pt, k = gk.solve(state, **one)
-        gr = ba_grid.ba_solve_grid_impl(state, cg_precond_group=1, **one)[3]
-        k1, g1 = float(k.final_cost), float(gr.final_cost)
-        ak, ag = bool(k.accepted), bool(gr.accepted)
-        del gr
-        gap = abs(k1 - g1) / max(g1, 1e-30)
-        worst = max(worst, (gap, n))
-        rec = dict(iteration=n, lam=lam, k4=k1, grid=g1, k4_accepted=ak, grid_accepted=ag)
-        ok = math.isfinite(k1) and gap <= 1e-2 and ak == ag
+    def grid(problem, **kw):
+        return ba_grid.ba_solve_grid_impl(problem, cg_precond_group=1, **kw)
+
+    worst, states, failures, accepted, k1 = (0.0, -1), [], [], 0, float("nan")
+    for r, state, one in lm_path(gk.solve, grid, g, dict(step, max_iterations=n_iterations)):
+        n, k1, g1, ak = r["iteration"], r["a"], r["b"], r["a_accepted"]
+        worst = max(worst, (r["gap"], n))
+        rec = dict(iteration=n, lam=r["lam"], k4=k1, grid=g1, k4_accepted=ak,
+                   grid_accepted=r["b_accepted"])
+        ok = math.isfinite(k1) and r["gap"] <= 1e-2 and ak == r["b_accepted"]
         if n > 0 and not ok:
             s64 = type(state)(*(x.double() if x.is_floating_point() else x for x in state))
-            w = float(ba_grid.ba_solve_grid_impl(s64, cg_precond_group=1, **one)[3].final_cost)
+            w = float(grid(s64, **one)[3].final_cost)
             del s64
             rec["grid_float64"] = w
             ok = math.isfinite(k1) and not near_float64(
@@ -1710,13 +1841,8 @@ def lm_path_hold(torch, g, step: dict, n_iterations: int) -> dict:
         if not ok:
             failures.append(rec)
         accepted += ak
-        n += 1
-        state = state._replace(rvecs=rv, tvecs=tv, points=pt)
-        lam = max(lam * down, lo) if ak else min(lam * up, hi)
-        if int(k.stop) != 0:
-            break
-    return dict(iterations=n, accepted=accepted, worst_gap=worst[0], worst_at=worst[1],
-                states=states, failures=failures, end=k1,
+    return dict(iterations=len(states), accepted=accepted, worst_gap=worst[0],
+                worst_at=worst[1], states=states, failures=failures, end=k1,
                 from_start=not any(r["iteration"] == 0 for r in failures))
 
 
@@ -1934,10 +2060,11 @@ def held(tag: str, verdicts: dict) -> None:
                  f"(above)")
 
 
-def lehman_indoor_phase(torch, np, work: str) -> dict:
+def lehman_indoor_phase(torch, np, work: str, windows_out: str = None) -> dict:
     """Phase 11: ``preset_lehman_indoor`` as it ships on the card (see the
-    module docstring).  Returns the launches of run (a) and of the whole
-    phase per kernel."""
+    module docstring).  ``windows_out``: where (a2)'s held windows are saved
+    (``hold_wide_windows``; by default the run's output directory).  Returns
+    the launches of run (a) and of the whole phase per kernel."""
     from bundle_adjustment_tpu_torch import kernels
     from bundle_adjustment_tpu_torch import run as run_mod
     from bundle_adjustment_tpu_torch.config import CAMERA_LEHMAN, CameraModel, \
@@ -2035,7 +2162,7 @@ def lehman_indoor_phase(torch, np, work: str) -> dict:
         Map.merge_points = timed_merge
         merges.clear()
         orig_k1 = recorded(hamming_kernel, "launch", keep_k1(tag))
-        split, restore, wide = solver_split(torch)
+        split, restore, kept = solver_split(torch, keep_windows=tag == "a2")
         try:
             a = run_cli(torch, argv + extra + ["--out", os.path.join(work, f"lehman_{tag}")],
                         keep=HOLD_TO_GRID[tag])
@@ -2130,7 +2257,10 @@ def lehman_indoor_phase(torch, np, work: str) -> dict:
               + f" -- on the plain solvers: {PLAIN_SOLVER_LEHMAN[tag]}")
         held(tag, hold_to_grid(torch, tag, a["kept"], cfg.ba))
         if tag == "a2":
-            hold_wide_window(torch, wide)
+            hold_wide_windows(torch, kept, split.get("K3, D > 12", 0),
+                              sum(e["event"] == "ba_diverged" for e in windows),
+                              windows_out or os.path.join(work, f"lehman_{tag}", "windows"))
+            kept.clear()
         max_kf, max_ate, min_closures = LEHMAN_BOUNDS[tag]
         if len(ids) > max_kf or 100 * ate / extent > max_ate or len(closures) < min_closures:
             fail(f"lehman_indoor ({tag}): {len(ids)} keyframes (at most {max_kf}), ATE "
@@ -3346,7 +3476,7 @@ def profile_phase(torch) -> dict:
     return launches
 
 
-def routes_study(torch, np, names, drives) -> int:
+def routes_study(torch, np, names, drives, windows_out: str = None) -> int:
     """``--routes``: under each routing in ``names`` (``tools/stress.ROUTES``,
     several joined by "+"), phase 11's run (a) with its finalize held to the
     grid solver ("a" in ``drives``), its run (a2) with its largest polish
@@ -3354,6 +3484,9 @@ def routes_study(torch, np, names, drives) -> int:
     not raised) and the JAX stress cells' five seeds as phase 14 runs them,
     four at once ("cells"): per seed the ATE and the breakdowns beside the
     JAX cells' (``dedup_study.tally_line``), per routing the five-seed mean.
+    With ``windows_out``, (a2)'s windows past 12 slots and those that
+    diverged are held as phase 11 holds them (``hold_wide_windows``, its
+    verdicts printed, not raised) and saved under ``windows_out/<routing>``.
     A study, not a gate: it fails only where a run fails."""
     from bundle_adjustment_tpu_torch import device as device_mod
     from bundle_adjustment_tpu_torch import kernels
@@ -3408,7 +3541,7 @@ def routes_study(torch, np, names, drives) -> int:
             del a, pipe
         if "a2" in drives:
             t0 = time.perf_counter()
-            split, restore, _ = solver_split(torch)
+            split, restore, kept = solver_split(torch, keep_windows=windows_out is not None)
             try:
                 with stress.routed("lehman_indoor", **stress.routing(name)):
                     a = run_cli(torch, argv + ["--out", os.path.join(work, tag)],
@@ -3442,6 +3575,12 @@ def routes_study(torch, np, names, drives) -> int:
             with stress.routed("lehman_indoor", **stress.routing(name)):
                 holds.setdefault(name, {})["a2"] = hold_to_grid(
                     torch, "a2", a["kept"], preset_lehman_indoor().ba, study=True)
+            if windows_out is not None:
+                holds[name]["a2 windows"] = hold_wide_windows(
+                    torch, kept, split.get("K3, D > 12", 0),
+                    sum(e["event"] == "ba_diverged" and not e.get("global_ba") for e in ev),
+                    os.path.join(windows_out, tag), study=True)
+                kept.clear()
             del a, pipe
         if "cells" in drives:
             t0 = time.perf_counter()
@@ -3720,6 +3859,11 @@ def main() -> int:
                     choices=["a", "a2", "cells"],
                     help="with --routes: the drives to run under each routing (phase 11's "
                          "(a) with its finalize hold, (a2), the five JAX cells)")
+    ap.add_argument("--windows-out", default=None, metavar="DIR",
+                    help="save phase 11 (a2)'s held windows (w####.npz, windows.json; "
+                         "hold_wide_windows) in DIR, not in the run's output directory; with "
+                         "--routes, hold (a2)'s windows under each routing and save them in "
+                         "DIR/<routing>")
     args = ap.parse_args()
 
     import numpy as np
@@ -3753,7 +3897,7 @@ def main() -> int:
                 routing(name)
             except KeyError as e:
                 fail(f"--routes: {e.args[0]}")
-        return routes_study(torch, np, args.routes, args.route_drives)
+        return routes_study(torch, np, args.routes, args.route_drives, args.windows_out)
 
     from bundle_adjustment_tpu_torch import device as device_mod
     from bundle_adjustment_tpu_torch import kernels, native
@@ -4262,7 +4406,7 @@ def main() -> int:
     # -- 11. preset_lehman_indoor at full width ----------------------------
     del pipe_pcg
     gc.collect()
-    lehman = lehman_indoor_phase(torch, np, work)
+    lehman = lehman_indoor_phase(torch, np, work, args.windows_out)
 
     phase_marks.append(("12", time.perf_counter()))
     # -- 12. the native observation table and the parallel paths ------------

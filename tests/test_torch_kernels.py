@@ -334,6 +334,37 @@ def test_window_kernel_past_twelve_slots_matches_plain_on_the_card(card):
 
 
 @pytest.mark.cuda
+def test_window_kernel_holds_to_its_plain_version_along_its_path_on_the_card(card):
+    """K3 along its own float32 LM path on the committed windows of the long
+    drive (``tests/data/torch_wide_windows.npz``, live points only;
+    ``stress.float32_path``), rule (a) of ``stress.window_rule``: from
+    every state its plain version's one LM iteration ends within
+    ``stress.FLOAT32_REL``, and over all their states K3 ends above (or
+    below) it on no larger share than ``stress.share_p`` allows at
+    ``stress.SIGN_LEVEL``; one launch per state."""
+    from bundle_adjustment_tpu_torch.tools import stress
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                        "torch_wide_windows.npz")
+    kw = dict(max_iterations=50, huber_delta=1.0, lambda_init=1e-3, lambda_up=4.0,
+              lambda_down=0.5, lambda_min=1e-10, lambda_max=1e8, ftol=1e-5, xtol=1e-5)
+    with np.load(path) as z:
+        names = sorted({k.split("/")[0] for k in z.files})
+        windows = [(BAProblemGrid(**{k: torch.as_tensor(z[f"{n}/{k}"], device=card)
+                                     for k in BAProblemGrid._fields}),
+                    int(z[f"{n}/n_fixed"])) for n in names]
+    higher = lower = 0
+    for name, (g, n_fixed) in zip(names, windows):
+        before = kernels.LAUNCHES[ba_kernel.NAME]
+        s = stress.float32_path(g, dict(kw, n_fixed=n_fixed))
+        print(name, s)
+        assert kernels.LAUNCHES[ba_kernel.NAME] == before + s["states"]
+        assert s["worst"] <= stress.FLOAT32_REL, (name, s)
+        higher, lower = higher + s["higher"], lower + s["lower"]
+    assert stress.share_p(higher, lower) >= stress.SIGN_LEVEL, (higher, lower)
+
+
+@pytest.mark.cuda
 def test_window_kernel_is_deterministic_and_fills_its_stats_lanes(card):
     g = _window(card, 13, C=5, n_pts=3000, P=4096, D=5)
     opts = dict(max_iterations=50, huber_delta=1.0, lambda_init=1e-3, lambda_up=4.0,

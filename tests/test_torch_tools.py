@@ -386,6 +386,75 @@ def test_phase_11s_hold_passes_k4_and_catches_the_planted_defect(monkeypatch, na
         assert s["path_misses"] == 0 and s["converged"] is True, s
 
 
+@pytest.mark.parametrize("defect", [False, True, "K3"])
+def test_phase_11s_wide_window_hold_keeps_saves_and_rules(monkeypatch, tmp_path, defect):
+    """``chip_smoke.solver_split`` keeps the K3 windows past 12 slots that a
+    drive solves (here two synthetic windows whose observations each sit in
+    three slots, through ``ba_kernel.lm_solve`` on the CPU) and
+    ``hold_wide_windows`` holds them: one record and one saved window each,
+    ``windows.json`` beside them, every rule passing (the solves in two
+    worker processes, ``stress.window_holds``); with K3's plain
+    version adding only the first slot of a camera repeated on a point (the
+    step only: the cost is right), rule (b) fails on both windows and the
+    hold fails as phase 11 runs it; with K3 alone taking 0.9 of the right
+    step after the drive, rule (a) fails, K3 ends otherwise than in the
+    drive on both windows, and the hold fails."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from bundle_adjustment_tpu_torch.ops import ba_kernel
+    from bundle_adjustment_tpu_torch.ops.ba_grid import BAProblemGrid
+    from bundle_adjustment_tpu_torch.utils.synthetic import repeat_slots, synthetic_window
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    counts, restore, kept = chip_smoke.solver_split(torch, keep_windows=True)
+    kw = dict(n_fixed=2, max_iterations=50, huber_delta=1.0, lambda_init=1e-3,
+              lambda_up=4.0, lambda_down=0.5, lambda_min=1e-10, lambda_max=1e8, ftol=1e-5,
+              xtol=1e-5)
+    try:
+        for seed in (0, 1):
+            w = repeat_slots(synthetic_window(seed, C=5, n_pts=120, P=128, D=5), 3, seed)
+            ba_kernel.lm_solve(BAProblemGrid(**{k: torch.as_tensor(v) for k, v in w.items()}),
+                               **kw)
+    finally:
+        restore()
+    assert counts["K3, D > 12"] == 2 and len(kept) == 2
+    solve_step, plain = ba_kernel._solve_step, ba_kernel.lm_solve_plain
+    if defect is True:
+        def first_slot_only(rv, tv, pts, p, live, onehot, *a):
+            first = (torch.cumsum(onehot, dim=1) == 1).to(onehot.dtype)
+            return solve_step(rv, tv, pts, p, live, onehot * first, *a)
+        monkeypatch.setattr(ba_kernel, "_solve_step", first_slot_only)
+    elif defect == "K3":
+        def short_k3(grid, **opts):
+            ba_kernel._solve_step = lambda *a: tuple(0.9 * d for d in solve_step(*a))
+            try:
+                return plain(grid, **opts)
+            finally:
+                ba_kernel._solve_step = solve_step
+        monkeypatch.setattr(ba_kernel, "lm_solve", short_k3)
+    # the planted defects live in this process; the shipped solvers are held
+    # in two worker processes, as phase 11 holds them in six
+    workers = 0 if defect else 2
+    out = chip_smoke.hold_wide_windows(torch, kept, 2, 0, str(tmp_path), study=True,
+                                       workers=workers)
+    rule = out["rule"]
+    assert out["records"] == 2 and rule["b"]["windows"] == 2
+    assert sorted(os.listdir(tmp_path)) == ["w0000.npz", "w0001.npz", "windows.json"]
+    if defect is True:
+        assert rule["b"]["failures"] == [0, 1] and not rule["passed"], rule
+        # on the CPU K3 is its plain version: the defect moves its solves too
+        assert rule["a"]["passed"] and out["redone"] == [0, 1], (rule, out)
+    elif defect == "K3":
+        assert not rule["a"]["passed"] and rule["b"]["passed"], rule
+        assert out["redone"] == [0, 1], out
+    else:
+        assert rule["passed"] and rule["b"]["worst_path"] < 1e-9 and out["redone"] == [], rule
+        assert rule["a"]["worst"] == 0.0, rule
+    if defect is not False:
+        with pytest.raises(SystemExit):
+            chip_smoke.hold_wide_windows(torch, kept, 2, 0, str(tmp_path), workers=0)
+
+
 @pytest.mark.parametrize("k4, grid32, grid64, met, limit", [
     ((100.5, "ftol"), (103.0, "xtol"), (100.0, "ftol"), True, 0.06),
     ((105.0, "xtol"), (103.0, "xtol"), (100.0, "ftol"), True, 0.06),
