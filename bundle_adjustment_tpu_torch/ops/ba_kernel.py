@@ -213,23 +213,11 @@ def _solve_step(rv, tv, pts, p: BAProblemGrid, live, onehot, lam, delta, n_fixed
     return d_r, d_t, dp
 
 
-def lm_solve_plain(
-    grid: BAProblemGrid,
-    n_fixed: int = 1,
-    max_iterations: int = 50,
-    huber_delta: float = 1.0,
-    lambda_init: float = 1e-3,
-    lambda_up: float = 4.0,
-    lambda_down: float = 0.5,
-    lambda_min: float = 1e-10,
-    lambda_max: float = 1e8,
-    ftol: float = 1e-5,
-    xtol: float = 1e-5,
-):
-    """The plain PyTorch version of the kernel, in float32 (in float64 for
-    float64 inputs: a reference for the float32 versions' rounding).
-    Returns (rvecs, tvecs, points, BAStats), as
-    ``ba_grid.ba_solve_grid_impl``."""
+def plain_parts(grid: BAProblemGrid, n_fixed: int = 1, huber_delta: float = 1.0):
+    """What ``lm_solve_plain`` loops over: the window in its float type
+    (float64 for float64 inputs, else float32), the damped Schur step
+    ``step(rv, tv, pt, lam) -> (d_rvecs, d_tvecs, d_points)``, the Huber
+    cost ``cost_at(rv, tv, pt)`` and the squared cost ``sq_at``."""
     C = grid.rvecs.shape[0]
     if not 1 <= C - n_fixed:
         raise ValueError(f"no adjustable camera: C={C}, n_fixed={n_fixed}")
@@ -255,6 +243,27 @@ def lm_solve_plain(
     def step(rv, tv, pt, lam):
         return _solve_step(rv, tv, pt, p, live, onehot, lam, huber_delta, n_fixed)
 
+    return p, step, cost_at, sq_at
+
+
+def lm_solve_plain(
+    grid: BAProblemGrid,
+    n_fixed: int = 1,
+    max_iterations: int = 50,
+    huber_delta: float = 1.0,
+    lambda_init: float = 1e-3,
+    lambda_up: float = 4.0,
+    lambda_down: float = 0.5,
+    lambda_min: float = 1e-10,
+    lambda_max: float = 1e8,
+    ftol: float = 1e-5,
+    xtol: float = 1e-5,
+):
+    """The plain PyTorch version of the kernel, in float32 (in float64 for
+    float64 inputs: a reference for the float32 versions' rounding).
+    Returns (rvecs, tvecs, points, BAStats), as
+    ``ba_grid.ba_solve_grid_impl``."""
+    p, step, cost_at, sq_at = plain_parts(grid, n_fixed, huber_delta)
     return ba_flat.lm_loop(
         step, cost_at, sq_at, p.rvecs, p.tvecs, p.points,
         max_iterations=max_iterations, lambda_init=lambda_init,

@@ -37,11 +37,14 @@ keyframe (``DIR/w*.npz``, the live points only), for the CPU tests to hold
 to the JAX package.  The result carries ``breakdowns``: each Rotation
 trigger, each discarded frame and the map's maintenance counts, read from
 the run's events (``breakdowns``).  ``hold_window`` and ``window_rule``
-(rules (a)-(c)) hold the long drive's windows past 12 slots and those that
-diverge to K3's plain version and the grid solver (``chip_smoke.py``
-phase 11, ``tests/test_torch_stress_windows.py``), per LM state along a
-path where whole solves cannot be held (``lm_path``; ``chip_smoke.py``
-phase 9 walks K4's so).
+(rules (a)-(d)) hold the long drive's windows past 12 slots and those that
+diverge to K3's plain version, the grid solver and, on the states float32
+resolves (``slot_test``, ``state_resolution``), to K3's function in
+float64 (``chip_smoke.py`` phase 11, ``tests/test_torch_stress_windows.py``,
+``tests/test_torch_resolution.py``), per LM state along a path where whole
+solves cannot be held (``lm_path``; ``chip_smoke.py`` phase 9 walks K4's
+so); ``k4_path`` walks K4's against the grid solver's step in float64 with
+CG to convergence (phase 11's ``hold_to_grid``).
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -240,7 +244,7 @@ def routed(preset: str, grid_windows: bool = False, staged: bool = False,
         small_linalg.null_vector = nulls[null]
     if k4_defect:
         roles = gk._KERNELS._replace(setup=defective_setup(gk._KERNELS.setup, **k4_defect))
-        gk.solve = lambda grid, n_fixed=1, **opts: solve4(grid, n_fixed, **dict(opts, roles=roles))
+        gk.solve = functools.partial(solve4, roles=roles)
     try:
         yield
     finally:
@@ -340,8 +344,7 @@ def hold_window(grid, kw: dict, solvers=("k3", "plain", "grid")) -> dict:
 
     from bundle_adjustment_tpu_torch.ops import ba_grid, ba_kernel
 
-    g64 = (type(grid)(*(t.double() if t.is_floating_point() else t for t in grid))
-           if any(name.endswith("64") for name in solvers) else None)
+    g64 = as_float64(grid) if any(name.endswith("64") for name in solvers) else None
     runs = dict(k3=(ba_kernel.lm_solve, grid), plain=(ba_kernel.lm_solve_plain, grid),
                 grid=(ba_grid.ba_solve_grid_impl, grid),
                 plain64=(ba_kernel.lm_solve_plain, g64),
@@ -415,8 +418,9 @@ def lm_path(solve_a, solve_b, grid, kw: dict):
     accept/reject and ``ba.next_lambda``), and at each state ``solve_b``'s
     one LM iteration from the same state and damping.  Both start each
     state from the same inputs, so no rounding is carried from one state to
-    the next.  Yields per state its record (``iteration``, ``lam``, the
-    start cost, each solve's end cost and whether it accepted, and ``gap``,
+    the next.  Yields per state its record (``iteration``, ``lam``, each
+    solve's start cost (``start``, ``start_b``) and end cost and whether it
+    accepted, and ``gap``,
     |a - b| / |b|), the state and the one-iteration arguments; stops after
     ``kw``'s ``max_iterations`` states or where ``solve_a``'s step meets a
     stop test."""
@@ -430,7 +434,8 @@ def lm_path(solve_a, solve_b, grid, kw: dict):
         rv, tv, pt, a = solve_a(state, **one)
         b = solve_b(state, **one)[3]
         ca, cb = float(a.final_cost), float(b.final_cost)
-        rec = dict(iteration=n, lam=lam, start=float(a.initial_cost), a=ca, b=cb,
+        rec = dict(iteration=n, lam=lam, start=float(a.initial_cost),
+                   start_b=float(b.initial_cost), a=ca, b=cb,
                    a_accepted=bool(a.accepted), b_accepted=bool(b.accepted),
                    gap=abs(ca - cb) / max(abs(cb), 1e-30))
         yield rec, state, one
@@ -455,16 +460,227 @@ def path_summary(states: list) -> dict:
                 lower=sum(r["a"] < r["b"] for r in states))
 
 
-def float32_path(grid, kw: dict) -> dict:
+def as_float64(grid):
+    """``grid`` with its floating fields in float64."""
+    return type(grid)(*(t.double() if t.is_floating_point() else t for t in grid))
+
+
+def k3_terms(g):
+    """The residuals (P, D, 2) of K3's formula (``ba_kernel._slot_terms``)
+    on the window ``g``, in its float type."""
+    from bundle_adjustment_tpu_torch.ops import ba_kernel
+
+    live = (g.mask > 0).to(g.uv.dtype)
+    return ba_kernel._slot_terms(g.rvecs, g.tvecs, g.points, g, live, False)[0]
+
+
+def grid_terms(g):
+    """The residuals (P, D, 2) of the grid solver's formula
+    (``ba_grid._grid_terms``, K4's and the grid solver's) on ``g``."""
+    from bundle_adjustment_tpu_torch.ops import ba_grid
+
+    return ba_grid._grid_terms(g.rvecs, g.tvecs, g.points,
+                               g._replace(mask=g.mask.to(g.uv.dtype)), with_jac=False)[0]
+
+
+#: the slot test (``slot_test``): a live slot's float32 residual is
+#: unresolved where it lies further than this from its float64 residual,
+#: relative to the norm of its projection in pixels.  From the CPU, on the
+#: three committed windows of (a2) (``tests/test_torch_resolution.py`` as a
+#: script; PERF.md section 6): 99.99 % of the live slots of windows
+#: 14 and 62, whose float32 start costs resolve (within 2.6e-6 of
+#: float64), lie below 9.6e-6, and the bulk of every window a few float32
+#: roundings of the projection (median 0.5-3.1e-7)
+SLOT_REL = 1e-5
+#: the state test (``state_resolution``): the float32 start costs (the
+#: solver's under test and its plain version's) and the float64 one within
+#: this relative spread (ROADMAP Queue 3 item 23's proposal)
+START_REL = 1e-5
+#: and the float64 cost change of the step past this many times the float32
+#: spread of the start and of the trial.  The float32 step on these windows
+#: is heavy-tailed: a point-block inverse formula outside the spread's two
+#: can land far outside it.  From the CPU, on the three committed windows
+#: (``tests/test_torch_resolution.py`` as a script; PERF.md section 6):
+#: with the spread of K3's formula and the grid solver's, the plain
+#: version with an LU inverse or a Jacobi-scaled adjugate decides as
+#: float64 on all 21 states resolved at 100, the LU one not at 50
+RESOLVE_MARGIN = 100.0
+
+
+def slot_test(grid, terms32=k3_terms, terms64=None, bound: float = SLOT_REL,
+              most: int = 8) -> dict:
+    """The slot test of one state ``grid``: each live slot's float32
+    residual as ``terms32`` evaluates it (K3's formula, ``k3_terms``, or the
+    grid solver's, ``grid_terms``) against the float64 residual from the
+    same inputs (``terms64``, by default the same formula).  A slot is
+    unresolved where the two lie further apart than ``bound`` times its
+    float64 projection's norm.
+    Returns the live slots, the worst relative gap, every unresolved slot
+    (``keys``: (point, slot)) and the ``most`` worst of them, each (point,
+    slot, camera, gap in pixels, relative gap, depth z in its camera,
+    |z| / |X_c|, and (|R X| + |t|) / |X_c|: how far the camera-frame point
+    cancels)."""
+    import torch
+
+    from bundle_adjustment_tpu_torch.ops.lie import so3_exp
+
+    g32 = type(grid)(*(t.float() if t.is_floating_point() else t for t in grid))
+    g64 = as_float64(grid)
+    r64 = (terms64 or terms32)(g64)
+    gap = torch.linalg.vector_norm(terms32(g32).double() - r64, dim=-1)
+    proj = torch.linalg.vector_norm(r64 + g64.uv, dim=-1)
+    live = g64.mask > 0
+    rel = torch.where(live, gap / proj.clamp(min=1e-30), torch.zeros_like(gap))
+    bad = (rel > bound).nonzero()
+    worst = bad[torch.argsort(rel[bad[:, 0], bad[:, 1]], descending=True)[:most]]
+    slots = []
+    if len(worst):
+        p, d = worst[:, 0], worst[:, 1]
+        cam = g64.cam_slot[p, d].long()
+        RX = torch.einsum("sij,sj->si", so3_exp(g64.rvecs)[cam], g64.points[p])
+        Xc = RX + g64.tvecs[cam]
+        n = torch.linalg.vector_norm(Xc, dim=-1)
+        cancel = (torch.linalg.vector_norm(RX, dim=-1)
+                  + torch.linalg.vector_norm(g64.tvecs[cam], dim=-1)) / n
+        slots = [dict(point=int(a), slot=int(b), camera=int(c), px=float(gap[a, b]),
+                      rel=float(rel[a, b]), z=float(z), z_over_norm=float(abs(z) / m),
+                      cancel=float(q))
+                 for a, b, c, z, m, q in zip(p, d, cam, Xc[:, 2], n, cancel)]
+    return dict(live=int(live.sum()), worst=float(rel.max()),
+                keys=[tuple(k) for k in bad.tolist()], slots=slots)
+
+
+def state_resolution(start32: tuple, start64: float, trial32: tuple, trial64: float) -> dict:
+    """The state test of one LM state and the decision taken from it:
+    ``start32``, the float32 costs of the start (the solver under test's,
+    its plain version's), ``start64`` its float64 cost; ``trial32``, the
+    float32 spread of the float64 witness's trial (its cost evaluated in
+    float32, and where the plain version's own float32 steps land,
+    ``own_trial``), ``trial64`` the trial's float64 cost.  Resolved where the start
+    costs lie within ``START_REL`` of each other and the float64 cost change
+    of the step is larger than ``RESOLVE_MARGIN`` times the float32 spread of
+    the start and that of the trial (``band``)."""
+    costs = (*start32, start64)
+    band = max([abs(c - start64) for c in start32] + [abs(c - trial64) for c in trial32])
+    if not all(map(math.isfinite, (*costs, *trial32))):    # a float32 step that overflows
+        band = math.inf
+    change = abs(trial64 - start64)
+    start_ok = max(costs) - min(costs) <= START_REL * abs(start64)
+    return dict(resolved=bool(start_ok and change > RESOLVE_MARGIN * band),
+                start_spread=(max(costs) - min(costs)) / max(abs(start64), 1e-30),
+                change=change, band=band)
+
+
+def own_trial(cost32, cost64, x32, d, trial64: float) -> tuple:
+    """A float32 plain step ``d`` from ``x32`` as the float32 spread of the
+    witness's trial sees it: the float64 cost of its trial as float32 holds
+    it (``x32 + d`` rounded to float32), and the float64 trial cost
+    ``trial64`` moved by the float32 evaluation's error there (the float32
+    cost less the float64 one)."""
+    trial = tuple(a + b for a, b in zip(x32, d))
+    c64 = float(cost64(*(t.double() for t in trial)))
+    return c64, trial64 + float(cost32(*trial)) - c64
+
+
+def k3_witness(state, one: dict, rec: dict) -> dict:
+    """The float64 decision witness of one state of K3's path (``lm_path``'s
+    ``state``, one-iteration arguments ``one`` and record ``rec``): K3's
+    function in float64 (``ba_kernel.plain_parts``, ``lm_solve_plain``'s
+    iteration) one LM iteration from the same state and damping, and
+    ``state_resolution`` of the state from K3's and its plain version's
+    start costs and the float32 spread of the trial: the witness's trial
+    costed by K3 (a launch of no LM iteration) and by the plain version in
+    float32, and the trials of the plain version's float32 step with each
+    of two point-block inverses, K3's (the TPU kernel's formula) and the
+    grid solver's (``one_point_inverse``), each costed in float64 and in
+    float32 (``own_trial``); where the start costs already lie past
+    ``START_REL``, the state does not resolve and the spread is not taken.
+    Returns the witness's decision and end cost, K3's gap to it, and the
+    resolution."""
+    import torch
+
+    from bundle_adjustment_tpu_torch.ops import ba_kernel
+
+    n_fixed, delta = one.get("n_fixed", 1), one.get("huber_delta", 1.0)
+    lam = one["lambda_init"]
+    p64, step64, cost64, _ = ba_kernel.plain_parts(as_float64(state), n_fixed, delta)
+    x64 = (p64.rvecs, p64.tvecs, p64.points)
+    trial = tuple(a + d for a, d in zip(x64, step64(*x64, torch.tensor(
+        lam, dtype=torch.float64, device=p64.uv.device))))
+    c0, c1 = float(cost64(*x64)), float(cost64(*trial))
+    starts = (rec["start"], rec["start_b"], c0)
+    res = dict(resolved=False, change=abs(c1 - c0), band=math.inf,
+               start_spread=(max(starts) - min(starts)) / max(abs(c0), 1e-30))
+    if res["start_spread"] <= START_REL:
+        _, step32, cost32, _ = ba_kernel.plain_parts(state, n_fixed, delta)
+        x32 = (state.rvecs, state.tvecs, state.points)
+        lam32 = torch.tensor(lam, dtype=torch.float32, device=state.uv.device)
+        own = [step32(*x32, lam32)]
+        with one_point_inverse():
+            own.append(step32(*x32, lam32))
+        t32 = tuple(t.float() for t in trial)
+        k3_trial = ba_kernel.lm_solve(state._replace(rvecs=t32[0], tvecs=t32[1], points=t32[2]),
+                                      **dict(one, max_iterations=0))[3].initial_cost
+        res = state_resolution((rec["start"], rec["start_b"]), c0, (
+            float(k3_trial), float(cost32(*t32)),
+            *(c for d in own for c in own_trial(cost32, cost64, x32, d, c1))), c1)
+    end = c1 if c1 < c0 else c0
+    return dict(res, accepted64=c1 < c0, end64=end,
+                gap64=abs(rec["a"] - end) / max(abs(end), 1e-30))
+
+
+def resolved_summary(states: list) -> dict:
+    """The witness's records of one path (``k3_witness`` merged into
+    ``lm_path``'s): the states resolved and not; in each group those where
+    K3 decides otherwise than float64 (and, beside them, where its plain
+    version does); on the resolved ones K3's worst gap to float64's end
+    cost and the states where K3 ends above and below its plain version."""
+    res = [r for r in states if r["resolved"]]
+    un = [r for r in states if not r["resolved"]]
+
+    def otherwise(group, key):
+        return sum(r[key] != r["accepted64"] for r in group)
+
+    return dict(resolved=len(res), unresolved=len(un),
+                k3_otherwise=otherwise(res, "a_accepted"),
+                k3_otherwise_unresolved=otherwise(un, "a_accepted"),
+                plain_otherwise=otherwise(res, "b_accepted"),
+                plain_otherwise_unresolved=otherwise(un, "b_accepted"),
+                worst64=max([r["gap64"] for r in res] or [0.0]),
+                higher=sum(r["a"] > r["b"] for r in res),
+                lower=sum(r["a"] < r["b"] for r in res),
+                decided=[r["iteration"] for r in res if r["a_accepted"] != r["accepted64"]])
+
+
+def float32_path(grid, kw: dict, witness: bool = True) -> dict:
     """Rule (a)'s test of one window: K3's path on ``grid`` as it runs it
     (``ba_kernel.lm_solve``: the kernel on the card, its plain version on
     the CPU), one LM iteration at a time, and at each state its plain
     version's one LM iteration from the same state and damping, both in
-    float32 (``lm_path``); ``path_summary`` of the states."""
+    float32 (``lm_path``); ``path_summary`` of the states.  Rule (d)'s test
+    beside it (``resolution``): at each state the float64 decision witness
+    and the state test (``k3_witness``, ``resolved_summary``), and the slot
+    test of every state (``slot_test``): the distinct unresolved slots over
+    the path (``n_slots``) and the worst of them (``slots``); without
+    ``witness``, rule (a)'s test alone."""
     from bundle_adjustment_tpu_torch.ops import ba_kernel
 
-    return path_summary([r for r, _, _ in lm_path(
-        ba_kernel.lm_solve, ba_kernel.lm_solve_plain, grid, kw)])
+    states, keys, worst = [], set(), {}
+    for r, state, one in lm_path(ba_kernel.lm_solve, ba_kernel.lm_solve_plain, grid, kw):
+        if not witness:
+            states.append(r)
+            continue
+        states.append(dict(r, **k3_witness(state, one, r)))
+        st = slot_test(state)
+        keys.update(st["keys"])
+        for s in st["slots"]:
+            if s["rel"] > worst.get((s["point"], s["slot"]), {"rel": 0.0})["rel"]:
+                worst[s["point"], s["slot"]] = s
+    if not witness:
+        return path_summary(states)
+    return dict(path_summary(states), resolution=dict(
+        resolved_summary(states), n_slots=len(keys),
+        slots=sorted(worst.values(), key=lambda s: -s["rel"])[:8]))
 
 
 def grid_point_inverse(V, lam, point_mask):
@@ -503,7 +719,7 @@ def float64_path(grid, kw: dict) -> dict:
     states."""
     from bundle_adjustment_tpu_torch.ops import ba_grid, ba_kernel
 
-    g64 = type(grid)(*(t.double() if t.is_floating_point() else t for t in grid))
+    g64 = as_float64(grid)
     with one_point_inverse():
         return path_summary([r for r, _, _ in lm_path(
             ba_kernel.lm_solve_plain, ba_grid.ba_solve_grid_impl, g64, kw)])
@@ -527,7 +743,7 @@ def point_inverse_gap(grid, kw: dict) -> dict:
 
     from bundle_adjustment_tpu_torch.ops import ba, ba_kernel
 
-    g = type(grid)(*(t.double() if t.is_floating_point() else t for t in grid))
+    g = as_float64(grid)
     live = (g.mask > 0).double()
     r, _, Jp = ba_kernel._slot_terms(g.rvecs, g.tvecs, g.points, g, live, with_jac=True)
     delta, lam = kw.get("huber_delta", 1.0), kw.get("lambda_init", 1e-3)
@@ -541,6 +757,254 @@ def point_inverse_gap(grid, kw: dict) -> dict:
     sound = g.point_mask & (torch.linalg.cond(ba._damp(V, lam)) < INVERSE_COND)
     return dict(worst=float(gap[sound].max()) if bool(sound.any()) else 0.0,
                 sound=int(sound.sum()), ill=int(g.point_mask.sum() - sound.sum()))
+
+
+#: the K4 witness's CG (``converged_cg``): to this relative residual, in
+#: float64, or to ``CG_UNKNOWNS`` iterations per camera unknown
+CG_TOL64 = 1e-10
+CG_UNKNOWNS = 4
+#: K4's step and end cost per resolved state (``k4_rule``): within this
+#: relative gap of the float64 witness's, or at most twice as far from it
+#: as the farther of the two float32 plain steps with K4's CG cap (the
+#: capped CG's truncation), as ``chip_smoke.near_float64`` holds the roles
+K4_STEP_REL = 1e-2
+
+
+def _pcg_to_tolerance(matvec, b, Minv, iters, tol, live=None):
+    """``ba._pcg_blocked``'s iteration run until its relative residual falls
+    to ``CG_TOL64`` (read on the host each iteration) or for
+    ``CG_UNKNOWNS`` times the unknowns (``iters`` and ``tol`` are the
+    caller's cap and are not read); the iterations taken and the residual
+    reached go to ``_pcg_to_tolerance.last``."""
+    import torch
+
+    if callable(Minv):
+        precond = Minv
+    else:
+        def precond(r):
+            return torch.sum(Minv * r[:, None, :], dim=-1)
+    bnorm = float(torch.linalg.vector_norm(b))
+    x, r = torch.zeros_like(b), b
+    z = precond(r)
+    p, rz = z, torch.sum(r * z)
+    n = 0
+    for n in range(CG_UNKNOWNS * b.numel()):
+        if float(torch.linalg.vector_norm(r)) <= CG_TOL64 * bnorm:
+            break
+        Ap = matvec(p)
+        alpha = rz / torch.sum(p * Ap)
+        x, r = x + alpha * p, r - alpha * Ap
+        z = precond(r)
+        rz, rz_old = torch.sum(r * z), rz
+        p = z + (rz / rz_old) * p
+    _pcg_to_tolerance.last = dict(iterations=n, residual=float(
+        torch.linalg.vector_norm(r)) / max(bnorm, 1e-300))
+    return x
+
+
+@contextlib.contextmanager
+def converged_cg():
+    """The grid PCG solver's camera solve to convergence inside the block:
+    ``ba._pcg_blocked`` replaced by ``_pcg_to_tolerance``."""
+    from bundle_adjustment_tpu_torch.ops import ba
+
+    own = ba._pcg_blocked
+    ba._pcg_blocked = _pcg_to_tolerance
+    try:
+        yield
+    finally:
+        ba._pcg_blocked = own
+
+
+def k4_roles():
+    """The roles ``ba_global_kernel.solve`` runs under the routing in
+    effect (``routed``: a planted defect of the setup role), else K4's."""
+    from bundle_adjustment_tpu_torch.ops import ba_global_kernel as gk
+
+    return getattr(gk.solve, "keywords", {}).get("roles", gk._KERNELS)
+
+
+def k4_trial(grid, kw: dict, roles):
+    """One LM iteration of ``ba_global_kernel.GlobalLM`` with ``roles`` on
+    ``grid`` (``kw``: the one-iteration arguments, CG to its cap), its
+    trial kept whatever the decision (the start cost set above every trial
+    for the body, the decision taken after against the start cost).
+    Returns (the solve, its start cost, the trial cost, the trial (rvecs,
+    tvecs, points), the step (d_rvecs, d_tvecs, d_points))."""
+    from bundle_adjustment_tpu_torch.ops import ba_global_kernel as gk
+
+    n_fixed = kw.get("n_fixed", 1)
+    opts = {k: v for k, v in kw.items() if k not in ("n_fixed", "cg_precond_group")}
+    lm = gk.GlobalLM(grid, n_fixed, **dict(opts, roles=roles))
+    st = lm.state
+    x0 = tuple(st[k].clone() for k in ("rv", "tv", "ptT"))
+    start = float(lm.initial[0])
+    st["cost"].fill_(float("inf"))
+    lm.body()
+    trial = (st["rv"], st["tv"], st["ptT"].T)
+    step = tuple(a - b for a, b in zip((st["rv"], st["tv"], st["ptT"]), x0))
+    return lm, start, float(st["cost"]), trial, (step[0], step[1], step[2].T)
+
+
+def _grid_step(grid, kw: dict, lam: float):
+    """The grid PCG solver's step (``ba_grid._solve_step_pcg``, block-Jacobi,
+    CG as ``kw`` caps it) on ``grid`` in its float type at damping ``lam``."""
+    import torch
+
+    from bundle_adjustment_tpu_torch.ops import ba_grid
+
+    n_fixed = kw.get("n_fixed", 1)
+    p = grid._replace(mask=grid.mask.to(grid.uv.dtype))
+    cams = torch.arange(p.rvecs.shape[0] - n_fixed, device=p.uv.device)
+    onehot_T = (cams[:, None] == (p.cam_slot.long().reshape(-1)[None, :] - n_fixed)
+                ).to(p.uv.dtype)
+    out = ba_grid._solve_step_pcg(p.rvecs, p.tvecs, p.points, p, torch.tensor(
+        lam, dtype=p.uv.dtype, device=p.uv.device), kw.get("huber_delta", 1.0), n_fixed,
+        onehot_T, kw["cg_iters"], kw.get("cg_tol", 0.0))
+    return out[:3]
+
+
+def _grid_cost(grid, x, delta: float) -> float:
+    """The Huber cost of the grid solver's formula (``grid_terms``) at
+    ``x`` = (rvecs, tvecs, points) on ``grid``'s observations, in ``x``'s
+    float type."""
+    from bundle_adjustment_tpu_torch.ops import ba
+
+    g = grid._replace(rvecs=x[0], tvecs=x[1], points=x[2])
+    return float(ba.robust_cost(grid_terms(g._replace(uv=g.uv.to(x[0].dtype),
+                                                      K=g.K.to(x[0].dtype))), delta))
+
+
+def step_gaps(step, ref) -> dict:
+    """The relative gaps of a step (d_rvecs, d_tvecs, d_points) to ``ref``
+    per lane group: rotations, translations, points."""
+    import torch
+
+    return {k: float(torch.linalg.vector_norm(a.double() - b.double())
+                     / torch.linalg.vector_norm(b.double()).clamp(min=1e-300))
+            for k, a, b in zip(("rotation", "translation", "points"), step, ref)}
+
+
+def k4_witness(state, kw: dict, lam: float, k4: tuple) -> dict:
+    """The float64 witness of one state of K4's path (``state``, the
+    one-iteration arguments ``kw`` at damping ``lam``, ``k4`` = ``k4_trial``'s
+    result): the grid PCG solver's step in float64 with CG to convergence
+    (``converged_cg``), its decision and end cost; ``state_resolution``
+    from K4's start cost and the grid solver's in float32, and the float32
+    spread of the trial: the witness's trial costed by K4's cost role and
+    by the grid solver's formula in float32, and the trials of the two
+    float32 plain steps with K4's CG cap (the grid solver's and K4's plain
+    roles', ``ba_global_kernel._PLAIN``), each costed in float64 and in
+    float32 (``own_trial``).  Returns the resolution, both decisions, K4's
+    end-cost gap and the step gaps (``step_gaps``) of K4 and of the two float32 steps to the witness's."""
+    from bundle_adjustment_tpu_torch.ops import ba_global_kernel as gk
+
+    lm, k4_start, k4_cost, _, k4_step = k4
+    delta = kw.get("huber_delta", 1.0)
+    g64 = as_float64(state)
+    x64 = (g64.rvecs, g64.tvecs, g64.points)
+    with converged_cg():
+        d64 = _grid_step(g64, kw, lam)
+    cg = dict(_pcg_to_tolerance.last)
+    trial64 = tuple(a + d for a, d in zip(x64, d64))
+    c0, c1 = _grid_cost(g64, x64, delta), _grid_cost(g64, trial64, delta)
+    x32 = (state.rvecs, state.tvecs, state.points)
+    steps32 = dict(grid=_grid_step(state, kw, lam),
+                   plain=k4_trial(state, dict(kw, lambda_init=lam), gk._PLAIN)[4])
+    t32 = tuple(t.float() for t in trial64)
+    k4_eval = float(lm._cost(t32[0], t32[1], t32[2].T.contiguous())[0])
+    res = state_resolution((k4_start, _grid_cost(state, x32, delta)), c0, (
+        k4_eval, _grid_cost(state, t32, delta),
+        *(c for d in steps32.values() for c in own_trial(
+            lambda *x: _grid_cost(state, x, delta), lambda *x: _grid_cost(g64, x, delta),
+            x32, d, c1))), c1)
+    accepted64, k4_accepted = c1 < c0, k4_cost < k4_start
+    end64 = c1 if accepted64 else c0
+    k4_end = k4_cost if k4_accepted else k4_start
+    plain_end = []
+    for d in steps32.values():
+        c = _grid_cost(g64, tuple(a + b.double() for a, b in zip(x64, d)), delta)
+        plain_end.append(abs(min(c, c0) - end64) / max(abs(end64), 1e-30))
+    del g64, x64, trial64
+    return dict(res, accepted64=accepted64, k4_accepted=k4_accepted, end64=end64, k4_end=k4_end,
+                end_gap=abs(k4_end - end64) / max(abs(end64), 1e-30), plain_end_gap=max(plain_end),
+                k4_gaps=step_gaps(k4_step, d64),
+                plain_gaps={k: max(step_gaps(d, d64)[k] for d in steps32.values())
+                            for k in ("rotation", "translation", "points")},
+                cg=cg, lam=lam)
+
+
+def k4_rule(rec: dict) -> list:
+    """What fails ``k4_path``'s rule on one resolved state ``rec``
+    (``k4_witness``): K4 deciding otherwise than the float64 witness, its
+    end cost, or a lane group of its step, each farther from the witness's
+    than ``K4_STEP_REL`` and than twice the float32 plain steps' gap."""
+    out = []
+    if rec["k4_accepted"] != rec["accepted64"]:
+        out.append("decision")
+    if not (rec["end_gap"] <= K4_STEP_REL or rec["end_gap"] <= 2 * rec["plain_end_gap"]):
+        out.append("end cost")
+    out += [k for k, v in rec["k4_gaps"].items()
+            if not (v <= K4_STEP_REL or v <= 2 * rec["plain_gaps"][k])]
+    return out
+
+
+def k4_path(grid, kw: dict) -> dict:
+    """K4's path per LM state against the float64 witness: K4 (the roles
+    in effect, ``k4_roles``) one LM iteration at a time from the start
+    (``kw``: the one-iteration arguments, CG to its cap), each from the
+    state and damping the previous one left, over ``kw``'s LM cap or its
+    first ``PATH_STATES`` (over the 20 of (a2)'s polish the walk took
+    63.6 s of ``chip_smoke.py``'s time limit on an NVIDIA H100 80GB HBM3,
+    and none resolved); at each
+    state whose float32 start costs (K4's and the grid solver's) lie within
+    ``START_REL`` of float64's, ``k4_witness`` and, on a resolved state,
+    ``k4_rule`` (the others cannot resolve: no witness).  Returns the
+    states, those witnessed and resolved, the failures, the resolved
+    states' worst gaps, the witness's CG iterations, the slot test of the
+    start (``slot_test`` of the grid solver's formula) and the seconds."""
+    import torch
+
+    from bundle_adjustment_tpu_torch.ops import ba
+
+    t0 = time.perf_counter()
+    roles, lam, state = k4_roles(), kw.get("lambda_init", 1e-3), grid
+    delta = kw.get("huber_delta", 1.0)
+    recs = []
+    for n in range(min(kw.get("max_iterations", 50), PATH_STATES)):
+        k4 = k4_trial(state, dict(kw, lambda_init=lam, max_iterations=1), roles)
+        g64 = as_float64(state)
+        costs = (k4[1], _grid_cost(state, (state.rvecs, state.tvecs, state.points), delta),
+                 _grid_cost(g64, (g64.rvecs, g64.tvecs, g64.points), delta))
+        del g64
+        rec = dict(iteration=n, lam=lam, resolved=False, k4_accepted=k4[2] < k4[1],
+                   start_spread=(max(costs) - min(costs)) / max(abs(costs[2]), 1e-30))
+        if rec["start_spread"] <= START_REL:
+            rec.update(k4_witness(state, kw, lam, k4))
+        rec["fails"] = k4_rule(rec) if rec["resolved"] else []
+        recs.append(rec)
+        if rec["k4_accepted"]:
+            state = state._replace(rvecs=k4[3][0].clone(), tvecs=k4[3][1].clone(),
+                                   points=k4[3][2].contiguous())
+        lam = float(ba.next_lambda(torch.tensor(lam, dtype=torch.float64),
+                                   torch.tensor(rec["k4_accepted"]), kw.get("lambda_up", 4.0),
+                                   kw.get("lambda_down", 0.5), kw.get("lambda_min", 1e-10),
+                                   kw.get("lambda_max", 1e8)))
+        del k4
+    seen = [r for r in recs if "accepted64" in r]
+    res = [r for r in seen if r["resolved"]]
+    slots = slot_test(grid, grid_terms)
+    return dict(states=len(recs), witnessed=len(seen), resolved=len(res), slots=dict(
+                    live=slots["live"], unresolved=len(slots["keys"]), worst=slots["slots"][:3]),
+                failures=[(r["iteration"], r["fails"]) for r in res if r["fails"]],
+                otherwise_unresolved=sum(r["k4_accepted"] != r["accepted64"]
+                                         for r in seen if not r["resolved"]),
+                worst_end=max([r["end_gap"] for r in res] or [0.0]),
+                worst_step={k: max([r["k4_gaps"][k] for r in res] or [0.0])
+                            for k in ("rotation", "translation", "points")},
+                worst_start=max(r["start_spread"] for r in recs),
+                cg=max([r["cg"]["iterations"] for r in seen] or [0]),
+                records=recs, seconds=time.perf_counter() - t0)
 
 
 def sign_test_p(k: int, n: int, share: float = 0.5) -> float:
@@ -667,6 +1131,20 @@ def window_rule(records: list) -> dict:
         of k of n at 1/2 must not fall below ``SIGN_LEVEL``; the mean of
         (K3 - grid) / grid over them and its standard error beside it.
 
+    (d) K3 against the float64 decision witness on the states of its float32
+        path that float32 resolves (``path32``'s ``resolution``,
+        ``float32_path``, ``state_resolution``): on every such state K3
+        accepts or rejects as K3's function does in float64 from the same
+        state and damping and ends within ``FLOAT32_REL`` of it; on each
+        window the share test of K3 against its plain version over those
+        states does not fall below ``WINDOW_LEVEL``; and over those of all
+        windows K3 ends above its plain version on no larger share than a
+        one-sided binomial test at ``STATE_SHARE`` allows at
+        ``SIGN_LEVEL``.  One-sided: the state test selects states where the
+        plain version's own step lands near float64's, so another float32
+        step ends below it more often than above (an LU point-block inverse
+        on 15 of 18 on the CPU), and a step short of the right one above.
+
     Returns each rule's verdict with the windows that fail it, and
     ``passed``."""
     fail_a = [r["index"] for r in records if r["path32"]["worst"] > FLOAT32_REL]
@@ -696,11 +1174,46 @@ def window_rule(records: list) -> dict:
                     if share_p(r["path32"]["higher"], r["path32"]["lower"]) < WINDOW_LEVEL],
              decide_otherwise=sum(r["path32"]["decide_otherwise"] for r in records),
              whole_parted=[r["index"] for r in records if not near_plain(r)])
+    d = resolved_rule(records)
     return dict(a=a, b=dict(passed=not fail_b, failures=fail_b, whole_parted=parted64,
                             windows=len(with64),
                             worst_path=max([r["path64"]["worst"] for r in with64] or [0.0]),
                             worst_inverse=max([r["inverse"]["worst"] for r in with64] or [0.0])),
-                c=c, passed=a["passed"] and not fail_b and c["passed"])
+                c=c, d=d, passed=a["passed"] and not fail_b and c["passed"] and d["passed"])
+
+
+def resolved_rule(records: list) -> dict:
+    """Rule (d) of ``window_rule`` over the windows' ``path32`` records that
+    carry the witness (``float32_path``'s ``resolution``): the windows where
+    K3 decides otherwise than float64 on a resolved state, ends past
+    ``FLOAT32_REL`` from it there, or whose resolved states fail the share
+    test at ``WINDOW_LEVEL``; the counts over all windows and the one-sided
+    test of K3 above its plain version beside them."""
+    res = [(r["index"], r["path32"]["resolution"]) for r in records
+           if "resolution" in r["path32"]]
+    if not res:
+        return dict(passed=True, failures={}, resolved=0)
+
+    def p(q):
+        return share_p(q["higher"], q["lower"])
+
+    fails = dict(decide=[i for i, q in res if q["k3_otherwise"]],
+                 end=[i for i, q in res if q["worst64"] > FLOAT32_REL],
+                 split=[i for i, q in res if p(q) < WINDOW_LEVEL])
+    least = min(res, key=lambda iq: p(iq[1]))
+
+    def total(key):
+        return sum(q[key] for _, q in res)
+
+    high = total("higher")
+    p_high = sign_test_p(high, high + total("lower"), STATE_SHARE)
+    return dict(passed=not any(fails.values()) and p_high >= SIGN_LEVEL, failures=fails,
+                **{k: total(k) for k in ("resolved", "unresolved", "k3_otherwise",
+                                         "k3_otherwise_unresolved", "plain_otherwise",
+                                         "plain_otherwise_unresolved", "higher", "lower",
+                                         "n_slots")},
+                p=p_high, worst64=max(q["worst64"] for _, q in res), least_p=p(least[1]),
+                least_window=least[0])
 
 
 def hold_one(grid, kw: dict, float64: bool) -> dict:

@@ -123,7 +123,15 @@ Phases, each of which exits non-zero when it fails:
    the grid
    solver's in float64 per state of its path with one point-block inverse,
    and that inverse against the grid solver's, (c) the sign test of the
-   float32 K3 and grid solves where they part; the diverged windows'
+   float32 K3 and grid solves where they part, (d) K3 against K3's
+   function in float64 one LM iteration from each state of its path that
+   float32 resolves (``stress.state_resolution``: deciding alike, within
+   10 %, K3 above its plain version on no more of those states than
+   chance allows), with each window's resolved and unresolved states and
+   the slots whose float32 residuals do not resolve (``stress.slot_test``);
+   K4's path per LM state on (a)'s finalize and (a2)'s polish held the
+   same way to the grid solver's step in float64 with CG to convergence
+   (``stress.k4_path``, printed, not gated); the diverged windows'
    solves that diverge again; each
    run held to ``LEHMAN_BOUNDS`` (keyframes,
    ATE, closures), (a2) to the keyframes and closures it makes as it
@@ -1724,6 +1732,7 @@ def hold_wide_windows(torch, kept: list, n_wide: int, n_diverged: int, out_dir: 
               + f"; float32 path over {p32['states']} states, worst gap {p32['worst']:.3e} "
               f"(iteration {p32['at']}, {p32['decide_otherwise']} decided otherwise, K3 the "
               f"higher on {p32['higher']}, the lower on {p32['lower']})"
+              + resolution_line(r["path32"]["resolution"])
               + (f"; float64 path over {r['path64']['states']} states, worst gap "
                  f"{r['path64']['worst']:.3e} (iteration {r['path64']['at']}, "
                  f"{r['path64']['decide_otherwise']} decided otherwise), point-block inverse "
@@ -1736,7 +1745,7 @@ def hold_wide_windows(torch, kept: list, n_wide: int, n_diverged: int, out_dir: 
     redone = [r["index"] for r in records
               if {k: v for k, v in r["k3"].items() if k != "seconds"} != r["k3_drive"]]
     chosen = stress.wide_window_choice(records, rule)
-    a, c = rule["a"], rule["c"]
+    a, c, d = rule["a"], rule["c"], rule["d"]
     seconds = {n: sum(r[n]["seconds"] for r in records if n in r) for n in names}
     print(f"lehman_indoor (a2): {len(records)} windows held ({len(wide)} past 12 slots, D "
           f"{min(r['D'] for r in records)}-{max(r['D'] for r in records)}; float64 pairs on "
@@ -1758,7 +1767,17 @@ def hold_wide_windows(torch, kept: list, n_wide: int, n_diverged: int, out_dir: 
           f"(c) the float32 K3 and grid solves part on n = {c['n']}, K3 the higher on k = "
           f"{c['k']}, one-sided p = {c['p']:.4g} (fails below {stress.SIGN_LEVEL}), mean "
           f"(K3 - grid) / grid {c['mean_gap']:+.4%} +- {c['stderr']:.4%}: "
-          f"{'holds' if c['passed'] else 'fails'}; to commit {chosen}; seconds by solver "
+          f"{'holds' if c['passed'] else 'fails'}; "
+          f"(d) K3 against float64 on the states float32 resolves, {d['resolved']} of "
+          f"{d['resolved'] + d['unresolved']}: K3 decides otherwise on {d['k3_otherwise']} "
+          f"(its plain version on {d['plain_otherwise']}; on the unresolved states K3 on "
+          f"{d['k3_otherwise_unresolved']}, the plain version on "
+          f"{d['plain_otherwise_unresolved']}), worst gap to float64 {d['worst64']:.3e}, K3 "
+          f"above its plain version on {d['higher']} of {d['higher'] + d['lower']} (one-sided "
+          f"p = {d['p']:.4g}), the share test of one window at least p = {d['least_p']:.3g} on "
+          f"window {d['least_window']}; {d['n_slots']} unresolved slots over the windows: "
+          f"{'holds' if d['passed'] else 'fails on ' + str(d['failures'])}; "
+          f"to commit {chosen}; seconds by solver "
           f"{ {n: round(s, 1) for n, s in seconds.items()} } in {workers or 1} processes, "
           f"the float32 and float64 stages {stage_s['float32']:.1f} and "
           f"{stage_s['float64']:.1f} s, in all "
@@ -1771,8 +1790,25 @@ def hold_wide_windows(torch, kept: list, n_wide: int, n_diverged: int, out_dir: 
     if not study and (redone or not rule["passed"]):
         fail(f"lehman_indoor (a2): the windows past 12 slots or that diverged fail "
              f"stress.window_rule, or K3 ends otherwise than in the drive on {redone}: "
-             f"{json.dumps({k: rule[k] for k in 'abc'})}")
+             f"{json.dumps({k: rule[k] for k in 'abcd'})}")
     return dict(rule=rule, chosen=chosen, records=len(records), redone=redone)
+
+
+def resolution_line(res: dict) -> str:
+    """Rule (d)'s part of a window's line (``stress.float32_path``'s
+    ``resolution``): the resolved and unresolved states, K3's and its plain
+    version's decisions against float64 in each group, and the worst
+    unresolved slots (point, slot, camera, gap in pixels and relative to
+    the projection, depth z, |z| / |X_c|, (|R X| + |t|) / |X_c|)."""
+    return (f"; resolved {res['resolved']} of {res['resolved'] + res['unresolved']} states: "
+            f"K3 decides otherwise than float64 on {res['k3_otherwise']} resolved "
+            f"({res['decided']}) and {res['k3_otherwise_unresolved']} unresolved (its plain "
+            f"version {res['plain_otherwise']} and {res['plain_otherwise_unresolved']}), "
+            f"worst gap to float64 {res['worst64']:.3e}, above its plain version on "
+            f"{res['higher']}, below on {res['lower']}; {res['n_slots']} unresolved slots"
+            + "".join(f"; slot ({s['point']}, {s['slot']}) camera {s['camera']} {s['px']:.3g} px "
+                      f"({s['rel']:.2e}), z {s['z']:.4g}, |z|/|X_c| {s['z_over_norm']:.3f}, "
+                      f"cancel {s['cancel']:.4g}" for s in res["slots"][:3]))
 
 
 #: the LM cap of ``hold_to_grid``'s converged rule, for K4 and the grid
@@ -1913,7 +1949,12 @@ def hold_to_grid(torch, tag: str, kept: dict, bacfg, study: bool = False) -> dic
       float64 witness that stopped by ``ftol`` or ``xtol`` can meet it.
 
     A solve passes when the start and the capped cost hold and the capped
-    witness or the converged rule does.  With ``study`` (``--routes``) the
+    witness or the converged rule does.  K4's path per LM state against the
+    float64 witness (``k4_walk``) is printed beside them (``per_state``)
+    and decides nothing: on (a2)'s polish no state resolves (its float32
+    start costs part from float64's by 4.7e-4, slots near the cameras'
+    planes), so no planted defect can fail it there (ROADMAP Queue 3
+    record 22).  With ``study`` (``--routes``) the
     path goes on from the start, chained one LM iteration at a time up to
     the pipeline's cap, every state printed with the grid solver's one
     iteration from it (in float32 and, where the two part, in float64), and
@@ -1983,6 +2024,9 @@ def hold_to_grid(torch, tag: str, kept: dict, bacfg, study: bool = False) -> dic
                          f"float32 {100 * (r['grid'] - w) / w:+.3f} %" if w is not None else "")
                       + ("  MISSES" if r in path["failures"] else ""), flush=True)
         free()
+        walk = k4_walk(torch, name, g, dict(step, max_iterations=kw.get("max_iterations", 50)),
+                       study)
+        free()
         got = rec["final_cost"]
         _, want, n32, stop32, sec = grid(g, **kw)
         print(f"{name}: the pipeline's solve: K4 -> {got:.6g} in {rec['iterations']} LM "
@@ -2004,7 +2048,7 @@ def hold_to_grid(torch, tag: str, kept: dict, bacfg, study: bool = False) -> dic
                  capped_cost=math.isfinite(got) and got <= 1.01 * want,
                  capped_witness=math.isfinite(w) and not near_float64(
                      {"cost": abs(got - w) / w}, {"cost": abs(want - w) / w}, {"cost": 1e-2}),
-                 converged=None)
+                 converged=None, per_state=not walk["failures"])
         if study or not v["capped_witness"]:
             conv = dict(kw, max_iterations=CONVERGED_CAP)
             p64 = g64._replace(mask=g64.mask.to(g64.uv.dtype))
@@ -2047,6 +2091,48 @@ def hold_to_grid(torch, tag: str, kept: dict, bacfg, study: bool = False) -> dic
     kept.clear()
     free()
     return verdicts
+
+
+def k4_walk(torch, name: str, g, kw: dict, study: bool = False) -> dict:
+    """K4's path per LM state on a held solve (``stress.k4_path``, the
+    one-iteration arguments ``kw`` with the pipeline's LM cap), each state
+    whose float32 start costs resolve against the grid PCG solver's step in
+    float64 with CG to convergence, the rule (``stress.k4_rule``) on the
+    states float32 resolves.  Prints the states witnessed and resolved, the
+    failing ones and the worst gaps (every witnessed state with ``study``);
+    returns ``k4_path``'s summary."""
+    from bundle_adjustment_tpu_torch.tools import stress
+
+    walk = stress.k4_path(g, kw)
+    torch.cuda.synchronize()
+    recs = walk.pop("records")
+    print(f"{name}: K4's path per LM state against the grid solver's step in float64 with "
+          f"CG to convergence: {walk['states']} states, {walk['witnessed']} with the float32 "
+          f"start costs within {stress.START_REL} of float64's (at most "
+          f"{walk['worst_start']:.2e} apart over the path; at most {walk['cg']} CG "
+          f"iterations), {walk['resolved']} resolved (the float64 change past "
+          f"{stress.RESOLVE_MARGIN:g} times the float32 spread); on them the worst end-cost "
+          f"gap {walk['worst_end']:.3e} and step gaps "
+          f"{ {k: float(f'{v:.3e}') for k, v in walk['worst_step'].items()} }; K4 decides "
+          f"otherwise on {walk['otherwise_unresolved']} witnessed unresolved states; fails on "
+          f"{walk['failures']}; at the start {walk['slots']['unresolved']} of "
+          f"{walk['slots']['live']} live slots unresolved, the worst "
+          + "; ".join(f"({x['point']}, {x['slot']}) {x['px']:.3g} px ({x['rel']:.2e}), z "
+                      f"{x['z']:.4g}, |z|/|X_c| {x['z_over_norm']:.3f}, cancel {x['cancel']:.4g}"
+                      for x in walk["slots"]["worst"])
+          + f"; {walk['seconds']:.1f} s", flush=True)
+    for r in [r for r in recs if "accepted64" in r and (study or r["fails"])]:
+        print(f"{name}:   state {r['iteration']} (lambda {r['lam']:.3g}): "
+              f"{'resolved' if r['resolved'] else 'unresolved'} (change {r['change']:.4g}, "
+              f"spread {r['band']:.3g}, start costs {r['start_spread']:.2e} apart), K4 "
+              f"{'accepts' if r['k4_accepted'] else 'rejects'}, float64 "
+              f"{'accepts' if r['accepted64'] else 'rejects'}; end-cost gap {r['end_gap']:.3e} "
+              f"(float32 plain {r['plain_end_gap']:.3e}); step gaps K4 "
+              f"{ {k: float(f'{v:.3e}') for k, v in r['k4_gaps'].items()} }, float32 plain "
+              f"{ {k: float(f'{v:.3e}') for k, v in r['plain_gaps'].items()} }; CG "
+              f"{r['cg']['iterations']} to {r['cg']['residual']:.1e}"
+              + (f"; FAILS {r['fails']}" if r["fails"] else ""), flush=True)
+    return walk
 
 
 def held(tag: str, verdicts: dict) -> None:

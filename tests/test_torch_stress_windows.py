@@ -480,7 +480,7 @@ def test_rule_a_holds_k3_to_its_plain_version_per_state(monkeypatch, k3, holds):
         w = _padded(name)
         with _threads(name):
             recs.append(dict(index=name, path32=stress.float32_path(
-                _grid(w), dict(OPTS, n_fixed=int(w["n_fixed"])))))
+                _grid(w), dict(OPTS, n_fixed=int(w["n_fixed"])), witness=False)))
     a = stress.window_rule([dict(r, **_made_up(100.0, 100.0)) for r in recs])["a"]
     assert a["passed"] == holds, a
 
